@@ -1,0 +1,12 @@
+"""PyTorch/CUDA port of the p-bit machine (single GPU, lattice engine).
+
+The JAX package ``repro`` is the reference; this package mirrors its
+layout (``core/``, ``kernels/``, ``engines/``) and imports neither JAX nor
+``repro``.  Entry points run on a CUDA device unless the caller passes
+``device="cpu"`` (the plain PyTorch versions of the kernels, used by the
+CPU tests); with no device given and no CUDA present they raise.
+"""
+
+from .engines.registry import make_engine
+
+__all__ = ["make_engine"]

@@ -1,0 +1,58 @@
+"""Lane packing: independent replicas in the bit lanes of uint32 words.
+
+Port of ``repro.core.packing``'s W-plane lane format.  A lane count L
+occupies ``W = ceil(L / 32)`` stacked word planes: lane ``l`` lives at word
+``l // 32``, bit ``l % 32`` (1 = +1, 0 = -1), and dead lanes are confined
+to the tail of the LAST word.  The bit-plane engine (``precision=
+"bitplane"``) keeps its spins in this form.
+"""
+
+from __future__ import annotations
+
+import torch
+
+from .bits import i64_to_u32, u32_to_i64
+
+__all__ = ["LANE_WIDTH", "MAX_LANE_WORDS", "lane_words", "pack_lanes",
+           "unpack_lanes"]
+
+LANE_WIDTH = 32       # replica lanes per word — the uint32 word width
+MAX_LANE_WORDS = 8    # stacked word planes the packed paths accept (W cap)
+
+
+def lane_words(n_lanes: int) -> int:
+    """Word planes needed for ``n_lanes`` lanes: W = ceil(L / 32)."""
+    n = int(n_lanes)
+    if not 1 <= n <= MAX_LANE_WORDS * LANE_WIDTH:
+        raise ValueError(
+            f"n_lanes must be in [1, {MAX_LANE_WORDS * LANE_WIDTH}] "
+            f"({MAX_LANE_WORDS} stacked uint32 word planes), got {n}")
+    return (n + LANE_WIDTH - 1) // LANE_WIDTH
+
+
+def pack_lanes(x: torch.Tensor) -> torch.Tensor:
+    """(R, ...) +-1 spins -> (W, ...) uint32 word planes, lanes >= R zero."""
+    R = int(x.shape[0])
+    W = lane_words(R)
+    bits = (x > 0).to(torch.int64)
+    npad = W * LANE_WIDTH - R
+    if npad:
+        bits = torch.cat([bits, bits.new_zeros((npad,) + bits.shape[1:])])
+    bits = bits.reshape((W, LANE_WIDTH) + tuple(bits.shape[1:]))
+    sh = torch.arange(LANE_WIDTH, device=x.device).reshape(
+        (1, LANE_WIDTH) + (1,) * (bits.ndim - 2))
+    # lane bits are disjoint, so the sum is a bitwise OR
+    return i64_to_u32((bits << sh).sum(dim=1))
+
+
+def unpack_lanes(w: torch.Tensor, n_lanes: int) -> torch.Tensor:
+    """Inverse of :func:`pack_lanes`: (W, ...) words -> (L, ...) int8."""
+    L = int(n_lanes)
+    W = lane_words(L)
+    if int(w.shape[0]) != W:
+        raise ValueError(f"{L} lanes need {W} word planes, got "
+                         f"leading axis {int(w.shape[0])}")
+    ids = torch.arange(L, device=w.device)
+    sh = (ids % LANE_WIDTH).reshape((L,) + (1,) * (w.ndim - 1))
+    bits = (u32_to_i64(w)[ids // LANE_WIDTH] >> sh) & 1
+    return torch.where(bits != 0, 1, -1).to(torch.int8)

@@ -1,0 +1,173 @@
+"""Build and load the CUDA kernels, and count their launches.
+
+The sources under ``csrc/`` are compiled at first use by ``nvcc`` for
+``sm_90a`` (one process per source, all started together, then one link)
+into a shared library with a plain C interface, loaded with ``ctypes``.
+The library lands in ``build/kernels/`` at the repository root, named by
+a digest of the sources and flags, so a changed source is rebuilt and an
+unchanged one is reused.  There is no fallback: a failed build raises.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import functools
+import hashlib
+import os
+import shutil
+import subprocess
+from pathlib import Path
+
+__all__ = ["SOURCES", "NVCC_FLAGS", "build", "library", "launch_counts",
+           "reset_launch_counts", "check_launch", "ptrs6", "plain_device",
+           "stream_of", "check_sites", "require"]
+
+CSRC = Path(__file__).resolve().parent / "csrc"
+SOURCES = ("pbit_lattice.cu", "pbit_bitplane.cu", "lattice_energy.cu")
+NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
+              "-O3", "--fmad=false", "-Xptxas=-v", "-Xcompiler", "-fPIC")
+BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "kernels"
+
+# Launches per kernel, one per kernel launch by its wrapper and nowhere
+# else; a run resets them and reads them to show which kernels it used.
+launch_counts = {"pbit_brick_sweep_int": 0, "pbit_bitplane_sweep": 0,
+                 "brick_energy": 0}
+
+
+def reset_launch_counts():
+    for k in launch_counts:
+        launch_counts[k] = 0
+
+
+def _nvcc() -> str:
+    for cand in (os.environ.get("CUDA_HOME"), "/usr/local/cuda"):
+        if cand and (Path(cand) / "bin" / "nvcc").exists():
+            return str(Path(cand) / "bin" / "nvcc")
+    found = shutil.which("nvcc")
+    if found is None:
+        raise RuntimeError("nvcc not found (set CUDA_HOME); the repro_torch "
+                           "CUDA kernels are built from source at first use")
+    return found
+
+
+def _digest() -> str:
+    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    for name in sorted(os.listdir(CSRC)):
+        h.update(name.encode())
+        h.update((CSRC / name).read_bytes())
+    return h.hexdigest()[:16]
+
+
+def build() -> Path:
+    """Compile (if needed) and return the path of the kernel library."""
+    lib = BUILD_DIR / f"librepro_torch_kernels_{_digest()}.so"
+    if lib.exists():
+        return lib
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    nvcc = _nvcc()
+    procs = []
+    for src in SOURCES:
+        obj = BUILD_DIR / (Path(src).stem + f".{os.getpid()}.o")
+        cmd = [nvcc, *NVCC_FLAGS, "-c", str(CSRC / src), "-o", str(obj)]
+        procs.append((src, obj, subprocess.Popen(
+            cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+            text=True)))
+    log, failed = [], []
+    for src, _, p in procs:
+        out, _ = p.communicate()
+        log.append(f"== {src}\n{out}")
+        if p.returncode != 0:
+            failed.append(src)
+    (BUILD_DIR / "build.log").write_text("\n".join(log))
+    if failed:
+        raise RuntimeError(f"nvcc failed on {failed}:\n" + "\n".join(log))
+    tmp = BUILD_DIR / f"{lib.name}.{os.getpid()}.tmp"
+    res = subprocess.run(
+        [nvcc, *NVCC_FLAGS, "-shared", "-o", str(tmp),
+         *(str(obj) for _, obj, _ in procs)],
+        stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+    if res.returncode != 0:
+        raise RuntimeError(f"nvcc link failed:\n{res.stdout}")
+    os.replace(tmp, lib)
+    for _, obj, _ in procs:
+        obj.unlink()
+    return lib
+
+
+_P = ctypes.c_void_p
+_I = ctypes.c_int
+_P6 = ctypes.c_void_p * 6
+_SIGNATURES = {
+    # m_in, m_out, s_in, s_out, rows_t, mask, h_q, w6, halos, lut,
+    # lw, R, X, Y, Z, flips, stream
+    "pbit_sweep_int_phase": (_P, _P, _P, _P, _P, _P, _P, _P6, _P6, _P,
+                             _I, _I, _I, _I, _I, _P, _P),
+    # mw_in, mw_out, s_in, s_out, rows_t, mask, signs6, nz6, base, halos,
+    # lut, lw, W, R, X, Y, Z, flips, stream
+    "pbit_bitplane_phase": (_P, _P, _P, _P, _P, _P, _P6, _P6, _P, _P6, _P,
+                            _I, _I, _I, _I, _I, _I, _P, _P),
+    # m, active, h, w6, halos, R, X, Y, Z, out, stream
+    "brick_energy": (_P, _P, _P, _P6, _P6, _I, _I, _I, _I, _P, _P),
+}
+
+
+@functools.cache
+def library() -> ctypes.CDLL:
+    """The loaded kernel library (built on first call in this process)."""
+    lib = ctypes.CDLL(str(build()))
+    for name, argtypes in _SIGNATURES.items():
+        fn = getattr(lib, name)
+        fn.argtypes = argtypes
+        fn.restype = ctypes.c_int
+    return lib
+
+
+def check_launch(name: str, err: int):
+    """Raise on a non-zero cudaError_t returned right after a launch."""
+    if err != 0:
+        raise RuntimeError(f"CUDA launch of {name} failed: cudaError_t "
+                           f"{err}")
+
+
+def ptrs6(tensors) -> "ctypes.Array":
+    return _P6(*(t.data_ptr() for t in tensors))
+
+
+def plain_device(t) -> bool:
+    """True for a CPU tensor (the wrapper then runs the plain version);
+    False for a CUDA tensor (the kernel launches); raises otherwise."""
+    if t.device.type == "cpu":
+        return True
+    if t.is_cuda:
+        return False
+    raise ValueError(f"repro_torch kernels run on CUDA or CPU tensors, "
+                     f"got {t.device}")
+
+
+def stream_of(t) -> int:
+    """PyTorch's current CUDA stream on ``t``'s device, as a pointer."""
+    import torch
+    return torch.cuda.current_stream(t.device).cuda_stream
+
+
+def check_sites(X: int, Y: int, Z: int):
+    """The kernels index the sites of a brick with 32-bit integers (and
+    round the grid up past the last site)."""
+    if X * Y * Z >= 1 << 30:
+        raise ValueError(f"brick {(X, Y, Z)} has 2^30 sites or more; the "
+                         f"kernels index a brick's sites with int32")
+
+
+def require(name: str, t, dtype, shape, device):
+    """Raise unless ``t`` is a contiguous ``dtype`` tensor of ``shape`` on
+    ``device`` — what the kernel reads through a raw pointer."""
+    if t.device != device:
+        raise ValueError(f"{name}: expected a tensor on {device}, got "
+                         f"{t.device}")
+    if t.dtype != dtype:
+        raise TypeError(f"{name}: expected {dtype}, got {t.dtype}")
+    if tuple(t.shape) != tuple(shape):
+        raise ValueError(f"{name}: expected shape {tuple(shape)}, got "
+                         f"{tuple(t.shape)}")
+    if not t.is_contiguous():
+        raise ValueError(f"{name}: expected a contiguous tensor")

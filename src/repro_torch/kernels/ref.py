@@ -1,0 +1,196 @@
+"""Plain PyTorch versions of the lattice kernels.
+
+Same function as each CUDA kernel, written as whole-tensor PyTorch on any
+device: the CPU path of every wrapper, the oracle the tests hold the JAX
+kernels' counterparts to, and what ``chip_smoke.py`` compares each kernel
+with on the card.  Nothing on the card's main path calls them.
+
+Each accepts one brick ``(X, Y, Z)`` or a leading replica axis
+``(R, X, Y, Z)`` (halos then lead with R too).  LFSR states and spin words
+are carried as int64 masked to 32 bits (see ``core/bits.py``); results are
+stored back as uint32.  Accepts look the threshold up directly,
+``u >= lut[row][f + f_off]``: LUT rows are monotone, so this is the
+reference's rank-count accept bit for bit.
+"""
+
+from __future__ import annotations
+
+import torch
+
+from repro_torch.core.bits import MASK32, i64_to_i32, i64_to_u32, u32_to_i64
+from repro_torch.core.packing import LANE_WIDTH
+
+__all__ = ["neighbor_sums_ref", "int_field_ref", "pbit_brick_sweep_int_ref",
+           "bitplane_ones_count_ref", "pbit_bitplane_sweep_ref",
+           "brick_energy_ref"]
+
+
+def _shifted(m, halos):
+    """The six neighbor arrays of a brick (trailing dims X, Y, Z) from its
+    halo planes (trailing dims (Y, Z), (Y, Z), (X, Z), (X, Z), (X, Y),
+    (X, Y))."""
+    xlo, xhi, ylo, yhi, zlo, zhi = halos
+    xm = torch.cat([xlo.unsqueeze(-3), m[..., :-1, :, :]], dim=-3)
+    xp = torch.cat([m[..., 1:, :, :], xhi.unsqueeze(-3)], dim=-3)
+    ym = torch.cat([ylo.unsqueeze(-2), m[..., :, :-1, :]], dim=-2)
+    yp = torch.cat([m[..., :, 1:, :], yhi.unsqueeze(-2)], dim=-2)
+    zm = torch.cat([zlo.unsqueeze(-1), m[..., :-1]], dim=-1)
+    zp = torch.cat([m[..., 1:], zhi.unsqueeze(-1)], dim=-1)
+    return xm, xp, ym, yp, zm, zp
+
+
+def _xorshift32(s):
+    """xorshift32 step on int64-carried uint32 states."""
+    s = s ^ ((s << 13) & MASK32)
+    s = s ^ (s >> 17)
+    return s ^ ((s << 5) & MASK32)
+
+
+def _lut_lookup(lut64, rows_t, idx):
+    """thr[rows_t[r]][idx[r, ...]] for idx (R, ...) and rows_t (R,)."""
+    R = idx.shape[0]
+    thr = lut64[rows_t]                                   # (R, lw)
+    return torch.gather(thr, 1, idx.reshape(R, -1)).reshape(idx.shape)
+
+
+def _batched(m, rows, halos):
+    """Promote one-brick inputs to the replica-batched form."""
+    single = m.dim() == 3
+    if single:
+        m = m.unsqueeze(0)
+        halos = tuple(h.unsqueeze(0) for h in halos)
+    rows = torch.as_tensor(rows, dtype=torch.int64, device=m.device)
+    if rows.dim() == 1:
+        rows = rows[:, None].expand(rows.shape[0], m.shape[0])
+    return single, m, rows, halos
+
+
+def neighbor_sums_ref(m, h, w6, halos):
+    """f32 local field ``h + sum_d w_d m_d`` (the reference's op order)."""
+    wxm, wxp, wym, wyp, wzm, wzp = w6
+    xm, xp, ym, yp, zm, zp = (a.to(torch.float32) for a in
+                              _shifted(m, halos))
+    return (h + wxm * xm + wxp * xp + wym * ym + wyp * yp
+            + wzm * zm + wzp * zp)
+
+
+def int_field_ref(m, h_q, w6_q, halos):
+    """Integer local field ``h_q + sum_d w_q[d] * m_d`` in int32."""
+    i32 = torch.int32
+    f = h_q.to(i32)
+    for w, nb in zip(w6_q, _shifted(m, halos)):
+        f = f + w.to(i32) * nb.to(i32)
+    return f
+
+
+def pbit_brick_sweep_int_ref(m, s, rows, masks, h_q, w6_q, halos, lut):
+    """``len(rows)`` fixed-point sweeps (every color phase, in order)
+    against fixed halos, one LUT row per sweep — shared (S,) or per
+    replica (S, R).  Every site's LFSR advances every phase.  Returns
+    (m, s, flips): int8 spins, uint32 states, int32 flips ((R,), or a
+    scalar for one brick)."""
+    single, m, rows, halos = _batched(m, rows, halos)
+    s = u32_to_i64(s).reshape(m.shape)
+    lut64 = u32_to_i64(lut)
+    lw = int(lut.shape[1])
+    f_off = (lw - 1) // 2
+    flips = torch.zeros(m.shape[0], dtype=torch.int64, device=m.device)
+    for t in range(rows.shape[0]):
+        for c in range(masks.shape[0]):
+            field = int_field_ref(m, h_q, w6_q, halos)
+            s = _xorshift32(s)
+            idx = (field.to(torch.int64) + f_off).clamp(0, lw - 1)
+            accept = (s >> 8) >= _lut_lookup(lut64, rows[t], idx)
+            upd = torch.where(accept, 1, -1).to(torch.int8)
+            new = torch.where(masks[c] != 0, upd, m)
+            flips = flips + (new != m).flatten(1).sum(1)
+            m = new
+    s = i64_to_u32(s)
+    flips = i64_to_i32(flips)
+    if single:
+        return m[0], s[0], flips[0]
+    return m, s, flips
+
+
+def _full_add(a, b, c):
+    """Bit-sliced full adder: per-lane a + b + c as (sum, carry) planes."""
+    s = a ^ b
+    return s ^ c, (a & b) | (c & s)
+
+
+def bitplane_ones_count_ref(mw, signs6, nz6, halos_w):
+    """Per-lane count of +1 neighbor contributions as 3 bit-slice planes
+    (b0, b1, b2), lane r's count ``b0[r] + 2*b1[r] + 4*b2[r]`` in [0, 6]:
+    the carry-save adder tree over ``(nb XOR sign) AND nonzero``.  Takes
+    and returns int64-carried words."""
+    t = [(nb ^ sg) & nz for nb, sg, nz in
+         zip(_shifted(mw, halos_w), signs6, nz6)]
+    s1, c1 = _full_add(t[0], t[1], t[2])
+    s2, c2 = _full_add(t[3], t[4], t[5])
+    b0 = s1 ^ s2
+    k = s1 & s2
+    return b0, c1 ^ c2 ^ k, (c1 & c2) | (k & (c1 ^ c2))
+
+
+def pbit_bitplane_sweep_ref(mw, s, rows, masks_w, signs6, nz6, base,
+                            halos_w, lut):
+    """Multi-spin-coded sweeps over W stacked word planes.
+
+    mw (W, X, Y, Z) uint32 words (bit b of plane w is lane w*32+b);
+    s (R, X, Y, Z) uint32 per-lane LFSR states, R <= 32 W; rows (S,) or
+    (S, R) LUT row indices; masks_w (n_colors, W, X, Y, Z) lane-masked
+    uint32 color masks; signs6 / nz6 / base from ``bitplane_planes``;
+    halos_w six word planes with a leading W axis.  Lane (w, b) is
+    bit-identical to replica w*32+b of :func:`pbit_brick_sweep_int_ref`.
+    Returns (mw, s, flips) with (R,) int32 per-lane flips.
+    """
+    R = int(s.shape[0])
+    dev = mw.device
+    rows = torch.as_tensor(rows, dtype=torch.int64, device=dev)
+    if rows.dim() == 1:
+        rows = rows[:, None].expand(rows.shape[0], R)
+    mw = u32_to_i64(mw)
+    s = u32_to_i64(s)
+    halos_w = tuple(u32_to_i64(h) for h in halos_w)
+    signs6 = tuple(u32_to_i64(x) for x in signs6)
+    nz6 = tuple(u32_to_i64(x) for x in nz6)
+    masks_w = u32_to_i64(masks_w)
+    lut64 = u32_to_i64(lut)
+    lw = int(lut.shape[1])
+    base = base.to(torch.int64)
+    lanes = torch.arange(R, device=dev)
+    word = lanes // LANE_WIDTH
+    bit = (lanes % LANE_WIDTH).reshape(R, 1, 1, 1)
+    W = int(mw.shape[0])
+    npad = W * LANE_WIDTH - R
+    shifts = torch.arange(LANE_WIDTH, device=dev).reshape(1, LANE_WIDTH, 1,
+                                                          1, 1)
+    flips = torch.zeros(R, dtype=torch.int64, device=dev)
+    for t in range(rows.shape[0]):
+        for c in range(masks_w.shape[0]):
+            b0, b1, b2 = bitplane_ones_count_ref(mw, signs6, nz6, halos_w)
+            s = _xorshift32(s)              # every live lane advances
+            cnt = (((b0[word] >> bit) & 1) + 2 * ((b1[word] >> bit) & 1)
+                   + 4 * ((b2[word] >> bit) & 1))
+            idx = (base + 2 * cnt).clamp(0, lw - 1)
+            accept = ((s >> 8) >= _lut_lookup(lut64, rows[t], idx))
+            acc = accept.to(torch.int64)
+            if npad:
+                acc = torch.cat([acc, acc.new_zeros((npad,) + acc.shape[1:])])
+            upd = (acc.reshape((W, LANE_WIDTH) + acc.shape[1:])
+                   << shifts).sum(dim=1)
+            mk = masks_w[c]
+            new = (mw & (mk ^ MASK32)) | (upd & mk)
+            flips = flips + ((((mw ^ new)[word]) >> bit) & 1).flatten(1).sum(1)
+            mw = new
+    return i64_to_u32(mw), i64_to_u32(s), i64_to_i32(flips)
+
+
+def brick_energy_ref(m, active, h, w6, halos):
+    """Brick Ising energy ``sum active * (-1/2 m sum_d w_d m_d - h m)``
+    with f32 h and w6 (the unquantized problem).  Returns an f32 scalar
+    for one brick, (R,) for a replica batch."""
+    field = neighbor_sums_ref(m, h, w6, halos)
+    mc = m.to(torch.float32)
+    e = (-0.5 * mc * (field - h) - h * mc) * active.to(torch.float32)
+    return e.sum(dim=(-3, -2, -1))

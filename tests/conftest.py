@@ -14,3 +14,9 @@ import pytest  # noqa: E402
 @pytest.fixture(scope="session")
 def rng():
     return np.random.default_rng(0)
+
+
+def pytest_configure(config):
+    config.addinivalue_line(
+        "markers", "cuda: needs a CUDA device (the port's CUDA kernels); "
+        "skips without one")

@@ -1,0 +1,99 @@
+"""The port stands alone: no JAX, nothing of the JAX package, no CPU
+fallback.
+
+Each check runs in a fresh interpreter, since this test process has
+already imported JAX for the parity tests.
+"""
+
+import ast
+import os
+import shutil
+import subprocess
+import sys
+from pathlib import Path
+
+ROOT = Path(__file__).resolve().parents[1]
+SRC = ROOT / "src"
+PORT = SRC / "repro_torch"
+
+
+def run_python(code: str, cwd=ROOT, hide_cuda=True):
+    env = dict(os.environ, PYTHONPATH=str(SRC))
+    if hide_cuda:
+        env["CUDA_VISIBLE_DEVICES"] = ""
+    return subprocess.run([sys.executable, "-c", code], cwd=cwd, env=env,
+                          capture_output=True, text=True, timeout=120)
+
+
+def port_modules():
+    mods = []
+    for path in sorted(PORT.rglob("*.py")):
+        rel = path.relative_to(SRC).with_suffix("")
+        parts = rel.parts[:-1] if rel.name == "__init__" else rel.parts
+        mods.append(".".join(parts))
+    return mods
+
+
+def test_importing_every_port_module_loads_no_jax():
+    mods = port_modules()
+    assert "repro_torch.kernels.ops" in mods and len(mods) > 20
+    code = (
+        "import importlib, sys\n"
+        f"for name in {mods!r}:\n"
+        "    importlib.import_module(name)\n"
+        "bad = sorted(m for m in sys.modules if m == 'jax' or "
+        "m.startswith('jax.') or m == 'repro' or m.startswith('repro.'))\n"
+        "print('LOADED', bad)\n")
+    out = run_python(code)
+    assert out.returncode == 0, out.stderr
+    assert "LOADED []" in out.stdout
+
+
+def imported_roots(path: Path):
+    tree = ast.parse(path.read_text(), filename=str(path))
+    for node in ast.walk(tree):
+        if isinstance(node, ast.Import):
+            for alias in node.names:
+                yield node.lineno, alias.name.split(".")[0]
+        elif isinstance(node, ast.ImportFrom) and node.level == 0:
+            yield node.lineno, (node.module or "").split(".")[0]
+
+
+def test_no_source_of_the_port_imports_jax_or_the_reference():
+    # the card's tests run where only PyTorch is installed
+    files = sorted(PORT.rglob("*.py")) + [ROOT / "chip_smoke.py",
+                                          ROOT / "tests" / "test_torch_cuda.py"]
+    found = [(str(p.relative_to(ROOT)), line, root)
+             for p in files for line, root in imported_roots(p)
+             if root in ("jax", "jaxlib", "repro")]
+    assert found == []
+
+
+def test_entry_points_raise_without_cuda():
+    code = (
+        "import torch\n"
+        "assert not torch.cuda.is_available()\n"
+        "from repro_torch import make_engine\n"
+        "from repro_torch.core.lattice import build_ea3d_lattice\n"
+        "for fn in (lambda: make_engine('lattice', L=4, precision='int8'),\n"
+        "           lambda: build_ea3d_lattice(4)):\n"
+        "    try:\n"
+        "        fn()\n"
+        "    except RuntimeError as e:\n"
+        "        assert 'CUDA' in str(e), e\n"
+        "    else:\n"
+        "        raise SystemExit('ran without CUDA')\n"
+        "h = make_engine('lattice', L=4, precision='int8', device='cpu')\n"
+        "print('CPU', h.device)\n")
+    out = run_python(code)
+    assert out.returncode == 0, out.stderr
+    assert "CPU cpu" in out.stdout
+
+
+def test_chip_smoke_fails_without_cuda_or_outside_the_repo(tmp_path):
+    code = "import runpy; runpy.run_path('chip_smoke.py', run_name='__main__')"
+    out = run_python(code)
+    assert out.returncode != 0 and '"ok"' not in out.stdout
+    shutil.copy(ROOT / "chip_smoke.py", tmp_path / "chip_smoke.py")
+    out = run_python(code, cwd=tmp_path, hide_cuda=False)
+    assert out.returncode != 0 and '"ok"' not in out.stdout
