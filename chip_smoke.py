@@ -8,14 +8,22 @@ Phases; every check raises on failure and the script then exits non-zero:
 1. build the CUDA kernels from ``src/repro_torch/kernels/csrc/`` (nvcc,
    one process per source) and print the card's name and power limit;
 2. hold each kernel to its plain PyTorch version on the card, at the
-   L=100 shapes of the main path: the int8 sweep and the bit-plane sweep
-   bitwise, the energy exactly on the +-J problem;
+   L=100 shapes of the main path: the int8 sweep, the int8 phase and the
+   bit-plane sweep bitwise, the energy exactly on the +-J problem (and
+   the same for every x tile ``bx``); the f32 sweep and the f32 phase
+   with LFSR states bitwise and spins bitwise or differing only at sites
+   within 8 ulp of the tanh decision boundary (counted and printed);
 3. drive the L=100 EA3D main path through ``make_engine("lattice", ...)``
-   with no ``impl`` given: the launch counters of every kernel are above 0,
-   the first 16 sweeps equal an ``impl="ref"`` run on the card bitwise, the
-   golden values recomputed from the JAX reference by
-   ``tests/test_torch_golden.py`` match, and bit-plane lane (w, b) equals
-   int8 replica w*32+b;
+   with no ``impl`` given, each configuration with the launch counters
+   set to 0 just before it and read just after (every kernel it runs
+   above 0): int8, bit-plane, f32 (the default precision, with and
+   without the paper's s{4}{1} format) and the per-phase dispatch
+   (``fused=False``, ``kernel_bx``).  The first 16 sweeps equal an
+   ``impl="ref"`` run on the card bitwise (int8, bit-plane), the
+   per-phase runs equal the fused ones bitwise, the golden values
+   recomputed from the JAX reference by ``tests/test_torch_golden.py``
+   match (f32 to 0.5%, its LFSR digest exactly), and bit-plane lane
+   (w, b) equals int8 replica w*32+b;
 4. time the main path (p-bit updates per second, the repository's
    "flips/s") and each kernel against its plain version and its bound;
 5. print one JSON line of kernels, the card's name and power limit, and
@@ -41,7 +49,25 @@ SEED = 0
 SYNC = 8
 MAIN_SWEEPS = 256
 MAIN_POINTS = [16, 64, 128, 256]
-MAIN_RUNS = (("int8", 4), ("bitplane", 64))   # (precision, replicas)
+# the reference's x tile of the per-phase kernels (kernel_bx); divides L
+BX = 25
+# The main path's configurations: label -> make_engine keywords (fmt by
+# name), each run at L=100 over ea_schedule(MAIN_SWEEPS).
+MAIN_RUNS = {
+    "int8 R=4": dict(precision="int8", replicas=4),
+    "bitplane R=64": dict(precision="bitplane", replicas=64),
+    "f32 R=4": dict(replicas=4),
+    "f32 s41 R=4": dict(replicas=4, fmt="S41"),
+    "int8 per-phase R=4": dict(precision="int8", replicas=4, fused=False),
+    "f32 per-phase bx R=4": dict(replicas=4, kernel_bx=BX),
+}
+PROFILED = ("int8 R=4", "bitplane R=64", "f32 R=4", "int8 per-phase R=4",
+            "f32 per-phase bx R=4")
+KERNELS = ("pbit_brick_sweep_int", "pbit_bitplane_sweep", "brick_energy",
+           "pbit_brick_sweep", "pbit_brick_update_int", "pbit_brick_update")
+# an f32 site may be decided differently from the plain version only
+# within this many ulp of tanh(act) of its boundary
+TANH_ULPS = 8
 
 # The JAX reference at L=100, seed 0, ea_schedule(16), record points
 # [8, 16], sync_every=8 (int8, R=2; bit-plane R=32 lanes 0-1 equal it).
@@ -53,6 +79,12 @@ GOLDEN = {
                 "2634147068cdbbd884f3dbe2bf5fba98",
     "s_sha256": "905250766f8dad54e31f56f3f05db473"
                 "4793481ad86ce2426567059e5a87975d",
+}
+# The same run at precision="f32" (the default); its LFSR states do not
+# depend on the precision, so GOLDEN["s_sha256"] holds for it too.
+GOLDEN_F32 = {
+    "energies": [[-1588460.0, -1588156.0], [-1640684.0, -1640154.0]],
+    "flips": [1371830, 1372900],
 }
 
 # H100 SXM published peaks (NVIDIA data sheet): HBM3 bandwidth, and the
@@ -159,10 +191,7 @@ class Smoke:
         self.phase_kernels()
         self.phase_main_path()
         self.phase_timing(card)
-        print(json.dumps({"kernels": [self.results[k] for k in
-                                      ("pbit_brick_sweep_int",
-                                       "pbit_bitplane_sweep",
-                                       "brick_energy")]}))
+        print(json.dumps({"kernels": [self.results[k] for k in KERNELS]}))
         print(card)
         print(json.dumps({"ok": True, "device": {
             "platform": "gpu", "kind": t.cuda.get_device_name(0),
@@ -200,8 +229,8 @@ class Smoke:
                                                       pbit_brick_sweep_int)
         print("== 2. kernels against their plain versions (L=100)",
               flush=True)
-        rng = np.random.default_rng(1234)
-        prob = build_ea3d_lattice(L, seed=SEED, device=self.dev)
+        self.prob = prob = build_ea3d_lattice(L, seed=SEED, device=self.dev)
+        rng = self.rng = np.random.default_rng(1234)
         n = L ** 3
         betas = ea_schedule(MAIN_SWEEPS).beta_array()
         table = beta_table(betas)
@@ -284,9 +313,133 @@ class Smoke:
             check(self.same(got, want),
                   f"energy == plain, exact on +-J (R={R}, E[0]="
                   f"{float(want[0])})")
+            check(self.same(brick_energy(*args, bx=BX), got),
+                  f"energy with bx={BX} == bx=None (R={R})")
         self.results["brick_energy"] = {"max_abs_err": max(errs)}
         self.inputs_energy = args
         self.n = n
+        self.phase_kernels_f32_and_per_phase(betas, table, S)
+
+    def phase_kernels_f32_and_per_phase(self, betas, table, S: int):
+        """The f32 sweep and the two single-phase kernels against their
+        plain versions, on the int8 check's L=100, R=4 spins and states."""
+        t = self.torch
+        from repro_torch import S41
+        from repro_torch.kernels import ref
+        from repro_torch.kernels.pbit_lattice import (pbit_brick_sweep,
+                                                      pbit_brick_update,
+                                                      pbit_brick_update_int)
+        rng, prob = self.rng, self.prob
+        m, s, masks, h_q, w6_q, halos, lut, _ = self.inputs_int8
+        R = int(m.shape[0])
+        on_card = lambda a: t.from_numpy(  # noqa: E731
+            np.ascontiguousarray(a)).to(self.dev)
+
+        # f32 sweep: shared and per-replica betas, fmt None and s{4}{1}
+        errs = []
+        for fmt in (None, S41):
+            for b in (betas[[0, 100, 255]],
+                      rng.uniform(0.3, 5.0, size=(S, R)).astype(np.float32)):
+                args = (m, s, on_card(b), masks, prob.h, prob.w6, halos)
+                got = pbit_brick_sweep(*args, fmt=fmt)
+                want = ref.pbit_brick_sweep_ref(*args, fmt=fmt)
+                t.cuda.synchronize()
+                errs += [self.max_abs(g, w) for g, w in zip(got, want)]
+                what = (f"f32 sweep == plain (R={R}, S={S}, betas "
+                        f"{tuple(b.shape)}, fmt {fmt}, flips "
+                        f"{want[2].tolist()})")
+                self.check_f32(what, got, want, lambda what, args=args,
+                               fmt=fmt, got=got: self.f32_steps(
+                                   what, args, fmt, got))
+        self.results["pbit_brick_sweep"] = {"max_abs_err": max(errs)}
+        self.inputs_f32 = (m, s, on_card(betas[:SYNC]), masks, prob.h,
+                           prob.w6, halos)
+
+        # int8 phase: shared and per-replica LUT rows, bx None and BX
+        errs = []
+        for bx in (None, BX):
+            for row in (3, on_card(rng.integers(0, len(table), size=R)
+                                   .astype(np.int32))):
+                args = (m, s, row, masks[0], h_q, w6_q, halos, lut)
+                got = pbit_brick_update_int(*args, bx=bx)
+                want = ref.pbit_brick_update_int_ref(*args)
+                t.cuda.synchronize()
+                errs += [self.max_abs(g, w) for g, w in zip(got, want)]
+                check(all(self.same(g, w) for g, w in zip(got, want)),
+                      f"int8 phase == plain, bitwise (R={R}, bx={bx}, row "
+                      f"{'per replica' if isinstance(row, t.Tensor) else row})")
+        self.results["pbit_brick_update_int"] = {"max_abs_err": max(errs)}
+        self.inputs_update_int = (m, s, row, masks[0], h_q, w6_q, halos,
+                                  lut)
+
+        # f32 phase: per-replica betas, fmt None and s{4}{1}, bx None and BX
+        errs = []
+        for bx in (None, BX):
+            for fmt in (None, S41):
+                beta = on_card(rng.uniform(0.3, 5.0, size=R)
+                               .astype(np.float32))
+                args = (m, s, beta, masks[1], prob.h, prob.w6, halos)
+                got = pbit_brick_update(*args, fmt=fmt, bx=bx)
+                want = ref.pbit_brick_update_ref(*args, fmt=fmt)
+                t.cuda.synchronize()
+                errs += [self.max_abs(g, w) for g, w in zip(got, want)]
+                self.check_f32(
+                    f"f32 phase == plain (R={R}, bx={bx}, fmt {fmt})", got,
+                    want, lambda what, args=args, fmt=fmt, got=got, want=want:
+                    self.f32_boundary(what, args, fmt, got[0], want[0]))
+        self.results["pbit_brick_update"] = {"max_abs_err": max(errs)}
+        self.inputs_update_f32 = (m, s, beta, masks[1], prob.h, prob.w6,
+                                  halos)
+
+    def check_f32(self, what, got, want, boundary_ok):
+        """An f32 kernel's (m, s[, flips]) against its plain version: LFSR
+        states bitwise; spins (and flips) bitwise, or else every differing
+        site confirmed by ``boundary_ok(what)`` to lie within TANH_ULPS ulp
+        of the decision boundary."""
+        check(self.same(got[1], want[1]), f"{what}: LFSR states bitwise")
+        n_diff = int((got[0] != want[0]).sum())
+        print(f"  {what}: {n_diff} sites decided differently", flush=True)
+        if n_diff == 0:
+            check(all(self.same(g, w) for g, w in zip(got, want)),
+                  f"{what}: spins bitwise")
+        else:
+            boundary_ok(what)
+
+    def f32_boundary(self, what, args, fmt, got_m, want_m):
+        """One f32 phase: every site where the kernel and the plain version
+        disagree lies within TANH_ULPS ulp of the boundary."""
+        from repro_torch.kernels import ref
+        m, s, beta, _, h, w6, halos = args
+        ulps = ref.decision_ulps_ref(m, s, beta, h, w6, halos, fmt)
+        diff = got_m != want_m
+        far = int((diff & (ulps > TANH_ULPS)).sum())
+        check(far == 0, f"{what}: {int(diff.sum())} differing sites, each "
+              f"within {TANH_ULPS} ulp of the boundary ({far} beyond)")
+
+    def f32_steps(self, what, args, fmt, got):
+        """An f32 sweep whose spins differ from the plain sweep's: run the
+        kernel one phase at a time, each from its own last output, and hold
+        each phase to one plain phase from the same input (LFSR bitwise,
+        differing sites within TANH_ULPS ulp); the phases in turn must give
+        the whole call's result bitwise."""
+        from repro_torch.kernels import ref
+        from repro_torch.kernels.pbit_lattice import pbit_brick_sweep
+        m, s, betas, masks, h, w6, halos = args
+        for ti in range(int(betas.shape[0])):
+            for c in range(int(masks.shape[0])):
+                km, ks, _ = pbit_brick_sweep(m, s, betas[ti:ti + 1],
+                                             masks[c:c + 1], h, w6, halos,
+                                             fmt=fmt)
+                pm, ps = ref.pbit_brick_update_ref(m, s, betas[ti], masks[c],
+                                                   h, w6, halos, fmt)
+                check(self.same(ks, ps), f"{what}, phase ({ti}, {c}): LFSR "
+                      f"states bitwise")
+                self.f32_boundary(f"{what}, phase ({ti}, {c})",
+                                  (m, s, betas[ti], masks[c], h, w6, halos),
+                                  fmt, km, pm)
+                m, s = km, ks
+        check(self.same(m, got[0]) and self.same(s, got[1]),
+              f"{what}: the sweep equals its phases run one at a time")
 
     def phase_main_path(self):
         t = self.torch
@@ -321,85 +474,136 @@ class Smoke:
         check(st.flips[:2].tolist() == GOLDEN["flips"],
               "bit-plane R=32 golden flips, lanes 0-1")
 
-        # the first 16 sweeps of the main configuration against impl="ref"
-        first = {}
-        for prec, R in MAIN_RUNS + (("int8", 64),):
-            states = {}
-            for impl in (("auto", "ref") if (prec, R) in MAIN_RUNS
-                         else ("auto",)):
-                h = make_engine("lattice", L=L, seed=SEED, replicas=R,
-                                precision=prec, impl=impl)
-                cur = h.start_recorded(h.init_state(seed=SEED),
-                                       ea_schedule(MAIN_SWEEPS), MAIN_POINTS,
-                                       sync_every=SYNC)
-                cur.advance(1)
-                check(cur.sweeps_done == 16 and cur.points_recorded == 1,
-                      f"{prec} R={R} impl={impl}: first chunk is 16 sweeps")
-                states[impl] = (cur.state, cur.record().energies,
-                                cur.flips_per_replica())
-            first[(prec, R)] = states["auto"]
-            if "ref" not in states:
-                continue
-            (a, ea, fa), (b, eb, fb) = states["auto"], states["ref"]
-            check(self.same(a.m, b.m) and self.same(a.s, b.s) and
-                  self.same(a.flips, b.flips) and self.same(ea, eb) and
-                  (fa == fb).all() and
-                  all(self.same(x, y) for x, y in zip(a.halos, b.halos)),
-                  f"{prec} R={R}: 16 sweeps on the kernels == impl='ref' "
-                  f"on the card, bitwise (E[0]={float(ea[0, 0])})")
+        # the default precision (f32): the same run, held to JAX's f32
+        h = make_engine("lattice", L=L, seed=SEED, replicas=2)
+        check(h.device.type == "cuda" and h.precision == "f32" and
+              h.kernel_path == "fused",
+              f"default engine: {h.precision} on {h.device}, kernel_path "
+              f"{h.kernel_path}")
+        st, rec = h.run_recorded(h.init_state(seed=SEED), ea_schedule(16),
+                                 [8, 16], sync_every=SYNC)
+        s_sha = hashlib.sha256(u32_to_numpy(st.s).tobytes()).hexdigest()
+        check(s_sha == GOLDEN["s_sha256"], f"f32 R=2 sha256(s) {s_sha[:16]}")
+        e_rel = float(np.max(np.abs(rec.energies.cpu().numpy()
+                                    / np.array(GOLDEN_F32["energies"]) - 1)))
+        f_rel = float(np.max(np.abs(st.flips.cpu().numpy()
+                                    / np.array(GOLDEN_F32["flips"]) - 1)))
+        check(e_rel < 0.005 and f_rel < 0.005,
+              f"f32 R=2 energies {rec.energies.tolist()} and flips "
+              f"{st.flips.tolist()} within 0.5% of JAX f32 (max relative "
+              f"differences {e_rel:.3e}, {f_rel:.3e})")
 
-        # bit-plane lane (w, b) == int8 replica w*32+b
-        (bp, ebp, fbp), (i8, ei8, fi8) = first[("bitplane", 64)], \
-            first[("int8", 64)]
+        # the first 16 sweeps: kernels == impl="ref" (int8, bit-plane),
+        # per-phase == fused (int8, f32), bit-plane lanes == int8 replicas
+        first16 = {k: v for k, v in MAIN_RUNS.items() if "s41" not in k}
+        first16.update({
+            "int8 R=4 ref": dict(MAIN_RUNS["int8 R=4"], impl="ref"),
+            "bitplane R=64 ref": dict(MAIN_RUNS["bitplane R=64"],
+                                      impl="ref"),
+            "int8 R=64": dict(precision="int8", replicas=64),
+            "f32 per-phase R=4": dict(replicas=4, fused=False)})
+        first = {}
+        for label, kw in first16.items():
+            h = self.engine(kw)
+            cur = h.start_recorded(h.init_state(seed=SEED),
+                                   ea_schedule(MAIN_SWEEPS), MAIN_POINTS,
+                                   sync_every=SYNC)
+            cur.advance(1)
+            check(cur.sweeps_done == 16 and cur.points_recorded == 1,
+                  f"{label} ({h.kernel_path}): first chunk is 16 sweeps")
+            first[label] = (cur.state, cur.record().energies,
+                            cur.flips_per_replica())
+
+        def same_run(x, y):
+            (a, ea, fa), (b, eb, fb) = first[x], first[y]
+            return (self.same(a.m, b.m) and self.same(a.s, b.s) and
+                    self.same(a.flips, b.flips) and self.same(ea, eb) and
+                    bool((fa == fb).all()) and
+                    all(self.same(p, q) for p, q in zip(a.halos, b.halos)))
+        for x, y in (("int8 R=4", "int8 R=4 ref"),
+                     ("bitplane R=64", "bitplane R=64 ref"),
+                     ("int8 per-phase R=4", "int8 R=4"),
+                     ("f32 per-phase R=4", "f32 R=4"),
+                     ("f32 per-phase bx R=4", "f32 R=4")):
+            check(same_run(x, y), f"16 sweeps: {x} == {y}, bitwise (spins, "
+                  f"LFSR, halos, flips, energies; E[0]="
+                  f"{float(first[x][1][0, 0])})")
+
+        (bp, ebp, fbp), (i8, ei8, fi8) = first["bitplane R=64"], \
+            first["int8 R=64"]
         check(self.same(unpack_lanes(bp.m, 64), i8.m) and
               self.same(bp.s, i8.s) and self.same(bp.flips, i8.flips) and
               self.same(ebp, ei8) and (fbp == fi8).all(),
               "bit-plane lane (w, b) == int8 replica w*32+b (R=64, 16 "
               "sweeps: spins, LFSR, flips, energies)")
 
-        # the main path, launches counted
-        handles = {run: make_engine("lattice", L=L, seed=SEED,
-                                    replicas=run[1], precision=run[0])
-                   for run in MAIN_RUNS}
-        inits = {run: hh.init_state(seed=SEED) for run, hh in handles.items()}
+        # the main path: each configuration's launches counted on their own
+        handles = {label: self.engine(kw) for label, kw in MAIN_RUNS.items()}
+        inits = {label: hh.init_state(seed=SEED)
+                 for label, hh in handles.items()}
         t.cuda.synchronize()
-        _build.reset_launch_counts()
         self.rates = {}
-        for run, hh in handles.items():
+        self.launches = dict.fromkeys(KERNELS, 0)
+        for label, hh in handles.items():
+            _build.reset_launch_counts()
             t0 = time.perf_counter()
-            st, rec = hh.run_recorded(inits[run], ea_schedule(MAIN_SWEEPS),
+            st, rec = hh.run_recorded(inits[label], ea_schedule(MAIN_SWEEPS),
                                       MAIN_POINTS, sync_every=SYNC)
             t.cuda.synchronize()
             dt = time.perf_counter() - t0
-            prec, R = run
+            counts = {k: v for k, v in _build.launch_counts.items() if v}
+            for k, v in counts.items():
+                self.launches[k] += v
+            R = hh.replicas
             e = rec.energies
-            self.rates[run] = (L ** 3 * R * MAIN_SWEEPS / dt, dt, rec.flips)
+            self.rates[label] = (L ** 3 * R * MAIN_SWEEPS / dt, dt, rec.flips)
             check(tuple(e.shape) == (len(MAIN_POINTS), R) and
                   bool(t.isfinite(e).all()),
-                  f"{prec} R={R}: energies finite, shape {tuple(e.shape)}")
+                  f"{label}: energies finite, shape {tuple(e.shape)}")
             per_spin = (e[-1] / L ** 3).cpu()
             # the 3D +-J EA ground state is near -1.70 per spin; an anneal
             # of 256 sweeps ends a little above it
             check(bool((e[-1] < e[0]).all()) and
                   bool(((per_spin > -1.75) & (per_spin < -1.55)).all()),
-                  f"{prec} R={R}: annealed, E/N at {MAIN_SWEEPS} sweeps in "
+                  f"{label}: annealed, E/N at {MAIN_SWEEPS} sweeps in "
                   f"[{float(per_spin.min()):.4f}, "
                   f"{float(per_spin.max()):.4f}]")
-        self.launches = dict(_build.launch_counts)
+            sweep = {"bitplane": "pbit_bitplane_sweep",
+                     "int8": "pbit_brick_sweep_int",
+                     "f32": "pbit_brick_sweep"}[hh.precision]
+            if hh.kernel_path == "per_phase":
+                sweep = {"int8": "pbit_brick_update_int",
+                         "f32": "pbit_brick_update"}[hh.precision]
+            check(counts.get(sweep, 0) > 0 and
+                  counts.get("brick_energy", 0) > 0,
+                  f"{label} ({hh.kernel_path}) launched {counts}")
         for name, count in self.launches.items():
             check(count > 0, f"main path launched {name} {count} times")
         self.handles, self.inits = handles, inits
+
+    def engine(self, kw):
+        """``make_engine("lattice", L=100)`` of the main path with ``kw``
+        (``fmt`` by name), on the card with no ``impl`` unless given."""
+        from repro_torch import make_engine
+        import repro_torch
+        kw = dict(kw)
+        if "fmt" in kw:
+            kw["fmt"] = getattr(repro_torch, kw["fmt"])
+        return make_engine("lattice", L=L, seed=SEED, **kw)
 
     def phase_timing(self, card: str):
         t = self.torch
         from repro_torch.kernels import ref
         from repro_torch.kernels.lattice_energy import brick_energy
         from repro_torch.kernels.pbit_bitplane import pbit_bitplane_sweep
-        from repro_torch.kernels.pbit_lattice import pbit_brick_sweep_int
+        from repro_torch.kernels.pbit_lattice import (pbit_brick_sweep,
+                                                      pbit_brick_sweep_int,
+                                                      pbit_brick_update,
+                                                      pbit_brick_update_int)
         print(f"== 4. timing on {card}", flush=True)
-        for (prec, R), (rate, dt, flips) in self.rates.items():
-            unit = "lane-flips/s" if prec == "bitplane" else "flips/s"
-            print(f"  main path {prec} R={R}: {MAIN_SWEEPS} sweeps in "
+        for label, (rate, dt, flips) in self.rates.items():
+            unit = "lane-flips/s" if "bitplane" in label else "flips/s"
+            print(f"  main path {label}: {MAIN_SWEEPS} sweeps in "
                   f"{dt:.4f} s = {rate:.4e} {unit} (p-bit updates; "
                   f"{flips} accepted flips) on {card}", flush=True)
         self.profile_main_path(card)
@@ -443,6 +647,39 @@ class Smoke:
                     lambda: brick_energy(*args),
                     lambda: ref.brick_energy_ref(*args),
                     byts, ops, f"R={R} spins, 1 launch")
+
+        # f32: 29 B of shared f32/int8 constants per site (h, six w, the
+        # mask of each color); about 30 operations per replica-site-phase
+        # (the field's 12, the LFSR's 6, the draw's 4, the activation, the
+        # tanh counted once, the compare and the masked write)
+        args = self.inputs_f32
+        m, masks = args[0], args[3]
+        R, nc = int(m.shape[0]), int(masks.shape[0])
+        byts = (2 * 5 * R * n + (nc + 28) * n + R * plane + 4 * R
+                + 4 * SYNC * R)
+        ops = 30 * R * n * nc * SYNC
+        self._timed("pbit_brick_sweep", "src/repro_torch/kernels/csrc/"
+                    "pbit_lattice.cu", "src/repro/kernels/pbit_lattice.py:287",
+                    lambda: pbit_brick_sweep(*args),
+                    lambda: ref.pbit_brick_sweep_ref(*args),
+                    byts, ops, f"{SYNC} sweeps, R={R}, {SYNC * nc} launches")
+
+        # one phase: each input read once and each output written once
+        args = self.inputs_update_int
+        lut = args[-1]
+        byts = 2 * 5 * R * n + 8 * n + R * plane + 4 * lut.numel() + 4 * R
+        self._timed("pbit_brick_update_int", "src/repro_torch/kernels/csrc/"
+                    "pbit_lattice.cu", "src/repro/kernels/pbit_lattice.py:450",
+                    lambda: pbit_brick_update_int(*args),
+                    lambda: ref.pbit_brick_update_int_ref(*args),
+                    byts, 25 * R * n, f"one phase, R={R}, 1 launch")
+        args = self.inputs_update_f32
+        byts = 2 * 5 * R * n + 29 * n + R * plane + 4 * R
+        self._timed("pbit_brick_update", "src/repro_torch/kernels/csrc/"
+                    "pbit_lattice.cu", "src/repro/kernels/pbit_lattice.py:340",
+                    lambda: pbit_brick_update(*args),
+                    lambda: ref.pbit_brick_update_ref(*args),
+                    byts, 30 * R * n, f"one phase, R={R}, 1 launch")
         for name, r in self.results.items():
             print(f"  {name}: {r['ms']:.4f} ms ({r['work']}), plain "
                   f"{r['plain_ms']:.4f} ms, bound {r['bound_ms']:.4f} ms "
@@ -457,11 +694,12 @@ class Smoke:
         t = self.torch
         from torch.profiler import ProfilerActivity, profile
         from repro_torch.core.annealing import ea_schedule
-        for (prec, R), hh in self.handles.items():
+        for label in PROFILED:
+            hh = self.handles[label]
             with profile(activities=[ProfilerActivity.CPU,
                                      ProfilerActivity.CUDA]) as prof:
                 t0 = time.perf_counter()
-                hh.run_recorded(self.inits[(prec, R)],
+                hh.run_recorded(self.inits[label],
                                 ea_schedule(MAIN_SWEEPS), MAIN_POINTS,
                                 sync_every=SYNC)
                 t.cuda.synchronize()
@@ -471,10 +709,10 @@ class Smoke:
                     if e.self_device_time_total > 0]
             busy = sum(us for _, _, us in rows) / 1e6
             if not rows:
-                print(f"  profile {prec} R={R}: the profiler saw no device "
+                print(f"  profile {label}: the profiler saw no device "
                       f"time; device busy share not measured", flush=True)
                 continue
-            print(f"  profile {prec} R={R}: wall {wall:.4f} s under the "
+            print(f"  profile {label}: wall {wall:.4f} s under the "
                   f"profiler, device busy {busy:.4f} s "
                   f"({100 * busy / wall:.1f}%) on {card}", flush=True)
             for key, count, us in sorted(rows, key=lambda r: -r[2])[:6]:

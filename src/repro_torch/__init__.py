@@ -7,6 +7,7 @@ layout (``core/``, ``kernels/``, ``engines/``) and imports neither JAX nor
 CPU tests); with no device given and no CUDA present they raise.
 """
 
+from .core.pbit import S41, S43, S46, FixedPoint
 from .engines.registry import make_engine
 
-__all__ = ["make_engine"]
+__all__ = ["make_engine", "FixedPoint", "S41", "S43", "S46"]

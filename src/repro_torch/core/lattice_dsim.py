@@ -1,12 +1,14 @@
 """Lattice DSIM on one GPU: one brick, no mesh (the production engine's
 single-device form).
 
-Port of ``repro.core.lattice_dsim.LatticeDSIM`` at ``precision="int8"``
-and ``"bitplane"``.  Each chunk runs ``sync_every`` sweeps of the fused
-kernel against halos held fixed, then one halo exchange.  In a single
-brick the exchange is local: the x and y halos are zero (open chains) and
-the z halo is the brick's own opposite face (the periodic ring of one
-brick) as of the last exchange — never the live spins.
+Port of ``repro.core.lattice_dsim.LatticeDSIM`` at ``precision="f32"``,
+``"int8"`` and ``"bitplane"``.  Each chunk runs ``sync_every`` sweeps
+against halos held fixed — one fused sweep call, or on the per-phase path
+(``fused=False`` or ``kernel_bx``) one single-phase call per color — then
+one halo exchange.  In a single brick the exchange is local: the x and y
+halos are zero (open chains) and the z halo is the brick's own opposite
+face (the periodic ring of one brick) as of the last exchange — never the
+live spins.
 
 Replicas ride a leading axis R; on the bit-plane path they are the bit
 lanes of W = ceil(R / 32) stacked uint32 word planes, lane (w, b)
@@ -32,7 +34,9 @@ from .pbit import (FixedPoint, LUT_SELECT_MAX_WIDTH, bitplane_planes,
 from repro_torch.engines.base import (RecordedCursor, check_lanes,
                                       run_recorded_driver, spawn_seeds)
 from repro_torch.kernels.ops import (brick_energy_op, pbit_bitplane_sweep_op,
-                                     pbit_sweep_int_op, resolve_impl)
+                                     pbit_sweep_int_op, pbit_sweep_op,
+                                     pbit_update_int_op, pbit_update_op,
+                                     resolve_impl)
 
 __all__ = ["LatticeDSIM", "LatticeState", "BitplaneLatticeState",
            "to_device"]
@@ -84,24 +88,30 @@ def _face(m: torch.Tensor, idx: slice) -> torch.Tensor:
 
 
 class LatticeDSIM:
-    """One-brick lattice engine, ``precision`` "int8" or "bitplane".
+    """One-brick lattice engine, ``precision`` "f32", "int8" or
+    "bitplane".
 
-    int8: couplings quantized to int8 at init with one per-problem scale,
-    int32 fields, and the uint32 LFSR draw compared against a per-(beta,
-    field) threshold LUT; staircases become LUT row indices and ``fmt``
-    folds into the LUT.  bitplane: the same pipeline multi-spin coded.
-    ``impl`` picks the kernels ("auto": CUDA kernels on a CUDA device,
-    plain PyTorch on the CPU; "ref" forces the plain versions)."""
+    f32 (the reference's default): f32 fields and ``tanh(beta * field) +
+    r >= 0``, ``fmt`` rounding the activation.  int8: couplings quantized
+    to int8 at init with one per-problem scale, int32 fields, and the
+    uint32 LFSR draw compared against a per-(beta, field) threshold LUT;
+    staircases become LUT row indices and ``fmt`` folds into the LUT.
+    bitplane: the int8 pipeline multi-spin coded.  ``fused=False`` or
+    ``kernel_bx`` (the reference's x tile, which forces per-phase) runs
+    one single-phase kernel per color instead of the fused sweep, bitwise
+    the same; the bit-plane path has only its word sweep.  ``impl`` picks
+    the kernels ("auto": CUDA kernels on a CUDA device, plain PyTorch on
+    the CPU; "ref" forces the plain versions)."""
 
     def __init__(self, prob: LatticeProblem, fmt: Optional[FixedPoint] = None,
                  impl: str = "auto", replicas: int = 1,
-                 precision: str = "int8", device=None):
-        if precision == "f32":
-            raise NotImplementedError(
-                "precision='f32' (the f32 fused sweep) comes in ROADMAP.md "
-                "queue A, slice 2; this slice ports 'int8' and 'bitplane'")
-        if precision not in ("int8", "bitplane"):
+                 precision: str = "f32", fused: bool = True,
+                 kernel_bx: Optional[int] = None, device=None):
+        if precision not in ("f32", "int8", "bitplane"):
             raise ValueError(f"unknown precision {precision!r}")
+        if precision == "bitplane" and kernel_bx is not None:
+            raise ValueError("kernel_bx (per-phase x-tiling) is not "
+                             "available on the bitplane path")
         self.device = resolve_device(device)
         resolve_impl(impl, self.device.type == "cuda")
         self.p = prob.to(self.device)
@@ -111,7 +121,25 @@ class LatticeDSIM:
         self.replicas = int(replicas)
         self.words = check_lanes(precision, self.replicas)
         self.n_sites = prob.n_active
-        dev = self.device
+        self.kernel_bx = kernel_bx
+        # the fused-vs-per-phase decision: x-tiling forces per-phase, as in
+        # the reference; its VMEM-budget fallback is a TPU fact, not ported
+        self.fused_requested = bool(fused)
+        self.fallback_reason = None
+        self.fused = precision == "bitplane" or bool(fused)
+        if self.fused and precision != "bitplane" and kernel_bx is not None:
+            self.fused, self.fallback_reason = False, "kernel_bx"
+        self._lut_cache = {}
+        if precision == "f32":
+            self.h_q = self.w6_q = None
+            self.q_scale, self.f_max = 1.0, 0
+        else:
+            self._fixed_point_constants(prob)
+
+    def _fixed_point_constants(self, prob: LatticeProblem):
+        """Quantized couplings and, on the bit-plane path, its word
+        planes and lane-masked color masks."""
+        dev, precision = self.device, self.precision
         h_q, w6_q, self.q_scale = quantize_couplings(prob.h, prob.w6)
         self.f_max = field_bound(h_q, w6_q)
         self.h_q = torch.from_numpy(h_q).to(dev)
@@ -143,12 +171,14 @@ class LatticeDSIM:
                 np.where(mk[:, None] != 0,
                          lane_masks.astype(np.uint32)[None, :, None, None,
                                                       None], 0), dev)
-        self._lut_cache = {}
 
     @property
     def kernel_path(self) -> str:
-        """The update dispatch that runs: "fused" (int8) or "bitplane"."""
-        return "bitplane" if self.precision == "bitplane" else "fused"
+        """The update dispatch that runs: "fused", "per_phase" or
+        "bitplane" (the multi-spin-coded word sweep)."""
+        if self.precision == "bitplane":
+            return "bitplane"
+        return "fused" if self.fused else "per_phase"
 
     def _lut_for(self, table: np.ndarray) -> torch.Tensor:
         return threshold_lut_cached(self._lut_cache, table, self.q_scale,
@@ -223,23 +253,52 @@ class LatticeDSIM:
 
     # -- runners ---------------------------------------------------------------
 
-    def _chunk(self, st, rows2d, iters: int, S: int, lut):
+    def _sweeps(self, m, s, sched, halos, lut):
+        """S sweeps of every replica against fixed halos; ``sched`` (S,)
+        or (S, R), f32 betas or int32 LUT rows.  Returns (m, s, flips)."""
+        if self.precision == "bitplane":
+            return pbit_bitplane_sweep_op(
+                m, s, sched, self.masks_w, self.signs6_w, self.nz6_w,
+                self.base_w, halos, lut, impl=self.impl)
+        f32 = self.precision == "f32"
+        if self.fused:
+            if f32:
+                return pbit_sweep_op(m, s, sched, self.p.masks, self.p.h,
+                                     self.p.w6, halos, fmt=self.fmt,
+                                     impl=self.impl)
+            return pbit_sweep_int_op(m, s, sched, self.p.masks, self.h_q,
+                                     self.w6_q, halos, lut, impl=self.impl)
+        # per-phase dispatch, flips counted per phase as the reference's
+        # _sweep_phases_block / _sweep_phases_int_block count them
+        flips = torch.zeros(self.replicas, dtype=torch.int64,
+                            device=self.device)
+        for t in range(sched.shape[0]):
+            for c in range(self.p.n_colors):
+                if f32:
+                    m2, s = pbit_update_op(
+                        m, s, sched[t], self.p.masks[c], self.p.h, self.p.w6,
+                        halos, fmt=self.fmt, bx=self.kernel_bx,
+                        impl=self.impl)
+                else:
+                    m2, s = pbit_update_int_op(
+                        m, s, sched[t], self.p.masks[c], self.h_q, self.w6_q,
+                        halos, lut, bx=self.kernel_bx, impl=self.impl)
+                flips = flips + (m2 != m).flatten(1).sum(1)
+                m = m2
+        return m, s, flips
+
+    def _chunk(self, st, sched2d, iters: int, S: int, lut):
         """``iters`` iterations of S sweeps against fixed halos, each ended
-        by one exchange; rows2d (iters, S) or (iters, S, R) LUT rows."""
-        rows = torch.from_numpy(np.ascontiguousarray(rows2d, np.int32)).to(
+        by one exchange; sched2d (iters, S) or (iters, S, R) betas (f32)
+        or LUT rows."""
+        dtype = np.float32 if self.precision == "f32" else np.int32
+        sched = torch.from_numpy(np.ascontiguousarray(sched2d, dtype)).to(
             self.device)
         m, s, halos = st.m, st.s, st.halos
         local = torch.zeros(self.replicas, dtype=torch.int64,
                             device=self.device)
         for it in range(iters):
-            if self.precision == "bitplane":
-                m, s, f = pbit_bitplane_sweep_op(
-                    m, s, rows[it], self.masks_w, self.signs6_w, self.nz6_w,
-                    self.base_w, self._squeeze(halos), lut, impl=self.impl)
-            else:
-                m, s, f = pbit_sweep_int_op(
-                    m, s, rows[it], self.p.masks, self.h_q, self.w6_q,
-                    self._squeeze(halos), lut, impl=self.impl)
+            m, s, f = self._sweeps(m, s, sched[it], self._squeeze(halos), lut)
             halos = self._exchange(m)
             local = local + u32_to_i64(f)
         return type(st)(m=m, s=s, halos=halos, sweep=st.sweep + iters * S,
@@ -251,8 +310,8 @@ class LatticeDSIM:
                           cursor: bool = False):
         """Shared-driver runner; returns (state, RunRecord), or the
         :class:`RecordedCursor` with ``cursor=True``.  ``betas_R``
-        (total_sweeps, R) gives each replica its own staircase, a fan of
-        LUT row indices."""
+        (total_sweeps, R) gives each replica its own staircase (on the
+        fixed-point paths a fan of LUT row indices)."""
         if betas_R is not None:
             betas_R = np.asarray(betas_R, np.float32)
             if betas_R.ndim != 2 or betas_R.shape[1] != self.replicas:
@@ -260,9 +319,12 @@ class LatticeDSIM:
                     f"betas_R must be (total_sweeps, R={self.replicas})")
             schedule = ArraySchedule(betas_R)
         beta_arr = np.asarray(schedule.beta_array(), np.float32)
-        table = beta_table(beta_arr)
-        lut = self._lut_for(table)
-        sched = ArraySchedule(beta_row_indices(beta_arr, table))
+        if self.precision == "f32":
+            lut, sched = None, ArraySchedule(beta_arr)
+        else:
+            table = beta_table(beta_arr)
+            lut = self._lut_for(table)
+            sched = ArraySchedule(beta_row_indices(beta_arr, table))
 
         def chunk(st, rows2d, iters, S):
             return self._chunk(st, rows2d, iters, S, lut)
@@ -289,7 +351,8 @@ class LatticeDSIM:
         Returns (R,), or a scalar when replicas == 1."""
         m = self._spins(state)
         e = brick_energy_op(m, self.p.active, self.p.h, self.p.w6,
-                            self._squeeze(self._exchange(m)), impl=self.impl)
+                            self._squeeze(self._exchange(m)),
+                            bx=self.kernel_bx, impl=self.impl)
         return e[0] if self.replicas == 1 else e
 
     def global_spins(self, state) -> torch.Tensor:

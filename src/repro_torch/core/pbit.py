@@ -1,12 +1,16 @@
-"""Fixed-point p-bit pipeline: host-side quantization and threshold LUTs.
+"""The p-bit update rule, the LFSR, and the fixed-point pipeline's
+host-side quantization and threshold LUTs.
 
-Port of the integer half of ``repro.core.pbit``.  Everything that seeds or
-shapes the dynamics — LFSR seeds, coupling quantization, the threshold
-LUT — is computed on the host in numpy (f64 for the LUT) with the same
-operations as the reference, so the port starts from bit-identical
-constants on any device.
+Port of ``repro.core.pbit``.  Everything that seeds or shapes the
+dynamics — LFSR seeds, coupling quantization, the threshold LUT — is
+computed on the host in numpy (f64 for the LUT) with the same operations
+as the reference, so the port starts from bit-identical constants on any
+device.  The f32 update rule (:func:`pbit_update`) evaluates ``tanh`` at
+runtime, in PyTorch's math library: it is not bitwise the reference's
+(``jnp.tanh`` differs by a few ulp on some inputs).
 
-The machine never evaluates tanh at runtime: the accept test is
+The fixed-point pipeline never evaluates tanh at runtime: the accept
+test is
 
     accept(+1)  <=>  u >= T[beta, f] = ceil((1 - tanh(beta*scale*f)) * 2^23)
 
@@ -21,10 +25,11 @@ from typing import Optional
 import numpy as np
 import torch
 
-from .bits import i64_to_i32, u32_from_numpy, u32_to_i64
+from .bits import MASK32, i64_to_i32, i64_to_u32, u32_from_numpy, u32_to_i64
 
 __all__ = ["FixedPoint", "S41", "S43", "S46", "LFSR_UNIFORM_BITS",
-           "LUT_SELECT_MAX_WIDTH", "lfsr_init", "quantize_couplings",
+           "LUT_SELECT_MAX_WIDTH", "quantize", "pbit_update", "lfsr_init",
+           "lfsr_next", "lfsr_uniform", "quantize_couplings",
            "field_bound", "threshold_lut", "threshold_lut_cached",
            "bitplane_planes", "flips_publish"]
 
@@ -72,6 +77,27 @@ _HALF = 1 << (LFSR_UNIFORM_BITS - 1)   # 2^23: u/2^23 - 1 is the (-1,1) map
 LUT_SELECT_MAX_WIDTH = 64
 
 
+def quantize(x: torch.Tensor, fmt: Optional[FixedPoint]) -> torch.Tensor:
+    """Round to nearest (half to even, as ``jnp.round``) and saturate to
+    the fixed-point grid; the identity when ``fmt`` is None."""
+    if fmt is None:
+        return x
+    return torch.clamp(torch.round(x / fmt.step) * fmt.step, fmt.lo, fmt.hi)
+
+
+def pbit_update(field: torch.Tensor, beta, rand_u: torch.Tensor,
+                fmt: Optional[FixedPoint] = None) -> torch.Tensor:
+    """One synchronous p-bit update of an independent (same-color) set.
+
+    ``field`` is the f32 h + sum_j J_ij m_j (before beta); ``beta`` a
+    scalar or a tensor that broadcasts against it, taken as f32;
+    ``rand_u`` uniform in (-1, 1).  Returns int8 spins in {-1, +1}, the
+    tie going to +1."""
+    beta = torch.as_tensor(beta, dtype=torch.float32, device=field.device)
+    act = quantize(beta * field, fmt)
+    return torch.where(torch.tanh(act) + rand_u >= 0, 1, -1).to(torch.int8)
+
+
 def _host(x) -> np.ndarray:
     if isinstance(x, torch.Tensor):
         return x.detach().cpu().numpy()
@@ -82,6 +108,24 @@ def lfsr_init(n: int, seed: int) -> np.ndarray:
     """Nonzero uint32 states, seeded reproducibly (host-side numpy)."""
     rng = np.random.default_rng(np.uint64(seed) ^ np.uint64(0x9E3779B97F4A7C15))
     return rng.integers(1, 2 ** 32, size=n, dtype=np.uint32)
+
+
+def lfsr_next(state: torch.Tensor) -> torch.Tensor:
+    """xorshift32 step (Marsaglia) on every state.  Takes uint32 states
+    and returns uint32, or takes int64-carried ones (``core/bits.py``) and
+    returns int64."""
+    s = u32_to_i64(state) if state.dtype == torch.uint32 else state
+    s = s ^ ((s << 13) & MASK32)
+    s = s ^ (s >> 17)
+    s = s ^ ((s << 5) & MASK32)
+    return i64_to_u32(s) if state.dtype == torch.uint32 else s
+
+
+def lfsr_uniform(state: torch.Tensor) -> torch.Tensor:
+    """uint32 (or int64-carried) state -> f32 uniform in (-1, 1), from the
+    top 24 bits; exact in f32."""
+    s = u32_to_i64(state) if state.dtype == torch.uint32 else state
+    return (s >> 8).to(torch.float32) * (2.0 / 16777216.0) - 1.0
 
 
 def quantize_couplings(h, w6, bits: int = 8):

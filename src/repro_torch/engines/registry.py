@@ -1,9 +1,9 @@
 """``make_engine`` for the port; mirrors ``repro.engines.registry``.
 
-This slice builds the single-GPU lattice engine at ``precision="int8"``
-and ``"bitplane"``.  Everything else the reference's factory offers
-raises ``NotImplementedError`` naming the ROADMAP.md item that brings it;
-nothing is substituted.
+The port builds the single-GPU lattice engine at ``precision="f32"`` (the
+default), ``"int8"`` and ``"bitplane"``, fused or per phase.  Everything
+else the reference's factory offers raises ``NotImplementedError`` naming
+the ROADMAP.md item that brings it; nothing is substituted.
 """
 
 from __future__ import annotations
@@ -133,6 +133,15 @@ class _LatticeHandle:
         return self.eng.kernel_path
 
     @property
+    def fused_requested(self) -> bool:
+        return self.eng.fused_requested
+
+    @property
+    def fallback_reason(self) -> Optional[str]:
+        """Why a fused request runs per phase ("kernel_bx"), or None."""
+        return self.eng.fallback_reason
+
+    @property
     def device(self) -> torch.device:
         return self.eng.device
 
@@ -195,8 +204,9 @@ def make_engine(name: str, graph=None, *, coloring: Optional[Coloring] = None,
 
     "lattice" — the brick-partitioned EA3D lattice as ONE brick on one
     GPU: pass ``lattice=`` a LatticeProblem or ``L=`` to build one from
-    ``seed``; ``precision`` "int8" or "bitplane"; ``replicas=R`` chains per
-    call (bit lanes on the bitplane path).  ``impl`` "auto" | "cuda" |
+    ``seed``; ``precision`` "f32", "int8" or "bitplane"; ``replicas=R``
+    chains per call (bit lanes on the bitplane path); ``fused=False`` or
+    ``kernel_bx`` for the per-phase kernels.  ``impl`` "auto" | "cuda" |
     "ref".  ``rng``, ``axis``, ``dim_axes`` and ``bitpack_halos`` do not
     change a one-brick lattice run; ``graph``, ``coloring``, ``K``,
     ``labels``, ``mode`` and ``bitpack`` belong to the other engines.
@@ -209,14 +219,6 @@ def make_engine(name: str, graph=None, *, coloring: Optional[Coloring] = None,
             f"(off-main-path engines)")
     check_precision(name, precision)
     check_lanes(precision, replicas)
-    if precision == "f32":
-        raise NotImplementedError(
-            "precision='f32' (the f32 fused sweep) comes in ROADMAP.md "
-            "queue A, slice 2; this slice ports 'int8' and 'bitplane'")
-    if not fused or kernel_bx is not None:
-        raise NotImplementedError(
-            "the per-phase kernels (fused=False, kernel_bx) come in "
-            "ROADMAP.md queue A, slice 2")
     if degrade is not None:
         raise NotImplementedError(
             "degrade policies come with the degraded mesh: ROADMAP.md "
@@ -235,5 +237,6 @@ def make_engine(name: str, graph=None, *, coloring: Optional[Coloring] = None,
             raise ValueError("lattice engine needs lattice= or L=")
         prob = build_ea3d_lattice(int(L), seed=seed, device=device)
     eng = LatticeDSIM(prob, fmt=fmt, impl=impl, replicas=replicas,
-                      precision=precision, device=device)
+                      precision=precision, fused=fused, kernel_bx=kernel_bx,
+                      device=device)
     return _LatticeHandle(eng, replicas, prob.n_active)

@@ -20,7 +20,7 @@ from pathlib import Path
 
 __all__ = ["SOURCES", "NVCC_FLAGS", "build", "library", "launch_counts",
            "reset_launch_counts", "check_launch", "ptrs6", "plain_device",
-           "stream_of", "check_sites", "require"]
+           "stream_of", "check_bx", "check_sites", "require"]
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 SOURCES = ("pbit_lattice.cu", "pbit_bitplane.cu", "lattice_energy.cu")
@@ -30,8 +30,10 @@ BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "kernels"
 
 # Launches per kernel, one per kernel launch by its wrapper and nowhere
 # else; a run resets them and reads them to show which kernels it used.
+# Keys are the TPU functions the kernels replace.
 launch_counts = {"pbit_brick_sweep_int": 0, "pbit_bitplane_sweep": 0,
-                 "brick_energy": 0}
+                 "brick_energy": 0, "pbit_brick_sweep": 0,
+                 "pbit_brick_update_int": 0, "pbit_brick_update": 0}
 
 
 def reset_launch_counts():
@@ -96,12 +98,23 @@ def build() -> Path:
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
+_F = ctypes.c_float
 _P6 = ctypes.c_void_p * 6
 _SIGNATURES = {
     # m_in, m_out, s_in, s_out, rows_t, mask, h_q, w6, halos, lut,
     # lw, R, X, Y, Z, flips, stream
     "pbit_sweep_int_phase": (_P, _P, _P, _P, _P, _P, _P, _P6, _P6, _P,
                              _I, _I, _I, _I, _I, _P, _P),
+    # the same without flips
+    "pbit_update_int_phase": (_P, _P, _P, _P, _P, _P, _P, _P6, _P6, _P,
+                              _I, _I, _I, _I, _I, _P),
+    # m_in, m_out, s_in, s_out, betas_t, mask, h, w6, halos,
+    # fmt_on, step, lo, hi, R, X, Y, Z, flips, stream
+    "pbit_sweep_f32_phase": (_P, _P, _P, _P, _P, _P, _P, _P6, _P6,
+                             _I, _F, _F, _F, _I, _I, _I, _I, _P, _P),
+    # the same without flips
+    "pbit_update_f32_phase": (_P, _P, _P, _P, _P, _P, _P, _P6, _P6,
+                              _I, _F, _F, _F, _I, _I, _I, _I, _P),
     # mw_in, mw_out, s_in, s_out, rows_t, mask, signs6, nz6, base, halos,
     # lut, lw, W, R, X, Y, Z, flips, stream
     "pbit_bitplane_phase": (_P, _P, _P, _P, _P, _P, _P6, _P6, _P, _P6, _P,
@@ -148,6 +161,14 @@ def stream_of(t) -> int:
     """PyTorch's current CUDA stream on ``t``'s device, as a pointer."""
     import torch
     return torch.cuda.current_stream(t.device).cuda_stream
+
+
+def check_bx(X: int, bx):
+    """The reference's x-tile check.  The Pallas per-phase kernels tile x
+    by ``bx`` to fit VMEM; a CUDA grid tiles the brick anyway, so ``bx``
+    only has to divide X and changes no result."""
+    if bx is not None and X % int(bx) != 0:
+        raise ValueError(f"Bx={X} not divisible by tile bx={bx}")
 
 
 def check_sites(X: int, Y: int, Z: int):

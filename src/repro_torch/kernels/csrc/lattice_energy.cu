@@ -6,7 +6,9 @@
 // h and w6.  The Pallas kernel walks x-tiles in order and accumulates into
 // one scalar; here every thread takes one site, a block reduces its sites
 // with warp shuffles and shared memory, and one atomicAdd per block folds
-// the block sum into out[r].  Grid (sites / 256, R).
+// the block sum into out[r].  Grid (sites / 256, R).  The Pallas x tile bx
+// is a VMEM device: the wrapper only checks that it divides X, and the
+// result does not depend on it.
 //
 // Bound on this card: memory traffic — 1 B of spins per replica-site plus
 // 29 B of shared f32/int8 constants per site, ~17 flops per replica-site.

@@ -6,6 +6,8 @@ runs the plain version, ``ref.brick_energy_ref``.
 
 from __future__ import annotations
 
+from typing import Optional
+
 import torch
 
 from . import _build, ref as _ref
@@ -14,13 +16,16 @@ from .pbit_lattice import halo_shapes
 __all__ = ["brick_energy"]
 
 
-def brick_energy(m, active, h, w6, halos):
+def brick_energy(m, active, h, w6, halos, bx: Optional[int] = None):
     """Brick Ising energy ``sum active * (-1/2 m sum_d w_d m_d - h m)``.
 
     m (X, Y, Z) int8 or (R, X, Y, Z); active (X, Y, Z) int8; h and the
     six w6 (X, Y, Z) f32 (the unquantized problem); halos six int8 planes
-    (leading R when batched).  Returns an f32 scalar, or (R,) batched.
+    (leading R when batched).  ``bx`` is the reference's x tile: it must
+    divide X (else the reference's ValueError) and changes no result (the
+    grid tiles the brick anyway).  Returns an f32 scalar, or (R,) batched.
     """
+    _build.check_bx(int(m.shape[-3]), bx)
     if _build.plain_device(m):
         return _ref.brick_energy_ref(m, active, h, w6, halos)
     single = m.dim() == 3

@@ -12,9 +12,11 @@ from __future__ import annotations
 
 from typing import Optional
 
+from repro_torch.core.pbit import FixedPoint
 from . import lattice_energy, pbit_bitplane, pbit_lattice, ref as _ref
 
-__all__ = ["IMPLS", "resolve_impl", "pbit_sweep_int_op",
+__all__ = ["IMPLS", "resolve_impl", "pbit_update_op", "pbit_sweep_op",
+           "pbit_update_int_op", "pbit_sweep_int_op",
            "pbit_bitplane_sweep_op", "brick_energy_op"]
 
 IMPLS = ("auto", "cuda", "ref")
@@ -28,6 +30,40 @@ def resolve_impl(impl: str, on_cuda: bool) -> str:
     if impl == "cuda" and not on_cuda:
         raise ValueError("impl='cuda' needs tensors on a CUDA device")
     return impl
+
+
+def pbit_update_op(m, s, beta, parity_mask, h, w6, halos,
+                   fmt: Optional[FixedPoint] = None,
+                   bx: Optional[int] = None, impl: str = "auto"):
+    """One f32 color phase; ``beta`` scalar or (R,).  Returns (m, s)."""
+    if resolve_impl(impl, m.is_cuda) == "ref":
+        return _ref.pbit_brick_update_ref(m, s, beta, parity_mask, h, w6,
+                                          halos, fmt)
+    return pbit_lattice.pbit_brick_update(m, s, beta, parity_mask, h, w6,
+                                          halos, fmt=fmt, bx=bx)
+
+
+def pbit_sweep_op(m, s, betas, masks, h, w6, halos,
+                  fmt: Optional[FixedPoint] = None, impl: str = "auto"):
+    """Fused f32 sweeps: len(betas) full color cycles against fixed halos,
+    betas (S,) or (S, R).  Returns (m, s, flips)."""
+    if resolve_impl(impl, m.is_cuda) == "ref":
+        return _ref.pbit_brick_sweep_ref(m, s, betas, masks, h, w6, halos,
+                                         fmt)
+    return pbit_lattice.pbit_brick_sweep(m, s, betas, masks, h, w6, halos,
+                                         fmt=fmt)
+
+
+def pbit_update_int_op(m, s, row, parity_mask, h_q, w6_q, halos, lut,
+                       bx: Optional[int] = None, impl: str = "auto"):
+    """One fixed-point color phase: int8 couplings, int32 fields, LUT
+    thresholds (``row``, scalar or (R,), replaces beta).  Returns
+    (m, s)."""
+    if resolve_impl(impl, m.is_cuda) == "ref":
+        return _ref.pbit_brick_update_int_ref(m, s, row, parity_mask, h_q,
+                                              w6_q, halos, lut)
+    return pbit_lattice.pbit_brick_update_int(m, s, row, parity_mask, h_q,
+                                              w6_q, halos, lut, bx=bx)
 
 
 def pbit_sweep_int_op(m, s, rows, masks, h_q, w6_q, halos, lut,
@@ -55,11 +91,8 @@ def pbit_bitplane_sweep_op(mw, s, rows, masks_w, signs6, nz6, base, halos_w,
 
 def brick_energy_op(m, active, h, w6, halos, bx: Optional[int] = None,
                     impl: str = "auto"):
-    """Brick energy; ``bx`` (the reference's x-tiling) is not ported."""
-    if bx is not None:
-        raise NotImplementedError(
-            "bx (x-tiled kernels) comes with the per-phase kernels: "
-            "ROADMAP.md queue A, slice 2")
+    """Brick energy, (R,) for a replica batch; ``bx`` as the kernels'
+    (checked, changes no result)."""
     if resolve_impl(impl, m.is_cuda) == "ref":
         return _ref.brick_energy_ref(m, active, h, w6, halos)
-    return lattice_energy.brick_energy(m, active, h, w6, halos)
+    return lattice_energy.brick_energy(m, active, h, w6, halos, bx=bx)

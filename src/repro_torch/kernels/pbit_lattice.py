@@ -1,24 +1,42 @@
-"""Wrapper of the int8 fused lattice sweep kernel (``csrc/pbit_lattice.cu``).
+"""Wrappers of the lattice p-bit kernels (``csrc/pbit_lattice.cu``).
 
-Port of ``repro.kernels.pbit_lattice.pbit_brick_sweep_int``.  On a CUDA
-tensor it launches the hand-written kernel once per (sweep, color) phase;
-on a CPU tensor it runs the plain version, ``ref.pbit_brick_sweep_int_ref``.
+Ports of ``repro.kernels.pbit_lattice``: the fused sweeps
+``pbit_brick_sweep_int`` (int8) and ``pbit_brick_sweep`` (f32), and the
+single color phases ``pbit_brick_update_int`` and ``pbit_brick_update``.
+On a CUDA tensor each launches its hand-written kernel (a sweep once per
+(sweep, color) phase); on a CPU tensor it runs the plain version of
+``ref``.  All take one brick (X, Y, Z) or R replicas (R, X, Y, Z) in one
+launch per phase, and do not modify their inputs.
 """
 
 from __future__ import annotations
 
+from typing import Optional
+
 import numpy as np
 import torch
 
+from repro_torch.core.pbit import FixedPoint
 from . import _build, ref as _ref
 
-__all__ = ["pbit_brick_sweep_int", "halo_shapes"]
+__all__ = ["pbit_brick_sweep_int", "pbit_brick_sweep",
+           "pbit_brick_update_int", "pbit_brick_update", "halo_shapes"]
 
 
 def halo_shapes(lead: int, X: int, Y: int, Z: int):
     """Shapes of the six squeezed halo planes the kernels read."""
     return [(lead, Y, Z), (lead, Y, Z), (lead, X, Z), (lead, X, Z),
             (lead, X, Y), (lead, X, Y)]
+
+
+def _per_replica(sched: torch.Tensor, R: int, what: str) -> torch.Tensor:
+    """(S,) shared or (S, R) per replica -> contiguous (S, R)."""
+    if sched.dim() == 1:
+        sched = sched[:, None].expand(sched.shape[0], R)
+    if sched.dim() != 2 or sched.shape[1] != R:
+        raise ValueError(f"{what} must be (S,) or (S, {R}), got "
+                         f"{tuple(sched.shape)}")
+    return sched.contiguous()
 
 
 def device_rows(rows, R: int, n_rows: int, device) -> torch.Tensor:
@@ -32,12 +50,91 @@ def device_rows(rows, R: int, n_rows: int, device) -> torch.Tensor:
             raise ValueError(f"LUT rows must be in [0, {n_rows}), got "
                              f"[{host.min()}, {host.max()}]")
     rows = torch.as_tensor(rows, dtype=torch.int32, device=device)
-    if rows.dim() == 1:
-        rows = rows[:, None].expand(rows.shape[0], R)
-    if rows.dim() != 2 or rows.shape[1] != R:
-        raise ValueError(f"rows must be (S,) or (S, {R}), got "
-                         f"{tuple(rows.shape)}")
-    return rows.contiguous()
+    return _per_replica(rows, R, "rows")
+
+
+def device_betas(betas, R: int, device) -> torch.Tensor:
+    """Betas as a contiguous (S, R) f32 tensor on ``device``; shared (S,)
+    betas broadcast to every replica.  There is no LUT to range-check
+    against, so the dtype is checked instead: betas are floating point (an
+    integer schedule would be LUT rows)."""
+    betas = torch.as_tensor(betas)
+    if not betas.is_floating_point():
+        raise TypeError(f"betas must be floating point, got {betas.dtype}")
+    return _per_replica(betas.to(device=device, dtype=torch.float32), R,
+                        "betas")
+
+
+def _one_phase(value) -> torch.Tensor:
+    """A per-phase beta or LUT row, one value or (R,), as a one-sweep
+    schedule: (1,) or (1, R)."""
+    value = torch.as_tensor(value)
+    return value.reshape(1) if value.numel() == 1 else value.reshape(1, -1)
+
+
+def _fmt_args(fmt: Optional[FixedPoint]):
+    return (0, 0.0, 0.0, 0.0) if fmt is None else \
+        (1, float(fmt.step), float(fmt.lo), float(fmt.hi))
+
+
+def _checked(m, s, masks, mask_lead, h, w6, halos, cdtype):
+    """Replica-batch a brick and check what the kernels read through raw
+    pointers: int8 spins, uint32 states, int8 masks, ``cdtype`` constants
+    (int8 quantized or f32) and int8 halos."""
+    single = m.dim() == 3
+    if single:
+        m, s = m.unsqueeze(0), s.unsqueeze(0)
+        halos = tuple(hh.unsqueeze(0) for hh in halos)
+    R, X, Y, Z = (int(d) for d in m.shape)
+    dev = m.device
+    _build.check_sites(X, Y, Z)
+    _build.require("m", m, torch.int8, (R, X, Y, Z), dev)
+    _build.require("s", s, torch.uint32, (R, X, Y, Z), dev)
+    _build.require("masks", masks, torch.int8, mask_lead + (X, Y, Z), dev)
+    _build.require("h", h, cdtype, (X, Y, Z), dev)
+    for d, w in enumerate(w6):
+        _build.require(f"w6[{d}]", w, cdtype, (X, Y, Z), dev)
+    for d, (hh, sh) in enumerate(zip(halos, halo_shapes(R, X, Y, Z))):
+        _build.require(f"halos[{d}]", hh, torch.int8, sh, dev)
+    return single, m, s, halos
+
+
+def _new_states(s):
+    return torch.empty(s.shape, dtype=torch.int32, device=s.device).view(
+        torch.uint32)
+
+
+def _sweeps(name, launch, m, s, S: int, n_colors: int, single: bool):
+    """Launch ``launch(src, dst, s_src, s_out, t, c, flips)`` once per
+    (sweep, color) phase, spins ping-ponged between two buffers and the
+    LFSR states advanced in place in ``s_out``."""
+    R = int(m.shape[0])
+    bufs = (torch.empty_like(m), torch.empty_like(m))
+    s_out = _new_states(s)
+    flips = torch.zeros(R, dtype=torch.int32, device=m.device)
+    src, s_src = m, s
+    with torch.cuda.device(m.device):
+        for t in range(S):
+            for c in range(n_colors):
+                dst = bufs[(t * n_colors + c) % 2]
+                _build.check_launch(name, launch(src, dst, s_src, s_out, t,
+                                                 c, flips))
+                _build.launch_counts[name] += 1
+                src, s_src = dst, s_out
+    if S * n_colors == 0:
+        src, s_out = m.clone(), s.view(torch.int32).clone().view(torch.uint32)
+    if single:
+        return src[0], s_out[0], flips[0]
+    return src, s_out, flips
+
+
+def _phase(name, launch, m, s, single: bool):
+    """Launch ``launch(m_out, s_out)`` once: one color phase."""
+    m_out, s_out = torch.empty_like(m), _new_states(s)
+    with torch.cuda.device(m.device):
+        _build.check_launch(name, launch(m_out, s_out))
+    _build.launch_counts[name] += 1
+    return (m_out[0], s_out[0]) if single else (m_out, s_out)
 
 
 def pbit_brick_sweep_int(m, s, rows, masks, h_q, w6_q, halos, lut):
@@ -53,50 +150,113 @@ def pbit_brick_sweep_int(m, s, rows, masks, h_q, w6_q, halos, lut):
     if _build.plain_device(m):
         return _ref.pbit_brick_sweep_int_ref(m, s, rows, masks, h_q, w6_q,
                                              halos, lut)
-    single = m.dim() == 3
-    if single:
-        m, s = m.unsqueeze(0), s.unsqueeze(0)
-        halos = tuple(h.unsqueeze(0) for h in halos)
-    R, X, Y, Z = (int(d) for d in m.shape)
-    dev = m.device
-    _build.check_sites(X, Y, Z)
     n_colors = int(masks.shape[0])
+    single, m, s, halos = _checked(m, s, masks, (n_colors,), h_q, w6_q,
+                                   halos, torch.int8)
+    R, X, Y, Z = (int(d) for d in m.shape)
     n_rows, lw = (int(d) for d in lut.shape)
-    _build.require("m", m, torch.int8, (R, X, Y, Z), dev)
-    _build.require("s", s, torch.uint32, (R, X, Y, Z), dev)
-    _build.require("masks", masks, torch.int8, (n_colors, X, Y, Z), dev)
-    _build.require("h_q", h_q, torch.int8, (X, Y, Z), dev)
-    for d, w in enumerate(w6_q):
-        _build.require(f"w6_q[{d}]", w, torch.int8, (X, Y, Z), dev)
-    for d, (hh, sh) in enumerate(zip(halos, halo_shapes(R, X, Y, Z))):
-        _build.require(f"halos[{d}]", hh, torch.int8, sh, dev)
-    _build.require("lut", lut, torch.uint32, (n_rows, lw), dev)
-    rows = device_rows(rows, R, n_rows, dev)
-    S = int(rows.shape[0])
-
+    _build.require("lut", lut, torch.uint32, (n_rows, lw), m.device)
+    rows = device_rows(rows, R, n_rows, m.device)
     lib = _build.library()
-    bufs = (torch.empty_like(m), torch.empty_like(m))
-    s_out = torch.empty(s.shape, dtype=torch.int32, device=dev).view(
-        torch.uint32)
-    flips = torch.zeros(R, dtype=torch.int32, device=dev)
     w6p, halop = _build.ptrs6(w6_q), _build.ptrs6(halos)
-    n = X * Y * Z
-    src, s_src = m, s
-    with torch.cuda.device(dev):
-        stream = _build.stream_of(m)
-        for t in range(S):
-            for c in range(n_colors):
-                dst = bufs[(t * n_colors + c) % 2]
-                err = lib.pbit_sweep_int_phase(
-                    src.data_ptr(), dst.data_ptr(), s_src.data_ptr(),
-                    s_out.data_ptr(), rows.data_ptr() + 4 * t * R,
-                    masks.data_ptr() + c * n, h_q.data_ptr(), w6p, halop,
-                    lut.data_ptr(), lw, R, X, Y, Z, flips.data_ptr(), stream)
-                _build.check_launch("pbit_sweep_int_phase", err)
-                _build.launch_counts["pbit_brick_sweep_int"] += 1
-                src, s_src = dst, s_out
-    if S * n_colors == 0:
-        src, s_out = m.clone(), s.view(torch.int32).clone().view(torch.uint32)
-    if single:
-        return src[0], s_out[0], flips[0]
-    return src, s_out, flips
+    n, stream = X * Y * Z, _build.stream_of(m)
+
+    def launch(src, dst, s_src, s_out, t, c, flips):
+        return lib.pbit_sweep_int_phase(
+            src.data_ptr(), dst.data_ptr(), s_src.data_ptr(),
+            s_out.data_ptr(), rows.data_ptr() + 4 * t * R,
+            masks.data_ptr() + c * n, h_q.data_ptr(), w6p, halop,
+            lut.data_ptr(), lw, R, X, Y, Z, flips.data_ptr(), stream)
+    return _sweeps("pbit_brick_sweep_int", launch, m, s, int(rows.shape[0]),
+                   n_colors, single)
+
+
+def pbit_brick_sweep(m, s, betas, masks, h, w6, halos,
+                     fmt: Optional[FixedPoint] = None):
+    """``len(betas)`` f32 sweeps of one brick, halos held fixed.
+
+    As :func:`pbit_brick_sweep_int`, with betas (S,) shared or (S, R)
+    floating point (taken as f32) for the LUT rows, h and the six w6
+    (X, Y, Z) f32, and ``fmt`` the optional fixed-point format of the
+    activation.  Returns (m, s, flips).
+    """
+    if _build.plain_device(m):
+        return _ref.pbit_brick_sweep_ref(m, s, betas, masks, h, w6, halos,
+                                         fmt)
+    n_colors = int(masks.shape[0])
+    single, m, s, halos = _checked(m, s, masks, (n_colors,), h, w6, halos,
+                                   torch.float32)
+    R, X, Y, Z = (int(d) for d in m.shape)
+    betas = device_betas(betas, R, m.device)
+    lib = _build.library()
+    w6p, halop = _build.ptrs6(w6), _build.ptrs6(halos)
+    n, stream, fa = X * Y * Z, _build.stream_of(m), _fmt_args(fmt)
+
+    def launch(src, dst, s_src, s_out, t, c, flips):
+        return lib.pbit_sweep_f32_phase(
+            src.data_ptr(), dst.data_ptr(), s_src.data_ptr(),
+            s_out.data_ptr(), betas.data_ptr() + 4 * t * R,
+            masks.data_ptr() + c * n, h.data_ptr(), w6p, halop, *fa, R, X,
+            Y, Z, flips.data_ptr(), stream)
+    return _sweeps("pbit_brick_sweep", launch, m, s, int(betas.shape[0]),
+                   n_colors, single)
+
+
+def pbit_brick_update_int(m, s, row, parity_mask, h_q, w6_q, halos, lut,
+                          bx: Optional[int] = None):
+    """One fixed-point color phase of one brick (no flip count).
+
+    ``row`` a LUT row index, or (R,) per replica; ``parity_mask``
+    (X, Y, Z) int8, the sites this phase updates; the rest as
+    :func:`pbit_brick_sweep_int`.  ``bx`` is the reference's x tile: it
+    must divide X (else the reference's ValueError), and changes nothing
+    on the card, whose grid tiles the brick anyway — the result equals the
+    untiled one.  Returns (m, s).
+    """
+    _build.check_bx(int(m.shape[-3]), bx)
+    if _build.plain_device(m):
+        return _ref.pbit_brick_update_int_ref(m, s, row, parity_mask, h_q,
+                                              w6_q, halos, lut)
+    single, m, s, halos = _checked(m, s, parity_mask, (), h_q, w6_q, halos,
+                                   torch.int8)
+    R, X, Y, Z = (int(d) for d in m.shape)
+    n_rows, lw = (int(d) for d in lut.shape)
+    _build.require("lut", lut, torch.uint32, (n_rows, lw), m.device)
+    rows = device_rows(_one_phase(row), R, n_rows, m.device)
+    lib = _build.library()
+    return _phase("pbit_brick_update_int", lambda m_out, s_out:
+                  lib.pbit_update_int_phase(
+                      m.data_ptr(), m_out.data_ptr(), s.data_ptr(),
+                      s_out.data_ptr(), rows.data_ptr(),
+                      parity_mask.data_ptr(), h_q.data_ptr(),
+                      _build.ptrs6(w6_q), _build.ptrs6(halos),
+                      lut.data_ptr(), lw, R, X, Y, Z, _build.stream_of(m)),
+                  m, s, single)
+
+
+def pbit_brick_update(m, s, beta, parity_mask, h, w6, halos,
+                      fmt: Optional[FixedPoint] = None,
+                      bx: Optional[int] = None):
+    """One f32 color phase of one brick (no flip count).
+
+    ``beta`` a scalar, or (R,) per replica, taken as f32; the rest as
+    :func:`pbit_brick_sweep` and :func:`pbit_brick_update_int` (``bx``
+    validated, the result the untiled one).  Returns (m, s).
+    """
+    _build.check_bx(int(m.shape[-3]), bx)
+    if _build.plain_device(m):
+        return _ref.pbit_brick_update_ref(m, s, beta, parity_mask, h, w6,
+                                          halos, fmt)
+    single, m, s, halos = _checked(m, s, parity_mask, (), h, w6, halos,
+                                   torch.float32)
+    R, X, Y, Z = (int(d) for d in m.shape)
+    betas = device_betas(_one_phase(beta), R, m.device)
+    lib = _build.library()
+    return _phase("pbit_brick_update", lambda m_out, s_out:
+                  lib.pbit_update_f32_phase(
+                      m.data_ptr(), m_out.data_ptr(), s.data_ptr(),
+                      s_out.data_ptr(), betas.data_ptr(),
+                      parity_mask.data_ptr(), h.data_ptr(),
+                      _build.ptrs6(w6), _build.ptrs6(halos), *_fmt_args(fmt),
+                      R, X, Y, Z, _build.stream_of(m)),
+                  m, s, single)

@@ -6,21 +6,30 @@ kernels' counterparts to, and what ``chip_smoke.py`` compares each kernel
 with on the card.  Nothing on the card's main path calls them.
 
 Each accepts one brick ``(X, Y, Z)`` or a leading replica axis
-``(R, X, Y, Z)`` (halos then lead with R too).  LFSR states and spin words
-are carried as int64 masked to 32 bits (see ``core/bits.py``); results are
-stored back as uint32.  Accepts look the threshold up directly,
-``u >= lut[row][f + f_off]``: LUT rows are monotone, so this is the
-reference's rank-count accept bit for bit.
+``(R, X, Y, Z)`` (halos then lead with R too); a schedule value (beta or
+LUT row) is shared or given per replica.  LFSR states and spin words are
+carried as int64 masked to 32 bits (see ``core/bits.py``); results are
+stored back as uint32.  Fixed-point accepts look the threshold up
+directly, ``u >= lut[row][f + f_off]``: LUT rows are monotone, so this is
+the reference's rank-count accept bit for bit.  The f32 accept is
+``tanh(act) + r >= 0`` in PyTorch's math library, in the reference's
+operation order.
 """
 
 from __future__ import annotations
+
+from typing import Optional
 
 import torch
 
 from repro_torch.core.bits import MASK32, i64_to_i32, i64_to_u32, u32_to_i64
 from repro_torch.core.packing import LANE_WIDTH
+from repro_torch.core.pbit import (FixedPoint, lfsr_next, lfsr_uniform,
+                                   pbit_update, quantize)
 
-__all__ = ["neighbor_sums_ref", "int_field_ref", "pbit_brick_sweep_int_ref",
+__all__ = ["neighbor_sums_ref", "int_field_ref", "pbit_brick_update_ref",
+           "pbit_brick_sweep_ref", "decision_ulps_ref",
+           "pbit_brick_update_int_ref", "pbit_brick_sweep_int_ref",
            "bitplane_ones_count_ref", "pbit_bitplane_sweep_ref",
            "brick_energy_ref"]
 
@@ -39,13 +48,6 @@ def _shifted(m, halos):
     return xm, xp, ym, yp, zm, zp
 
 
-def _xorshift32(s):
-    """xorshift32 step on int64-carried uint32 states."""
-    s = s ^ ((s << 13) & MASK32)
-    s = s ^ (s >> 17)
-    return s ^ ((s << 5) & MASK32)
-
-
 def _lut_lookup(lut64, rows_t, idx):
     """thr[rows_t[r]][idx[r, ...]] for idx (R, ...) and rows_t (R,)."""
     R = idx.shape[0]
@@ -53,16 +55,38 @@ def _lut_lookup(lut64, rows_t, idx):
     return torch.gather(thr, 1, idx.reshape(R, -1)).reshape(idx.shape)
 
 
-def _batched(m, rows, halos):
-    """Promote one-brick inputs to the replica-batched form."""
+def _batched(m, sched, halos, dtype=torch.int64):
+    """Promote one-brick inputs to the replica-batched form; the schedule
+    (LUT rows or betas), (S,) shared or (S, R) per replica, becomes
+    (S, R) of ``dtype``."""
     single = m.dim() == 3
     if single:
         m = m.unsqueeze(0)
         halos = tuple(h.unsqueeze(0) for h in halos)
-    rows = torch.as_tensor(rows, dtype=torch.int64, device=m.device)
-    if rows.dim() == 1:
-        rows = rows[:, None].expand(rows.shape[0], m.shape[0])
-    return single, m, rows, halos
+    sched = torch.as_tensor(sched, dtype=dtype, device=m.device)
+    if sched.dim() == 1:
+        sched = sched[:, None]
+    return single, m, sched.expand(sched.shape[0], m.shape[0]), halos
+
+
+def _sweeps(phase, m, s, sched, masks):
+    """Every color phase of every sweep, in order: ``phase(m, s, sched[t],
+    mask) -> (m, s)`` on batched spins and int64-carried states.  Returns
+    (m, s, flips) with int64 (R,) flips."""
+    flips = torch.zeros(m.shape[0], dtype=torch.int64, device=m.device)
+    for t in range(sched.shape[0]):
+        for c in range(masks.shape[0]):
+            new, s = phase(m, s, sched[t], masks[c])
+            flips = flips + (new != m).flatten(1).sum(1)
+            m = new
+    return m, s, flips
+
+
+def _done(single, m, s, flips=None):
+    """Store states back as uint32 (flips as int32) and drop the replica
+    axis of a one-brick call."""
+    out = (m, i64_to_u32(s)) + (() if flips is None else (i64_to_i32(flips),))
+    return tuple(x[0] for x in out) if single else out
 
 
 def neighbor_sums_ref(m, h, w6, halos):
@@ -83,6 +107,92 @@ def int_field_ref(m, h_q, w6_q, halos):
     return f
 
 
+# -- f32 pipeline -----------------------------------------------------------------
+
+def _f32_phase(h, w6, halos, fmt):
+    """One f32 color phase on batched spins: the field, one LFSR step of
+    every site, ``tanh(act) + r >= 0`` and the masked write."""
+    def phase(m, s, beta_r, mask):
+        field = neighbor_sums_ref(m, h, w6, halos)
+        s = lfsr_next(s)
+        upd = pbit_update(field, beta_r.reshape(-1, 1, 1, 1),
+                          lfsr_uniform(s), fmt)
+        return torch.where(mask != 0, upd, m), s
+    return phase
+
+
+def pbit_brick_update_ref(m, s, beta, parity_mask, h, w6, halos,
+                          fmt: Optional[FixedPoint] = None):
+    """One f32 color phase: ``beta`` a scalar, or (R,) per replica;
+    ``fmt`` rounds and saturates the activation.  Returns (m, s)."""
+    single, m, b, halos = _batched(
+        m, torch.as_tensor(beta).reshape(1, -1), halos, torch.float32)
+    m, s = _f32_phase(h, w6, halos, fmt)(m, u32_to_i64(s).reshape(m.shape),
+                                         b[0], parity_mask)
+    return _done(single, m, s)
+
+
+def pbit_brick_sweep_ref(m, s, betas, masks, h, w6, halos,
+                         fmt: Optional[FixedPoint] = None):
+    """``len(betas)`` f32 sweeps (every color phase, in order) against
+    fixed halos, one beta per sweep — shared (S,) or per replica (S, R).
+    Every site's LFSR advances every phase.  Returns (m, s, flips) as
+    :func:`pbit_brick_sweep_int_ref` does."""
+    single, m, b, halos = _batched(m, betas, halos, torch.float32)
+    m, s, flips = _sweeps(_f32_phase(h, w6, halos, fmt), m,
+                          u32_to_i64(s).reshape(m.shape), b, masks)
+    return _done(single, m, s, flips)
+
+
+def decision_ulps_ref(m, s, beta, h, w6, halos,
+                      fmt: Optional[FixedPoint] = None):
+    """How far each site of one f32 phase lies from its decision boundary:
+    ``|tanh(act) + r|`` in units of the ulp of ``tanh(act)`` (inputs as
+    :func:`pbit_brick_update_ref`, ``s`` the states before the phase).
+    Two tanh implementations within k ulp of each other can decide a site
+    differently only where this is at most k."""
+    single, m, b, halos = _batched(
+        m, torch.as_tensor(beta).reshape(1, -1), halos, torch.float32)
+    act = quantize(b[0].reshape(-1, 1, 1, 1)
+                   * neighbor_sums_ref(m, h, w6, halos), fmt)
+    r = lfsr_uniform(lfsr_next(u32_to_i64(s).reshape(m.shape)))
+    th = torch.tanh(act)
+    a = th.abs()
+    ulp = torch.nextafter(a, torch.full_like(a, float("inf"))) - a
+    u = (th + r).abs() / ulp
+    return u[0] if single else u
+
+
+# -- fixed-point pipeline ---------------------------------------------------------
+
+def _int_phase(h_q, w6_q, halos, lut):
+    """One fixed-point color phase on batched spins: the int32 field, one
+    LFSR step of every site, the LUT accept and the masked write."""
+    lut64 = u32_to_i64(lut)
+    lw = int(lut.shape[1])
+    f_off = (lw - 1) // 2
+
+    def phase(m, s, rows_r, mask):
+        field = int_field_ref(m, h_q, w6_q, halos)
+        s = lfsr_next(s)
+        idx = (field.to(torch.int64) + f_off).clamp(0, lw - 1)
+        accept = (s >> 8) >= _lut_lookup(lut64, rows_r, idx)
+        upd = torch.where(accept, 1, -1).to(torch.int8)
+        return torch.where(mask != 0, upd, m), s
+    return phase
+
+
+def pbit_brick_update_int_ref(m, s, row, parity_mask, h_q, w6_q, halos,
+                              lut):
+    """One fixed-point color phase: ``row`` a LUT row index, or (R,) per
+    replica.  Returns (m, s)."""
+    single, m, rows, halos = _batched(
+        m, torch.as_tensor(row).reshape(1, -1), halos)
+    m, s = _int_phase(h_q, w6_q, halos, lut)(
+        m, u32_to_i64(s).reshape(m.shape), rows[0], parity_mask)
+    return _done(single, m, s)
+
+
 def pbit_brick_sweep_int_ref(m, s, rows, masks, h_q, w6_q, halos, lut):
     """``len(rows)`` fixed-point sweeps (every color phase, in order)
     against fixed halos, one LUT row per sweep — shared (S,) or per
@@ -90,26 +200,9 @@ def pbit_brick_sweep_int_ref(m, s, rows, masks, h_q, w6_q, halos, lut):
     (m, s, flips): int8 spins, uint32 states, int32 flips ((R,), or a
     scalar for one brick)."""
     single, m, rows, halos = _batched(m, rows, halos)
-    s = u32_to_i64(s).reshape(m.shape)
-    lut64 = u32_to_i64(lut)
-    lw = int(lut.shape[1])
-    f_off = (lw - 1) // 2
-    flips = torch.zeros(m.shape[0], dtype=torch.int64, device=m.device)
-    for t in range(rows.shape[0]):
-        for c in range(masks.shape[0]):
-            field = int_field_ref(m, h_q, w6_q, halos)
-            s = _xorshift32(s)
-            idx = (field.to(torch.int64) + f_off).clamp(0, lw - 1)
-            accept = (s >> 8) >= _lut_lookup(lut64, rows[t], idx)
-            upd = torch.where(accept, 1, -1).to(torch.int8)
-            new = torch.where(masks[c] != 0, upd, m)
-            flips = flips + (new != m).flatten(1).sum(1)
-            m = new
-    s = i64_to_u32(s)
-    flips = i64_to_i32(flips)
-    if single:
-        return m[0], s[0], flips[0]
-    return m, s, flips
+    m, s, flips = _sweeps(_int_phase(h_q, w6_q, halos, lut), m,
+                          u32_to_i64(s).reshape(m.shape), rows, masks)
+    return _done(single, m, s, flips)
 
 
 def _full_add(a, b, c):
@@ -169,7 +262,7 @@ def pbit_bitplane_sweep_ref(mw, s, rows, masks_w, signs6, nz6, base,
     for t in range(rows.shape[0]):
         for c in range(masks_w.shape[0]):
             b0, b1, b2 = bitplane_ones_count_ref(mw, signs6, nz6, halos_w)
-            s = _xorshift32(s)              # every live lane advances
+            s = lfsr_next(s)                # every live lane advances
             cnt = (((b0[word] >> bit) & 1) + 2 * ((b1[word] >> bit) & 1)
                    + 4 * ((b2[word] >> bit) & 1))
             idx = (base + 2 * cnt).clamp(0, lw - 1)

@@ -21,7 +21,10 @@ from repro_torch.kernels import _build
 from repro_torch.kernels import ref as t_ref
 from repro_torch.kernels.lattice_energy import brick_energy
 from repro_torch.kernels.pbit_bitplane import pbit_bitplane_sweep
-from repro_torch.kernels.pbit_lattice import pbit_brick_sweep_int
+from repro_torch.kernels.pbit_lattice import (pbit_brick_sweep,
+                                              pbit_brick_sweep_int,
+                                              pbit_brick_update,
+                                              pbit_brick_update_int)
 
 
 def T(a):
@@ -80,6 +83,58 @@ def torch_int_args(d, rows):
     return (T(d["m"]), T(d["s"]), T(rows), T(d["masks"]), T(d["h_q"]),
             tuple(T(w) for w in d["w6_q"]), tuple(T(h) for h in d["halos"]),
             T(d["lut"]))
+
+
+def f32_inputs(seed, shape, R=None, pm_j=True):
+    """Random brick for the f32 kernels: +-1 spins, LFSR states, f32
+    couplings (+-J with h in {-1, 0, 1}, or Gaussian), non-zero halos."""
+    rng = np.random.default_rng(seed)
+    lead = () if R is None else (R,)
+    Bx, By, Bz = shape
+    m = rng.choice(np.array([-1, 1], np.int8), size=lead + shape)
+    s = rng.integers(1, 2 ** 32, size=lead + shape, dtype=np.uint32)
+    if pm_j:
+        h = rng.choice([-1.0, 0.0, 1.0], size=shape).astype(np.float32)
+        w6 = [rng.choice([-1.0, 0.0, 1.0], size=shape).astype(np.float32)
+              for _ in range(6)]
+    else:
+        h = rng.normal(0, 0.3, shape).astype(np.float32)
+        w6 = [rng.normal(0, 1.0, shape).astype(np.float32) for _ in range(6)]
+    halos = tuple(rng.choice(np.array([-1, 1], np.int8), size=lead + sh)
+                  for sh in [(By, Bz), (By, Bz), (Bx, Bz), (Bx, Bz),
+                             (Bx, By), (Bx, By)])
+    return dict(m=m, s=s, h=h, w6=w6, halos=halos,
+                masks=checkerboard(shape), rng=rng)
+
+
+def torch_f32_args(d, betas):
+    return (T(d["m"]), T(d["s"]), T(betas), T(d["masks"]), T(d["h"]),
+            tuple(T(w) for w in d["w6"]), tuple(T(h) for h in d["halos"]))
+
+
+def f32_boundary_sites(m, s, betas, masks, h, w6, halos, fmt=None,
+                       ulps=8):
+    """Sites that some phase of the plain f32 sweep decides within ``ulps``
+    ulp of its boundary: the only sites where a tanh from another math
+    library (within ``ulps`` ulp) may decide differently."""
+    flagged = torch.zeros(m.shape, dtype=torch.bool, device=m.device)
+    for beta in torch.as_tensor(betas):
+        for mask in masks:
+            near = t_ref.decision_ulps_ref(m, s, beta, h, w6, halos,
+                                           fmt) <= ulps
+            flagged |= near & (mask != 0)
+            m, s = t_ref.pbit_brick_update_ref(m, s, beta, mask, h, w6,
+                                               halos, fmt)
+    return flagged
+
+
+def assert_f32_agrees(got, want, flagged):
+    """LFSR states bitwise; spins equal except at ``flagged`` sites."""
+    assert_bitwise(got[1:2], want[1:2])
+    differ = N(got[0]) != N(want[0])
+    assert not (differ & ~N(flagged)).any()
+    if not differ.any() and len(got) > 2:
+        assert_bitwise(got[2:], want[2:])
 
 
 def bitplane_inputs(seed, shape, R, n_betas=3):
@@ -183,3 +238,56 @@ def test_cuda_energy_matches_plain(cuda):
     args = to(cuda, (T(m), T(active), T(h), tuple(T(w) for w in w6),
                      tuple(T(x) for x in halos)))
     assert torch.equal(brick_energy(*args), t_ref.brick_energy_ref(*args))
+    assert torch.equal(brick_energy(*args, bx=5), brick_energy(*args))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("bx", [None, 2])
+@pytest.mark.parametrize("per_replica", [False, True])
+def test_cuda_int_update_matches_plain(cuda, per_replica, bx):
+    R, shape = 3, (12, 10, 7)
+    d = int_inputs(14, shape, R=R, multibit=per_replica)
+    row = np.array([2, 0, 1], np.int32) if per_replica else 1
+    m, s, _, masks, h_q, w6_q, halos, lut = to(
+        cuda, torch_int_args(d, np.zeros(1, np.int32)))
+    before = _build.launch_counts["pbit_brick_update_int"]
+    got = pbit_brick_update_int(m, s, T(np.asarray(row)), masks[1], h_q,
+                                w6_q, halos, lut, bx=bx)
+    assert _build.launch_counts["pbit_brick_update_int"] == before + 1
+    assert_bitwise(got, t_ref.pbit_brick_update_int_ref(
+        m, s, row, masks[1], h_q, w6_q, halos, lut))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("fmt", [None, t_pbit.S41])
+@pytest.mark.parametrize("per_replica,pm_j", [
+    (False, True), (True, True), (True, False)])
+def test_cuda_f32_sweep_matches_plain(cuda, per_replica, pm_j, fmt):
+    R, shape = 3, (12, 10, 7)
+    d = f32_inputs(15, shape, R=R, pm_j=pm_j)
+    betas = d["rng"].uniform(0.2, 3.0, size=(4, R)).astype(np.float32) \
+        if per_replica else np.array([0.5, 1.5, 3.0, 0.9], np.float32)
+    args = to(cuda, torch_f32_args(d, betas))
+    before = _build.launch_counts["pbit_brick_sweep"]
+    got = pbit_brick_sweep(*args, fmt=fmt)
+    assert _build.launch_counts["pbit_brick_sweep"] == before + 8
+    assert_f32_agrees(got, t_ref.pbit_brick_sweep_ref(*args, fmt=fmt),
+                      f32_boundary_sites(*args, fmt=fmt))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("bx", [None, 2])
+@pytest.mark.parametrize("fmt", [None, t_pbit.S41])
+def test_cuda_f32_update_matches_plain(cuda, fmt, bx):
+    R, shape = 3, (12, 10, 7)
+    d = f32_inputs(16, shape, R=R, pm_j=False)
+    m, s, _, masks, h, w6, halos = to(
+        cuda, torch_f32_args(d, np.zeros(1, np.float32)))
+    beta = torch.tensor([0.4, 1.1, 2.5], device=cuda)
+    before = _build.launch_counts["pbit_brick_update"]
+    got = pbit_brick_update(m, s, beta, masks[0], h, w6, halos, fmt=fmt,
+                            bx=bx)
+    assert _build.launch_counts["pbit_brick_update"] == before + 1
+    assert_f32_agrees(got, t_ref.pbit_brick_update_ref(
+        m, s, beta, masks[0], h, w6, halos, fmt),
+        f32_boundary_sites(m, s, beta[None], masks[:1], h, w6, halos, fmt))

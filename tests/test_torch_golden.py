@@ -2,7 +2,8 @@
 
 ``chip_smoke.py`` holds the card to the JAX reference at full width through
 constants: energies, per-replica flips and sha256 digests of the spins and
-LFSR states after 16 sweeps.  This test recomputes them with the JAX
+LFSR states after 16 sweeps (int8), and energies and flips at the f32
+default, whose LFSR digest is the int8 one.  This test recomputes them with the JAX
 package on the CPU, so they cannot drift from the reference.
 """
 
@@ -55,3 +56,15 @@ def test_bitplane_golden_lanes_match_jax():
     golden, st, energies = run_jax("bitplane", 32)
     assert energies[:, :2].tolist() == golden["energies"]
     assert np.asarray(st.flips)[:2].tolist() == golden["flips"]
+
+
+def test_f32_golden_values_match_jax():
+    """The default precision: its energies and flips (held to 0.5% on the
+    card, whose tanh is not XLA's) and its LFSR states, which do not depend
+    on the precision."""
+    smoke = chip_smoke()
+    golden, st, energies = run_jax("f32", 2)
+    assert energies.tolist() == smoke.GOLDEN_F32["energies"]
+    assert np.asarray(st.flips).tolist() == smoke.GOLDEN_F32["flips"]
+    s = np.asarray(st.s)
+    assert hashlib.sha256(s.tobytes()).hexdigest() == golden["s_sha256"]

@@ -236,9 +236,12 @@ def test_impl_selection_and_guards():
         t_ops.pbit_sweep_int_op(*torch_int_args(d, np.zeros(1, np.int32)),
                                 impl="cuda")
     m, active, h, w6, halos = energy_inputs(10, (4, 4, 4), True)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        t_ops.brick_energy_op(T(m), T(active), T(h), [T(w) for w in w6],
-                              [T(x) for x in halos], bx=2)
+    e_args = (T(m), T(active), T(h), [T(w) for w in w6],
+              [T(x) for x in halos])
+    assert float(t_ops.brick_energy_op(*e_args, bx=2)) == \
+        float(t_ops.brick_energy_op(*e_args))
+    with pytest.raises(ValueError, match="not divisible"):
+        brick_energy(*e_args, bx=3)
     with pytest.raises(ValueError, match="CUDA or CPU"):
         pbit_brick_sweep_int(torch.zeros(2, 2, 2, dtype=torch.int8,
                                          device="meta"),

@@ -259,12 +259,20 @@ def test_snapshot_restore_resumes_bitwise(prec):
 
 def test_make_engine_raises_for_what_this_slice_does_not_port():
     kw = dict(L=4, device="cpu")
-    with pytest.raises(NotImplementedError, match="ROADMAP.*slice 2"):
-        t_make("lattice", **kw)                     # precision="f32" default
-    with pytest.raises(NotImplementedError, match="ROADMAP.*slice 2"):
-        t_make("lattice", precision="int8", fused=False, **kw)
-    with pytest.raises(NotImplementedError, match="ROADMAP.*slice 2"):
-        t_make("lattice", precision="int8", kernel_bx=2, **kw)
+    # f32 (the default), fused=False and kernel_bx are ported: they build
+    h = t_make("lattice", **kw)
+    assert (h.precision, h.kernel_path, h.fallback_reason) == \
+        ("f32", "fused", None)
+    h = t_make("lattice", precision="int8", fused=False, **kw)
+    assert (h.kernel_path, h.fused_requested, h.fallback_reason) == \
+        ("per_phase", False, None)
+    h = t_make("lattice", precision="f32", kernel_bx=2, **kw)
+    assert (h.kernel_path, h.fused_requested, h.fallback_reason) == \
+        ("per_phase", True, "kernel_bx")
+    assert t_make("lattice", precision="bitplane", fused=False,
+                  **kw).kernel_path == "bitplane"
+    with pytest.raises(ValueError, match="kernel_bx.*bitplane"):
+        t_make("lattice", precision="bitplane", kernel_bx=2, **kw)
     with pytest.raises(NotImplementedError, match="ROADMAP.*item 9"):
         t_make("lattice", precision="int8", degrade="fail_fast", **kw)
     with pytest.raises(NotImplementedError, match="ROADMAP.*item 5"):
