@@ -10,22 +10,30 @@ Phases; every check raises on failure and the script then exits non-zero:
 2. hold each kernel to its plain PyTorch version on the card, at the
    L=100 shapes of the main path: the int8 sweep, the int8 phase and the
    bit-plane sweep bitwise, the energy exactly on the +-J problem (and
-   the same for every x tile ``bx``); the f32 sweep and the f32 phase
-   with LFSR states bitwise and spins bitwise or differing only at sites
-   within 8 ulp of the tanh decision boundary (counted and printed);
+   the same for every x tile ``bx``); the f32 sweep (both LFSR modes of
+   its persistent kernel: shared memory at R=4, device memory at R=16)
+   and the f32 phase with LFSR states bitwise and spins bitwise or
+   differing only at sites within 8 ulp of the tanh decision boundary
+   (counted and printed);
 3. drive the L=100 EA3D main path through ``make_engine("lattice", ...)``
    with no ``impl`` given, each configuration with the launch counters
    set to 0 just before it and read just after (every kernel it runs
-   above 0): int8, bit-plane, f32 (the default precision, with and
-   without the paper's s{4}{1} format) and the per-phase dispatch
-   (``fused=False``, ``kernel_bx``).  The first 16 sweeps equal an
-   ``impl="ref"`` run on the card bitwise (int8, bit-plane), the
+   above 0; the f32 sweeps one persistent launch per call, with the LFSR
+   states in shared memory): int8, bit-plane, f32 (the default precision,
+   with and without the paper's s{4}{1} format) and the per-phase
+   dispatch (``fused=False``, ``kernel_bx``).  The first 16 sweeps equal
+   an ``impl="ref"`` run on the card bitwise (int8, bit-plane), the
    per-phase runs equal the fused ones bitwise, the golden values
    recomputed from the JAX reference by ``tests/test_torch_golden.py``
    match (f32 to 0.5%, its LFSR digest exactly), and bit-plane lane
    (w, b) equals int8 replica w*32+b;
 4. time the main path (p-bit updates per second, the repository's
-   "flips/s") and each kernel against its plain version and its bound;
+   "flips/s"), profile it (device busy share, time by kernel, the
+   redesigned kernels' mode and time per launch) and time each kernel
+   against its plain version and its bound: the largest of its bytes
+   over the HBM bandwidth and its INT32 and FP32 operations over their
+   own peaks (64 and 128 per SM per clock at the card's SM count and
+   maximum SM clock);
 5. print one JSON line of kernels, the card's name and power limit, and
    last ``{"ok": true, "device": {...}}``.
 
@@ -61,8 +69,8 @@ MAIN_RUNS = {
     "int8 per-phase R=4": dict(precision="int8", replicas=4, fused=False),
     "f32 per-phase bx R=4": dict(replicas=4, kernel_bx=BX),
 }
-PROFILED = ("int8 R=4", "bitplane R=64", "f32 R=4", "int8 per-phase R=4",
-            "f32 per-phase bx R=4")
+PROFILED = ("int8 R=4", "bitplane R=64", "f32 R=4", "f32 s41 R=4",
+            "int8 per-phase R=4", "f32 per-phase bx R=4")
 KERNELS = ("pbit_brick_sweep_int", "pbit_bitplane_sweep", "brick_energy",
            "pbit_brick_sweep", "pbit_brick_update_int", "pbit_brick_update")
 # an f32 site may be decided differently from the plain version only
@@ -87,10 +95,18 @@ GOLDEN_F32 = {
     "flips": [1371830, 1372900],
 }
 
-# H100 SXM published peaks (NVIDIA data sheet): HBM3 bandwidth, and the
-# non-tensor-core rate used for the kernels' 32-bit integer and f32 ops.
+# H100 SXM published HBM3 bandwidth (NVIDIA data sheet).  The operation
+# peaks are taken from the card in the run: Hopper issues 64 INT32 and
+# 128 FP32 lane operations per SM per clock (no FMA here: the library
+# builds with --fmad=false), at the SM count PyTorch reports and the
+# maximum SM clock nvidia-smi reports.
 HBM_BYTES_PER_S = 3.35e12
-CORE_OPS_PER_S = 67e12
+INT32_PER_SM_CLOCK = 64
+FP32_PER_SM_CLOCK = 128
+# the kernels that this version of the port redesigned, by the CUDA
+# kernel name the profiler shows
+REDESIGNED = {"pbit_bitplane_sweep": "bitplane_color_kernel",
+              "pbit_brick_sweep": "persistent_sweep_kernel"}
 
 
 class CheckFailed(RuntimeError):
@@ -101,6 +117,14 @@ def check(cond, what: str):
     if not cond:
         raise CheckFailed(what)
     print(f"  ok  {what}", flush=True)
+
+
+def max_sm_clock_hz() -> float:
+    out = subprocess.run(
+        ["nvidia-smi", "--query-gpu=clocks.max.sm",
+         "--format=csv,noheader,nounits"], capture_output=True, text=True,
+        check=True, timeout=60)
+    return float(out.stdout.strip().splitlines()[0]) * 1e6
 
 
 def card_line() -> str:
@@ -116,12 +140,12 @@ def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; the port's entry points run on "
               "the card", file=sys.stderr)
-        return 2
+        return 1
     src = Path(__file__).resolve().parent / "src"
     if not (src / "repro_torch" / "kernels" / "csrc").is_dir():
         print(f"chip_smoke: {src / 'repro_torch'} not found; run from the "
               f"root of a checkout", file=sys.stderr)
-        return 2
+        return 1
     sys.path.insert(0, str(src))
     return Smoke(torch).run()
 
@@ -325,10 +349,13 @@ class Smoke:
         plain versions, on the int8 check's L=100, R=4 spins and states."""
         t = self.torch
         from repro_torch import S41
-        from repro_torch.kernels import ref
-        from repro_torch.kernels.pbit_lattice import (pbit_brick_sweep,
+        from repro_torch.core.bits import u32_from_numpy
+        from repro_torch.kernels import _build, ref
+        from repro_torch.kernels.pbit_lattice import (halo_shapes,
+                                                      pbit_brick_sweep,
                                                       pbit_brick_update,
-                                                      pbit_brick_update_int)
+                                                      pbit_brick_update_int,
+                                                      persistent_mode)
         rng, prob = self.rng, self.prob
         m, s, masks, h_q, w6_q, halos, lut, _ = self.inputs_int8
         R = int(m.shape[0])
@@ -351,9 +378,41 @@ class Smoke:
                 self.check_f32(what, got, want, lambda what, args=args,
                                fmt=fmt, got=got: self.f32_steps(
                                    what, args, fmt, got))
-        self.results["pbit_brick_sweep"] = {"max_abs_err": max(errs)}
+        check(persistent_mode(m) == "lfsr_smem",
+              f"f32 sweep at L={L}, R={R}: LFSR states in shared memory")
         self.inputs_f32 = (m, s, on_card(betas[:SYNC]), masks, prob.h,
                            prob.w6, halos)
+
+        # the same kernel with its LFSR states in device memory: R = 16
+        R16 = 16
+        m16 = t.from_numpy(rng.choice(np.array([-1, 1], np.int8),
+                                      size=(R16, L, L, L))).to(self.dev)
+        s16 = u32_from_numpy(rng.integers(1, 2 ** 32, size=(R16, L, L, L),
+                                          dtype=np.uint32), self.dev)
+        halos16 = self.rand_halos(rng, R16, halo_shapes(R16, L, L, L),
+                                  False)
+        check(persistent_mode(m16) == "lfsr_global",
+              f"f32 sweep at L={L}, R={R16}: LFSR states in device memory")
+        for fmt in (None, S41):
+            args = (m16, s16, on_card(rng.uniform(0.3, 5.0, size=(S, R16))
+                                      .astype(np.float32)),
+                    masks, prob.h, prob.w6, halos16)
+            before = _build.launch_counts["pbit_brick_sweep:lfsr_global"]
+            got = pbit_brick_sweep(*args, fmt=fmt)
+            want = ref.pbit_brick_sweep_ref(*args, fmt=fmt)
+            t.cuda.synchronize()
+            check(_build.launch_counts["pbit_brick_sweep:lfsr_global"]
+                  == before + 1, "one launch in device-memory mode")
+            errs += [self.max_abs(g, w) for g, w in zip(got, want)]
+            what = (f"f32 sweep, device-memory LFSR == plain (R={R16}, "
+                    f"S={S}, per-replica betas, fmt {fmt}, flips "
+                    f"{want[2].tolist()[:4]}...)")
+            self.check_f32(what, got, want, lambda what, args=args,
+                           fmt=fmt, got=got: self.f32_steps(
+                               what, args, fmt, got))
+        self.results["pbit_brick_sweep"] = {"max_abs_err": max(errs)}
+        self.inputs_f32_global = (m16, s16, on_card(betas[:SYNC]), masks,
+                                  prob.h, prob.w6, halos16)
 
         # int8 phase: shared and per-replica LUT rows, bx None and BX
         errs = []
@@ -543,7 +602,7 @@ class Smoke:
                  for label, hh in handles.items()}
         t.cuda.synchronize()
         self.rates = {}
-        self.launches = dict.fromkeys(KERNELS, 0)
+        self.launches = dict.fromkeys(_build.launch_counts, 0)
         for label, hh in handles.items():
             _build.reset_launch_counts()
             t0 = time.perf_counter()
@@ -577,8 +636,14 @@ class Smoke:
             check(counts.get(sweep, 0) > 0 and
                   counts.get("brick_energy", 0) > 0,
                   f"{label} ({hh.kernel_path}) launched {counts}")
-        for name, count in self.launches.items():
-            check(count > 0, f"main path launched {name} {count} times")
+            if sweep == "pbit_brick_sweep":
+                check(counts.get("pbit_brick_sweep:lfsr_smem", 0) ==
+                      counts.get(sweep, 0) == MAIN_SWEEPS // SYNC,
+                      f"{label}: one persistent launch per {SYNC}-sweep "
+                      f"call, each with its LFSR states in shared memory")
+        for name in KERNELS:
+            check(self.launches[name] > 0,
+                  f"main path launched {name} {self.launches[name]} times")
         self.handles, self.inits = handles, inits
 
     def engine(self, kw):
@@ -601,6 +666,13 @@ class Smoke:
                                                       pbit_brick_update,
                                                       pbit_brick_update_int)
         print(f"== 4. timing on {card}", flush=True)
+        sms = t.cuda.get_device_properties(0).multi_processor_count
+        clock = max_sm_clock_hz()
+        self.int_peak = sms * INT32_PER_SM_CLOCK * clock
+        self.f32_peak = sms * FP32_PER_SM_CLOCK * clock
+        print(f"  peaks: {sms} SMs at {clock / 1e6:.0f} MHz: "
+              f"{self.int_peak:.4e} INT32 and {self.f32_peak:.4e} FP32 "
+              f"operations/s; HBM {HBM_BYTES_PER_S:.3e} B/s", flush=True)
         for label, (rate, dt, flips) in self.rates.items():
             unit = "lane-flips/s" if "bitplane" in label else "flips/s"
             print(f"  main path {label}: {MAIN_SWEEPS} sweeps in "
@@ -608,94 +680,120 @@ class Smoke:
                   f"{flips} accepted flips) on {card}", flush=True)
         self.profile_main_path(card)
         n = self.n
+        plane = 6 * L * L
 
+        # Operations each function needs on this run's data (the bound is
+        # the least time, so only what the result needs is counted): per
+        # replica-site and phase one LFSR step (6 integer ops); per
+        # replica-site decided (the sites in the phase's mask): int8, the
+        # field's 12 ops, index, clamp, LUT load and compare, 19 in all;
+        # f32, the field's 12, the draw's 2, the activation, tanh counted
+        # once, the add and compare, 18 f32 ops in all; bit-plane, per
+        # decided word-site the 26 ops of the word math and per decided
+        # lane-site 13 (bit-slice count, index, clamp, LUT, accept bit).
         m, s, masks, h_q, w6_q, halos, lut, rows = self.inputs_int8
         R, nc = int(m.shape[0]), int(masks.shape[0])
+        decided = int((masks != 0).sum())      # masked sites over a sweep
         args = (m, s, t.from_numpy(rows).to(self.dev), masks, h_q, w6_q,
                 halos, lut)
-        plane = 6 * L * L
         byts = (2 * 5 * R * n + (nc + 7) * n + 4 * R + R * plane
                 + 4 * lut.numel() + 4 * SYNC)
-        ops = 25 * R * n * nc * SYNC
         self._timed("pbit_brick_sweep_int", "src/repro_torch/kernels/csrc/"
                     "pbit_lattice.cu", "src/repro/kernels/pbit_lattice.py:235",
                     lambda: pbit_brick_sweep_int(*args),
-                    lambda: ref.pbit_brick_sweep_int_ref(*args),
-                    byts, ops, f"{SYNC} sweeps, R={R}, {SYNC * nc} launches")
+                    lambda: ref.pbit_brick_sweep_int_ref(*args), byts,
+                    SYNC * R * (6 * nc * n + 19 * decided), 0,
+                    f"{SYNC} sweeps, R={R}, {SYNC * nc} launches")
 
         mw, s, rows, masks_w, signs6, nz6, base, hw, lut = self.inputs_bp
         W, R, nc = int(mw.shape[0]), int(s.shape[0]), int(masks_w.shape[0])
+        decided = int((masks_w.view(t.int32)[:, 0] != 0).sum())
         args = (mw, s, rows, masks_w, signs6, nz6, base, hw, lut)
         byts = (2 * 4 * (W + R) * n + 4 * nc * W * n + 52 * n + 4 * R
                 + 4 * W * plane + 4 * lut.numel() + 4 * SYNC)
-        ops = nc * n * (26 * W + 15 * R) * SYNC
         self._timed("pbit_bitplane_sweep", "src/repro_torch/kernels/csrc/"
                     "pbit_bitplane.cu",
                     "src/repro/kernels/pbit_bitplane.py:135",
                     lambda: pbit_bitplane_sweep(*args),
-                    lambda: ref.pbit_bitplane_sweep_ref(*args),
-                    byts, ops,
-                    f"{SYNC} sweeps, R={R}, W={W}, {SYNC * nc} launches")
+                    lambda: ref.pbit_bitplane_sweep_ref(*args), byts,
+                    SYNC * (6 * nc * R * n + decided * (26 * W + 13 * R)),
+                    0, f"{SYNC} sweeps, R={R}, W={W}, {SYNC * nc} launches")
 
         args = self.inputs_energy
         R = int(args[0].shape[0])
         byts = R * n + 29 * n + R * plane + 4 * R
-        ops = 17 * R * n
         self._timed("brick_energy", "src/repro_torch/kernels/csrc/"
                     "lattice_energy.cu",
                     "src/repro/kernels/lattice_energy.py:57",
                     lambda: brick_energy(*args),
                     lambda: ref.brick_energy_ref(*args),
-                    byts, ops, f"R={R} spins, 1 launch")
+                    byts, 0, 17 * R * n, f"R={R} spins, 1 launch")
 
-        # f32: 29 B of shared f32/int8 constants per site (h, six w, the
-        # mask of each color); about 30 operations per replica-site-phase
-        # (the field's 12, the LFSR's 6, the draw's 4, the activation, the
-        # tanh counted once, the compare and the masked write)
         args = self.inputs_f32
         m, masks = args[0], args[3]
         R, nc = int(m.shape[0]), int(masks.shape[0])
+        decided = int((masks != 0).sum())
         byts = (2 * 5 * R * n + (nc + 28) * n + R * plane + 4 * R
                 + 4 * SYNC * R)
-        ops = 30 * R * n * nc * SYNC
         self._timed("pbit_brick_sweep", "src/repro_torch/kernels/csrc/"
                     "pbit_lattice.cu", "src/repro/kernels/pbit_lattice.py:287",
                     lambda: pbit_brick_sweep(*args),
-                    lambda: ref.pbit_brick_sweep_ref(*args),
-                    byts, ops, f"{SYNC} sweeps, R={R}, {SYNC * nc} launches")
+                    lambda: ref.pbit_brick_sweep_ref(*args), byts,
+                    SYNC * 6 * nc * R * n, SYNC * 18 * R * decided,
+                    f"{SYNC} sweeps, R={R}, 1 launch")
+        g = self.inputs_f32_global
+        R16 = int(g[0].shape[0])
+        ms16 = self.time_ms(lambda: pbit_brick_sweep(*g), reps=20)
+        byts16 = (2 * 5 * R16 * n + (nc + 28) * n + R16 * plane + 4 * R16
+                  + 4 * SYNC * R16)
+        print(f"  pbit_brick_sweep, LFSR in device memory (R={R16}, "
+              f"{SYNC} sweeps, 1 launch): {ms16:.4f} ms, byte floor "
+              f"{byts16 / HBM_BYTES_PER_S * 1e3:.4f} ms; on {card}",
+              flush=True)
 
         # one phase: each input read once and each output written once
         args = self.inputs_update_int
         lut = args[-1]
+        R = int(args[0].shape[0])
         byts = 2 * 5 * R * n + 8 * n + R * plane + 4 * lut.numel() + 4 * R
+        decided = int((args[3] != 0).sum())
         self._timed("pbit_brick_update_int", "src/repro_torch/kernels/csrc/"
                     "pbit_lattice.cu", "src/repro/kernels/pbit_lattice.py:450",
                     lambda: pbit_brick_update_int(*args),
                     lambda: ref.pbit_brick_update_int_ref(*args),
-                    byts, 25 * R * n, f"one phase, R={R}, 1 launch")
+                    byts, R * (6 * n + 19 * decided), 0,
+                    f"one phase, R={R}, 1 launch")
         args = self.inputs_update_f32
         byts = 2 * 5 * R * n + 29 * n + R * plane + 4 * R
+        decided = int((args[3] != 0).sum())
         self._timed("pbit_brick_update", "src/repro_torch/kernels/csrc/"
                     "pbit_lattice.cu", "src/repro/kernels/pbit_lattice.py:340",
                     lambda: pbit_brick_update(*args),
                     lambda: ref.pbit_brick_update_ref(*args),
-                    byts, 30 * R * n, f"one phase, R={R}, 1 launch")
+                    byts, 6 * R * n, 18 * R * decided,
+                    f"one phase, R={R}, 1 launch")
         for name, r in self.results.items():
             print(f"  {name}: {r['ms']:.4f} ms ({r['work']}), plain "
                   f"{r['plain_ms']:.4f} ms, bound {r['bound_ms']:.4f} ms "
-                  f"by {r['bound_by']}; {r['launches']} launches on the "
-                  f"main path; on {card}", flush=True)
-            del r["work"]
+                  f"by {r['bound_by']} ({r['bounds']}); {r['launches']} "
+                  f"launches on the main path; on {card}", flush=True)
+            del r["work"], r["bounds"]
 
     def profile_main_path(self, card: str):
         """Device time by kernel over one more run of each main-path
         configuration, and the device's busy share of its wall time (the
-        profiler's own cost is in that wall time)."""
+        profiler's own cost is in that wall time); the redesigned kernels'
+        mode and device time per launch."""
         t = self.torch
+        from torch.autograd import DeviceType
         from torch.profiler import ProfilerActivity, profile
         from repro_torch.core.annealing import ea_schedule
+        from repro_torch.kernels import _build
+        from repro_torch.kernels.pbit_lattice import (_persistent_config,
+                                                      persistent_mode)
         for label in PROFILED:
             hh = self.handles[label]
+            _build.reset_launch_counts()
             with profile(activities=[ProfilerActivity.CPU,
                                      ProfilerActivity.CUDA]) as prof:
                 t0 = time.perf_counter()
@@ -704,9 +802,12 @@ class Smoke:
                                 sync_every=SYNC)
                 t.cuda.synchronize()
                 wall = time.perf_counter() - t0
+            # device events only: an aten operator's row repeats the
+            # device time of the kernels it launched
             rows = [(e.key, e.count, e.self_device_time_total)
                     for e in prof.key_averages()
-                    if e.self_device_time_total > 0]
+                    if e.device_type == DeviceType.CUDA
+                    and e.self_device_time_total > 0]
             busy = sum(us for _, _, us in rows) / 1e6
             if not rows:
                 print(f"  profile {label}: the profiler saw no device "
@@ -718,24 +819,48 @@ class Smoke:
             for key, count, us in sorted(rows, key=lambda r: -r[2])[:6]:
                 print(f"    {us / 1e3:10.3f} ms  {count:5d} x  {key[:90]}",
                       flush=True)
+            for name, kernel in REDESIGNED.items():
+                hits = [(c, us) for key, c, us in rows if kernel in key]
+                if not hits or not _build.launch_counts[name]:
+                    continue
+                count, us = sum(c for c, _ in hits), sum(u for _, u in hits)
+                mode = "per color phase"
+                if name == "pbit_brick_sweep":
+                    m = self.inits[label].m
+                    mode = persistent_mode(m)
+                    grid, tile, smem, per_sm = _persistent_config(
+                        0, mode == "lfsr_smem", int(m.shape[0]),
+                        int(m[0].numel()))
+                    mode = (f"persistent, {mode} (grid {grid} = {per_sm} "
+                            f"per SM, tile {tile} sites, {smem} B shared)")
+                print(f"  redesigned {name} in {label}: {mode}; {count} "
+                      f"launches, {us / count:.1f} us per launch "
+                      f"(profiler) on {card}", flush=True)
 
-    def _timed(self, name, source, replaces, kernel, plain, byts, ops,
-               work):
-        bytes_ms = byts / HBM_BYTES_PER_S * 1e3
-        ops_ms = ops / CORE_OPS_PER_S * 1e3
+    def _timed(self, name, source, replaces, kernel, plain, byts, int_ops,
+               f32_ops, work):
+        """Time a kernel's wrapper and its plain version; its bound is the
+        largest of the bytes over HBM bandwidth and the INT32 and FP32
+        operations over their own peaks."""
+        times = {"bytes": byts / HBM_BYTES_PER_S * 1e3,
+                 "int32": int_ops / self.int_peak * 1e3,
+                 "fp32": f32_ops / self.f32_peak * 1e3}
+        by = max(times, key=times.get)
         r = self.results[name]
         r.update({
             "name": name, "route": "cuda", "source": source,
             "replaces": replaces, "launches": self.launches[name],
             "ms": self.time_ms(kernel, reps=50),
             "plain_ms": self.time_ms(plain, reps=3, warm=1),
-            "bound_ms": max(bytes_ms, ops_ms),
-            "bound_by": "bytes" if bytes_ms >= ops_ms else "operations",
-            "library_ms": None, "work": work})
+            "bound_ms": times[by],
+            "bound_by": "bytes" if by == "bytes" else "operations",
+            "library_ms": None, "work": work,
+            "bounds": ", ".join(f"{k} {v:.4f} ms" for k, v in times.items())})
         # key order of the kernels line
         self.results[name] = {k: r[k] for k in (
             "name", "route", "source", "replaces", "launches", "max_abs_err",
-            "ms", "plain_ms", "bound_ms", "bound_by", "library_ms", "work")}
+            "ms", "plain_ms", "bound_ms", "bound_by", "library_ms", "work",
+            "bounds")}
 
 
 if __name__ == "__main__":

@@ -33,7 +33,10 @@ BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "kernels"
 # Keys are the TPU functions the kernels replace.
 launch_counts = {"pbit_brick_sweep_int": 0, "pbit_bitplane_sweep": 0,
                  "brick_energy": 0, "pbit_brick_sweep": 0,
-                 "pbit_brick_update_int": 0, "pbit_brick_update": 0}
+                 "pbit_brick_update_int": 0, "pbit_brick_update": 0,
+                 # the persistent f32 sweep's launches by LFSR mode
+                 "pbit_brick_sweep:lfsr_smem": 0,
+                 "pbit_brick_sweep:lfsr_global": 0}
 
 
 def reset_launch_counts():
@@ -109,16 +112,24 @@ _SIGNATURES = {
     "pbit_update_int_phase": (_P, _P, _P, _P, _P, _P, _P, _P6, _P6, _P,
                               _I, _I, _I, _I, _I, _P),
     # m_in, m_out, s_in, s_out, betas_t, mask, h, w6, halos,
-    # fmt_on, step, lo, hi, R, X, Y, Z, flips, stream
-    "pbit_sweep_f32_phase": (_P, _P, _P, _P, _P, _P, _P, _P6, _P6,
-                             _I, _F, _F, _F, _I, _I, _I, _I, _P, _P),
-    # the same without flips
+    # fmt_on, step, lo, hi, R, X, Y, Z, stream
     "pbit_update_f32_phase": (_P, _P, _P, _P, _P, _P, _P, _P6, _P6,
                               _I, _F, _F, _F, _I, _I, _I, _I, _P),
-    # mw_in, mw_out, s_in, s_out, rows_t, mask, signs6, nz6, base, halos,
-    # lut, lw, W, R, X, Y, Z, flips, stream
-    "pbit_bitplane_phase": (_P, _P, _P, _P, _P, _P, _P6, _P6, _P, _P6, _P,
-                            _I, _I, _I, _I, _I, _I, _P, _P),
+    # out[2]: SM count, opt-in shared memory per block
+    "pbit_device_limits": (_P,),
+    # resident, R, n, out[4]: grid, tile, smem, blocks per SM
+    "pbit_persistent_config": (_I, _I, _I, _P),
+    # m0, buf0, buf1, s_in, s_out, betas, masks, h, w6, halos, fmt_on,
+    # step, lo, hi, S, n_colors, R, X, Y, Z, resident, grid, tile, smem,
+    # lists, flips, stream
+    "pbit_sweep_f32_persistent": (_P, _P, _P, _P, _P, _P, _P, _P, _P6, _P6,
+                                  _I, _F, _F, _F, _I, _I, _I, _I, _I, _I,
+                                  _I, _I, _I, _I, _P, _P, _P),
+    # mw, s_cm, perm, rows_t, mask_cm, sign_cm, nz_cm, base_cm, halos, lut,
+    # lw, W, R, X, Y, Z, lo, hi, decide_lo, color, n_colors, flips, stream
+    "pbit_bitplane_color_phase": (_P, _P, _P, _P, _P, _P6, _P6, _P, _P6, _P,
+                                  _I, _I, _I, _I, _I, _I, _I, _I, _I, _I,
+                                  _I, _P, _P),
     # m, active, h, w6, halos, R, X, Y, Z, out, stream
     "brick_energy": (_P, _P, _P, _P6, _P6, _I, _I, _I, _I, _P, _P),
 }

@@ -39,21 +39,37 @@ __device__ __forceinline__ Site site_of(int i, int Y, int Z) {
   return s;
 }
 
+// Loads of the spin arrays: plain, or through L2 only (ld.global.cg) for
+// buffers that other blocks of the same launch write: L1 is not coherent
+// across SMs, and a const __restrict__ pointer may become ld.global.nc.
+struct PlainLoad {
+  template <typename T>
+  __device__ __forceinline__ T operator()(const T* p) const { return *p; }
+};
+struct L2Load {
+  template <typename T>
+  __device__ __forceinline__ T operator()(const T* p) const {
+    return __ldcg(p);
+  }
+};
+
 // The six neighbor values of site i of the brick `m` (replica / word
-// plane `r`): inside the brick from `m`, across a face from that face's
-// halo plane, laid out (R, Y, Z) for x faces, (R, X, Z) for y faces and
-// (R, X, Y) for z faces.  Halos are held fixed between exchanges.
-template <typename T>
+// plane `r`): inside the brick from `m` (read with `ld`), across a face
+// from that face's halo plane, laid out (R, Y, Z) for x faces, (R, X, Z)
+// for y faces and (R, X, Y) for z faces.  Halos are held fixed between
+// exchanges.
+template <typename T, typename Load = PlainLoad>
 __device__ __forceinline__ void neighbors(const T* m, const Six<T>& halo,
                                           int i, Site c, int r,
-                                          int X, int Y, int Z, T nb[6]) {
+                                          int X, int Y, int Z, T nb[6],
+                                          Load ld = Load()) {
   const int yz = Y * Z;
-  nb[0] = c.x > 0 ? m[i - yz] : halo.p[0][(static_cast<long long>(r) * Y + c.y) * Z + c.z];
-  nb[1] = c.x < X - 1 ? m[i + yz] : halo.p[1][(static_cast<long long>(r) * Y + c.y) * Z + c.z];
-  nb[2] = c.y > 0 ? m[i - Z] : halo.p[2][(static_cast<long long>(r) * X + c.x) * Z + c.z];
-  nb[3] = c.y < Y - 1 ? m[i + Z] : halo.p[3][(static_cast<long long>(r) * X + c.x) * Z + c.z];
-  nb[4] = c.z > 0 ? m[i - 1] : halo.p[4][(static_cast<long long>(r) * X + c.x) * Y + c.y];
-  nb[5] = c.z < Z - 1 ? m[i + 1] : halo.p[5][(static_cast<long long>(r) * X + c.x) * Y + c.y];
+  nb[0] = c.x > 0 ? ld(m + i - yz) : halo.p[0][(static_cast<long long>(r) * Y + c.y) * Z + c.z];
+  nb[1] = c.x < X - 1 ? ld(m + i + yz) : halo.p[1][(static_cast<long long>(r) * Y + c.y) * Z + c.z];
+  nb[2] = c.y > 0 ? ld(m + i - Z) : halo.p[2][(static_cast<long long>(r) * X + c.x) * Z + c.z];
+  nb[3] = c.y < Y - 1 ? ld(m + i + Z) : halo.p[3][(static_cast<long long>(r) * X + c.x) * Z + c.z];
+  nb[4] = c.z > 0 ? ld(m + i - 1) : halo.p[4][(static_cast<long long>(r) * X + c.x) * Y + c.y];
+  nb[5] = c.z < Z - 1 ? ld(m + i + 1) : halo.p[5][(static_cast<long long>(r) * X + c.x) * Y + c.y];
 }
 
 __device__ __forceinline__ uint32_t xorshift32(uint32_t s) {

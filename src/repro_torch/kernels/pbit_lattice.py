@@ -3,15 +3,18 @@
 Ports of ``repro.kernels.pbit_lattice``: the fused sweeps
 ``pbit_brick_sweep_int`` (int8) and ``pbit_brick_sweep`` (f32), and the
 single color phases ``pbit_brick_update_int`` and ``pbit_brick_update``.
-On a CUDA tensor each launches its hand-written kernel (a sweep once per
-(sweep, color) phase); on a CPU tensor it runs the plain version of
-``ref``.  All take one brick (X, Y, Z) or R replicas (R, X, Y, Z) in one
-launch per phase, and do not modify their inputs.
+On a CUDA tensor each launches its hand-written kernel (the int8 sweep
+once per (sweep, color) phase, the f32 sweep once per call as a persistent
+cooperative kernel); on a CPU tensor it runs the plain version of ``ref``.
+All take one brick (X, Y, Z) or R replicas (R, X, Y, Z), and do not modify
+their inputs.
 """
 
 from __future__ import annotations
 
-from typing import Optional
+import ctypes
+import functools
+from typing import Optional, Tuple
 
 import numpy as np
 import torch
@@ -20,7 +23,9 @@ from repro_torch.core.pbit import FixedPoint
 from . import _build, ref as _ref
 
 __all__ = ["pbit_brick_sweep_int", "pbit_brick_sweep",
-           "pbit_brick_update_int", "pbit_brick_update", "halo_shapes"]
+           "pbit_brick_update_int", "pbit_brick_update", "halo_shapes",
+           "device_limits", "smem_budget", "lfsr_resident",
+           "persistent_mode"]
 
 
 def halo_shapes(lead: int, X: int, Y: int, Z: int):
@@ -171,6 +176,54 @@ def pbit_brick_sweep_int(m, s, rows, masks, h_q, w6_q, halos, lut):
                    n_colors, single)
 
 
+@functools.cache
+def device_limits(index: int) -> Tuple[int, int]:
+    """(SM count, shared memory one block may opt in to) of CUDA device
+    ``index``."""
+    lib = _build.library()
+    out = (ctypes.c_int * 2)()
+    with torch.cuda.device(index):
+        _build.check_launch("pbit_device_limits",
+                            lib.pbit_device_limits(ctypes.addressof(out)))
+    return int(out[0]), int(out[1])
+
+
+def smem_budget(R: int, n: int, sms: int) -> int:
+    """Shared memory one block of the persistent f32 sweep needs to hold
+    its tile's LFSR states, at one block per SM: the tile (n / sms sites,
+    rounded up) times R states of 4 B, plus R flip counters."""
+    return 4 * R * (-(-n // sms) + 1)
+
+
+def lfsr_resident(R: int, n: int, sms: int, smem_per_block: int) -> bool:
+    """True where the persistent f32 sweep keeps the LFSR states of R
+    replicas of an n-site brick in shared memory, False where it keeps
+    them in device memory."""
+    return smem_budget(R, n, sms) <= smem_per_block
+
+
+@functools.cache
+def _persistent_config(index: int, resident: bool, R: int, n: int):
+    """(grid, tile, smem bytes, blocks per SM) of the persistent sweep."""
+    lib = _build.library()
+    out = (ctypes.c_int * 4)()
+    with torch.cuda.device(index):
+        err = lib.pbit_persistent_config(int(resident), R, n,
+                                         ctypes.addressof(out))
+    _build.check_launch("pbit_persistent_config", err)
+    return tuple(int(v) for v in out)
+
+
+def persistent_mode(m) -> str:
+    """The LFSR mode the persistent f32 sweep takes for spins ``m``
+    ((R, X, Y, Z) or one brick) on its CUDA device: "lfsr_smem" or
+    "lfsr_global"."""
+    R = 1 if m.dim() == 3 else int(m.shape[0])
+    n = int(np.prod(m.shape[-3:]))
+    sms, smem = device_limits(m.device.index)
+    return "lfsr_smem" if lfsr_resident(R, n, sms, smem) else "lfsr_global"
+
+
 def pbit_brick_sweep(m, s, betas, masks, h, w6, halos,
                      fmt: Optional[FixedPoint] = None):
     """``len(betas)`` f32 sweeps of one brick, halos held fixed.
@@ -178,28 +231,56 @@ def pbit_brick_sweep(m, s, betas, masks, h, w6, halos,
     As :func:`pbit_brick_sweep_int`, with betas (S,) shared or (S, R)
     floating point (taken as f32) for the LUT rows, h and the six w6
     (X, Y, Z) f32, and ``fmt`` the optional fixed-point format of the
-    activation.  Returns (m, s, flips).
+    activation.  Returns (m, s, flips).  On CUDA all S sweeps are one
+    persistent cooperative launch (:func:`persistent_mode` says where its
+    LFSR states live).
     """
     if _build.plain_device(m):
         return _ref.pbit_brick_sweep_ref(m, s, betas, masks, h, w6, halos,
                                          fmt)
+    return _f32_persistent(m, s, betas, masks, h, w6, halos, fmt)
+
+
+def _f32_persistent(m, s, betas, masks, h, w6, halos, fmt, grid=None):
+    """The persistent f32 sweep; ``grid`` overrides the block count of the
+    launch shape (a count the card cannot co-schedule fails to launch)."""
     n_colors = int(masks.shape[0])
     single, m, s, halos = _checked(m, s, masks, (n_colors,), h, w6, halos,
                                    torch.float32)
     R, X, Y, Z = (int(d) for d in m.shape)
     betas = device_betas(betas, R, m.device)
+    S, n = int(betas.shape[0]), X * Y * Z
+    flips = torch.zeros(R, dtype=torch.int32, device=m.device)
+    if S * n_colors == 0:
+        out = (m.clone(), s.view(torch.int32).clone().view(torch.uint32),
+               flips)
+        return tuple(x[0] for x in out) if single else out
+    mode = persistent_mode(m)
+    resident = mode == "lfsr_smem"
+    blocks, tile, smem, _ = _persistent_config(m.device.index, resident, R,
+                                               n)
+    if grid is not None:
+        blocks = int(grid)
+        tile = -(-n // blocks)
+        smem = 4 * R * ((tile if resident else 0) + 1)
+    bufs = (torch.empty_like(m), torch.empty_like(m))
+    s_out = _new_states(s)
+    lists = torch.empty(blocks * n_colors * tile, dtype=torch.int32,
+                        device=m.device)
     lib = _build.library()
-    w6p, halop = _build.ptrs6(w6), _build.ptrs6(halos)
-    n, stream, fa = X * Y * Z, _build.stream_of(m), _fmt_args(fmt)
-
-    def launch(src, dst, s_src, s_out, t, c, flips):
-        return lib.pbit_sweep_f32_phase(
-            src.data_ptr(), dst.data_ptr(), s_src.data_ptr(),
-            s_out.data_ptr(), betas.data_ptr() + 4 * t * R,
-            masks.data_ptr() + c * n, h.data_ptr(), w6p, halop, *fa, R, X,
-            Y, Z, flips.data_ptr(), stream)
-    return _sweeps("pbit_brick_sweep", launch, m, s, int(betas.shape[0]),
-                   n_colors, single)
+    with torch.cuda.device(m.device):
+        err = lib.pbit_sweep_f32_persistent(
+            m.data_ptr(), bufs[0].data_ptr(), bufs[1].data_ptr(),
+            s.data_ptr(), s_out.data_ptr(), betas.data_ptr(),
+            masks.data_ptr(), h.data_ptr(), _build.ptrs6(w6),
+            _build.ptrs6(halos), *_fmt_args(fmt), S, n_colors, R, X, Y, Z,
+            int(resident), blocks, tile, smem, lists.data_ptr(),
+            flips.data_ptr(), _build.stream_of(m))
+    _build.check_launch("pbit_sweep_f32_persistent", err)
+    _build.launch_counts["pbit_brick_sweep"] += 1
+    _build.launch_counts[f"pbit_brick_sweep:{mode}"] += 1
+    out = (bufs[(S * n_colors - 1) % 2], s_out, flips)
+    return tuple(x[0] for x in out) if single else out
 
 
 def pbit_brick_update_int(m, s, row, parity_mask, h_q, w6_q, halos, lut,

@@ -14,12 +14,14 @@ import numpy as np
 import pytest
 import torch
 
+from repro_torch.core import coloring as t_coloring
 from repro_torch.core import packing as t_pack
 from repro_torch.core import pbit as t_pbit
 from repro_torch.core.bits import u32_from_numpy, u32_to_numpy
 from repro_torch.kernels import _build
 from repro_torch.kernels import ref as t_ref
 from repro_torch.kernels.lattice_energy import brick_energy
+from repro_torch.kernels import pbit_lattice
 from repro_torch.kernels.pbit_bitplane import pbit_bitplane_sweep
 from repro_torch.kernels.pbit_lattice import (pbit_brick_sweep,
                                               pbit_brick_sweep_int,
@@ -137,10 +139,24 @@ def assert_f32_agrees(got, want, flagged):
         assert_bitwise(got[2:], want[2:])
 
 
-def bitplane_inputs(seed, shape, R, n_betas=3):
+def lattice_masks(L, shape):
+    """The repository's coloring of the L^3 lattice (3 colors at odd L)
+    embedded in a brick ``shape`` >= (L, L, L): padding sites in no mask."""
+    col = t_coloring.lattice3d_coloring(L)
+    colors = col.colors.reshape(L, L, L)
+    masks = np.zeros((col.n_colors,) + tuple(shape), np.int8)
+    for c in range(col.n_colors):
+        masks[c, :L, :L, :L] = colors == c
+    return masks
+
+
+def bitplane_inputs(seed, shape, R, n_betas=3, masks=None):
     """One +-J-style brick in word layout (lane-masked color masks, random
-    word halos) plus its int8 unpacked twin."""
+    word halos) plus its int8 unpacked twin; ``masks`` (n_colors, *shape)
+    int8 replaces the checkerboard."""
     d = int_inputs(seed, shape, R=R, n_betas=n_betas)
+    if masks is not None:
+        d["masks"] = masks
     rng = d["rng"]
     h = rng.choice([-1.0, 0.0, 1.0], size=shape).astype(np.float32)
     w6 = [rng.choice([-1.0, 0.0, 1.0], size=shape).astype(np.float32)
@@ -270,7 +286,7 @@ def test_cuda_f32_sweep_matches_plain(cuda, per_replica, pm_j, fmt):
     args = to(cuda, torch_f32_args(d, betas))
     before = _build.launch_counts["pbit_brick_sweep"]
     got = pbit_brick_sweep(*args, fmt=fmt)
-    assert _build.launch_counts["pbit_brick_sweep"] == before + 8
+    assert _build.launch_counts["pbit_brick_sweep"] == before + 1
     assert_f32_agrees(got, t_ref.pbit_brick_sweep_ref(*args, fmt=fmt),
                       f32_boundary_sites(*args, fmt=fmt))
 
@@ -291,3 +307,85 @@ def test_cuda_f32_update_matches_plain(cuda, fmt, bx):
     assert_f32_agrees(got, t_ref.pbit_brick_update_ref(
         m, s, beta, masks[0], h, w6, halos, fmt),
         f32_boundary_sites(m, s, beta[None], masks[:1], h, w6, halos, fmt))
+
+
+# -- the redesigned sweeps: color-major bit-plane, persistent f32 -----------
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("L,pad,R", [
+    (4, None, 33), (5, None, 64), (5, (6, 7), 33), (3, (4, 4), 64)])
+def test_cuda_bitplane_color_major_matches_plain(cuda, L, pad, R):
+    """Even and odd L (two and three colors), padding sites in no mask,
+    R = 33 and 64 lanes, per-lane rows: bitwise the plain version."""
+    shape = (L, L, L) if pad is None else (pad[0], pad[1], L)
+    d = bitplane_inputs(17, shape, R, masks=lattice_masks(L, shape))
+    rows = d["rng"].integers(0, 3, size=(3, R)).astype(np.int32)
+    args = to(cuda, bp_args(d, rows, T))
+    before = _build.launch_counts["pbit_bitplane_sweep"]
+    got = pbit_bitplane_sweep(*args)
+    n_colors = d["masks_w"].shape[0]
+    assert _build.launch_counts["pbit_bitplane_sweep"] == before + 3 * \
+        n_colors
+    assert_bitwise(got, t_ref.pbit_bitplane_sweep_ref(*args))
+    assert int(N(got[2]).sum()) > 0
+
+
+@pytest.mark.cuda
+def test_cuda_bitplane_rejects_overlapping_masks(cuda):
+    d = bitplane_inputs(18, (4, 4, 4), 32)
+    d["masks_w"][1] |= d["masks_w"][0]
+    rows = np.array([0, 1], np.int32)
+    with pytest.raises(ValueError, match="two phases"):
+        pbit_bitplane_sweep(*to(cuda, bp_args(d, rows, T)))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("mode", ["lfsr_smem", "lfsr_global"])
+@pytest.mark.parametrize("fmt", [None, t_pbit.S41])
+@pytest.mark.parametrize("per_replica", [False, True])
+def test_cuda_f32_persistent_modes_match_plain(cuda, monkeypatch, mode, fmt,
+                                               per_replica):
+    """Both LFSR modes (device memory forced by a zero shared-memory
+    budget), odd L (three colors, padding), fmt None and s{4}{1}, shared
+    and per-replica betas."""
+    if mode == "lfsr_global":
+        sms = pbit_lattice.device_limits(cuda.index)[0]
+        monkeypatch.setattr(pbit_lattice, "device_limits",
+                            lambda index: (sms, 0))
+    R, L, shape = 3, 5, (6, 5, 5)
+    d = f32_inputs(19, shape, R=R, pm_j=False)
+    d["masks"] = lattice_masks(L, shape)
+    betas = d["rng"].uniform(0.2, 3.0, size=(4, R)).astype(np.float32) \
+        if per_replica else np.array([0.5, 1.5, 3.0, 0.9], np.float32)
+    args = to(cuda, torch_f32_args(d, betas))
+    assert pbit_lattice.persistent_mode(args[0]) == mode
+    before = _build.launch_counts[f"pbit_brick_sweep:{mode}"]
+    got = pbit_brick_sweep(*args, fmt=fmt)
+    assert _build.launch_counts[f"pbit_brick_sweep:{mode}"] == before + 1
+    assert_f32_agrees(got, t_ref.pbit_brick_sweep_ref(*args, fmt=fmt),
+                      f32_boundary_sites(*args, fmt=fmt))
+
+
+@pytest.mark.cuda
+def test_cuda_f32_persistent_zero_sweeps(cuda):
+    d = f32_inputs(20, (6, 5, 4), R=2)
+    args = to(cuda, torch_f32_args(d, np.zeros(0, np.float32)))
+    before = _build.launch_counts["pbit_brick_sweep"]
+    got = pbit_brick_sweep(*args)
+    assert _build.launch_counts["pbit_brick_sweep"] == before
+    assert_bitwise(got, t_ref.pbit_brick_sweep_ref(*args))
+
+
+@pytest.mark.cuda
+def test_cuda_f32_persistent_grid_too_large_raises(cuda):
+    """A grid the card cannot co-schedule is refused at launch, and the
+    wrapper raises with the launch's error."""
+    d = f32_inputs(21, (6, 5, 4), R=2)
+    args = to(cuda, torch_f32_args(d, np.array([1.0], np.float32)))
+    sms = pbit_lattice.device_limits(cuda.index)[0]
+    with pytest.raises(RuntimeError, match="pbit_sweep_f32_persistent"):
+        pbit_lattice._f32_persistent(*args, None, grid=64 * sms)
+    # the card is still usable afterwards
+    assert_f32_agrees(pbit_brick_sweep(*args),
+                      t_ref.pbit_brick_sweep_ref(*args),
+                      f32_boundary_sites(*args))
