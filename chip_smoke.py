@@ -8,18 +8,20 @@ Phases; every check raises on failure and the script then exits non-zero:
 1. build the CUDA kernels from ``src/repro_torch/kernels/csrc/`` (nvcc,
    one process per source) and print the card's name and power limit;
 2. hold each kernel to its plain PyTorch version on the card, at the
-   L=100 shapes of the main path: the int8 sweep, the int8 phase and the
-   bit-plane sweep bitwise, the energy exactly on the +-J problem (and
-   the same for every x tile ``bx``); the f32 sweep (both LFSR modes of
-   its persistent kernel: shared memory at R=4, device memory at R=16)
-   and the f32 phase with LFSR states bitwise and spins bitwise or
-   differing only at sites within 8 ulp of the tanh decision boundary
-   (counted and printed);
+   L=100 shapes of the main path: the int8 sweep (both LFSR modes of its
+   persistent kernel: shared memory at R=4, device memory at R=16), the
+   int8 phase and the bit-plane
+   sweep bitwise, the energy exactly on the +-J problem (and the same for
+   every x tile ``bx``); the f32 sweep (both LFSR modes) and the f32 phase
+   (one thread per word of 4 z-sites at L=100, per site at an odd Z) with
+   LFSR states bitwise and spins bitwise or differing only at sites within
+   8 ulp of the tanh decision boundary (counted and printed);
 3. drive the L=100 EA3D main path through ``make_engine("lattice", ...)``
    with no ``impl`` given, each configuration with the launch counters
    set to 0 just before it and read just after (every kernel it runs
-   above 0; the f32 sweeps one persistent launch per call, with the LFSR
-   states in shared memory): int8, bit-plane, f32 (the default precision,
+   above 0; the int8 and f32 sweeps one persistent launch per call, with
+   the LFSR states in shared memory; the f32 phase one thread per word):
+   int8, bit-plane, f32 (the default precision,
    with and without the paper's s{4}{1} format) and the per-phase
    dispatch (``fused=False``, ``kernel_bx``).  The first 16 sweeps equal
    an ``impl="ref"`` run on the card bitwise (int8, bit-plane), the
@@ -103,10 +105,11 @@ GOLDEN_F32 = {
 HBM_BYTES_PER_S = 3.35e12
 INT32_PER_SM_CLOCK = 64
 FP32_PER_SM_CLOCK = 128
-# the kernels that this version of the port redesigned, by the CUDA
-# kernel name the profiler shows
-REDESIGNED = {"pbit_bitplane_sweep": "bitplane_color_kernel",
-              "pbit_brick_sweep": "persistent_sweep_kernel"}
+# the redesigned kernels, by what the profiler's CUDA kernel name holds
+REDESIGNED = {"pbit_bitplane_sweep": ("bitplane_color_kernel",),
+              "pbit_brick_sweep": ("persistent_sweep", "F32Update"),
+              "pbit_brick_sweep_int": ("persistent_sweep", "Int8Update"),
+              "pbit_brick_update": ("word_phase_kernel", "F32Update")}
 
 
 class CheckFailed(RuntimeError):
@@ -249,8 +252,10 @@ class Smoke:
         from repro_torch.kernels import ref
         from repro_torch.kernels.lattice_energy import brick_energy
         from repro_torch.kernels.pbit_bitplane import pbit_bitplane_sweep
+        from repro_torch.kernels import _build
         from repro_torch.kernels.pbit_lattice import (halo_shapes,
-                                                      pbit_brick_sweep_int)
+                                                      pbit_brick_sweep_int,
+                                                      persistent_mode)
         print("== 2. kernels against their plain versions (L=100)",
               flush=True)
         self.prob = prob = build_ea3d_lattice(L, seed=SEED, device=self.dev)
@@ -286,9 +291,39 @@ class Smoke:
             check(all(self.same(g, w) for g, w in zip(got, want)),
                   f"int8 sweep == plain, bitwise (R={R}, S={S}, rows "
                   f"{tuple(rows.shape)}, flips {want[2].tolist()})")
-        self.results["pbit_brick_sweep_int"] = {"max_abs_err": max(errs)}
+        check(persistent_mode(m) == "lfsr_smem",
+              f"int8 sweep at L={L}, R={R}: LFSR states in shared memory")
         self.inputs_int8 = (m, s, prob.masks, eng.h_q, eng.w6_q, halos, lut,
                             beta_row_indices(betas[:SYNC], table))
+
+        # the same kernel with its LFSR states in device memory: R = 16
+        R16 = 16
+        m16 = t.from_numpy(rng.choice(np.array([-1, 1], np.int8),
+                                      size=(R16, L, L, L))).to(self.dev)
+        s16 = u32_from_numpy(rng.integers(1, 2 ** 32, size=(R16, L, L, L),
+                                          dtype=np.uint32), self.dev)
+        halos16 = self.rand_halos(rng, R16, halo_shapes(R16, L, L, L),
+                                  False)
+        check(persistent_mode(m16) == "lfsr_global",
+              f"int8 sweep at L={L}, R={R16}: LFSR states in device memory")
+        rows16 = t.from_numpy(rng.integers(0, len(table), size=(S, R16))
+                              .astype(np.int32)).to(self.dev)
+        args16 = (m16, s16, rows16, prob.masks, eng.h_q, eng.w6_q, halos16,
+                  lut)
+        want = ref.pbit_brick_sweep_int_ref(*args16)
+        before = _build.launch_counts["pbit_brick_sweep_int:lfsr_global"]
+        got = pbit_brick_sweep_int(*args16)
+        t.cuda.synchronize()
+        check(_build.launch_counts["pbit_brick_sweep_int:lfsr_global"]
+              == before + 1, "one launch in device-memory mode")
+        errs += [self.max_abs(g, w) for g, w in zip(got, want)]
+        check(all(self.same(g, w) for g, w in zip(got, want)),
+              f"int8 sweep, device-memory LFSR == plain, bitwise "
+              f"(R={R16}, S={S}, per-replica rows, flips "
+              f"{want[2].tolist()[:4]}...)")
+        self.results["pbit_brick_sweep_int"] = {"max_abs_err": max(errs)}
+        self.inputs_int8_global = (m16, s16, t.from_numpy(beta_row_indices(
+            betas[:SYNC], table)).to(self.dev)) + args16[3:]
 
         # bit-plane sweep: a full word, a partial word and two words
         errs = []
@@ -433,6 +468,7 @@ class Smoke:
 
         # f32 phase: per-replica betas, fmt None and s{4}{1}, bx None and BX
         errs = []
+        words = _build.launch_counts["pbit_brick_update:word"]
         for bx in (None, BX):
             for fmt in (None, S41):
                 beta = on_card(rng.uniform(0.3, 5.0, size=R)
@@ -446,9 +482,38 @@ class Smoke:
                     f"f32 phase == plain (R={R}, bx={bx}, fmt {fmt})", got,
                     want, lambda what, args=args, fmt=fmt, got=got, want=want:
                     self.f32_boundary(what, args, fmt, got[0], want[0]))
-        self.results["pbit_brick_update"] = {"max_abs_err": max(errs)}
+        check(_build.launch_counts["pbit_brick_update:word"] == words + 4,
+              f"f32 phase at L={L}: one thread per word of 4 z-sites")
         self.inputs_update_f32 = (m, s, beta, masks[1], prob.h, prob.w6,
                                   halos)
+
+        # f32 phase at an odd Z (rows not word-aligned: one site per
+        # thread), random Gaussian constants, a checkerboard
+        shape = (L, L, L - 1)
+        par = np.indices(shape).sum(0) % 2
+        h_o = on_card(rng.normal(0, 0.3, shape).astype(np.float32))
+        w6_o = tuple(on_card(rng.normal(0, 1.0, shape).astype(np.float32))
+                     for _ in range(6))
+        m_o = on_card(rng.choice(np.array([-1, 1], np.int8),
+                                 size=(R,) + shape))
+        s_o = u32_from_numpy(rng.integers(1, 2 ** 32, size=(R,) + shape,
+                                          dtype=np.uint32), self.dev)
+        halos_o = self.rand_halos(rng, R, halo_shapes(R, *shape), False)
+        for fmt in (None, S41):
+            args = (m_o, s_o, beta, on_card((par == 1).astype(np.int8)), h_o,
+                    w6_o, halos_o)
+            sites = _build.launch_counts["pbit_brick_update:site"]
+            got = pbit_brick_update(*args, fmt=fmt)
+            want = ref.pbit_brick_update_ref(*args, fmt=fmt)
+            t.cuda.synchronize()
+            check(_build.launch_counts["pbit_brick_update:site"] == sites + 1,
+                  f"f32 phase at Z={shape[2]}: one thread per site")
+            errs += [self.max_abs(g, w) for g, w in zip(got, want)]
+            self.check_f32(
+                f"f32 phase == plain (R={R}, shape {shape}, fmt {fmt})", got,
+                want, lambda what, args=args, fmt=fmt, got=got, want=want:
+                self.f32_boundary(what, args, fmt, got[0], want[0]))
+        self.results["pbit_brick_update"] = {"max_abs_err": max(errs)}
 
     def check_f32(self, what, got, want, boundary_ok):
         """An f32 kernel's (m, s[, flips]) against its plain version: LFSR
@@ -636,11 +701,17 @@ class Smoke:
             check(counts.get(sweep, 0) > 0 and
                   counts.get("brick_energy", 0) > 0,
                   f"{label} ({hh.kernel_path}) launched {counts}")
-            if sweep == "pbit_brick_sweep":
-                check(counts.get("pbit_brick_sweep:lfsr_smem", 0) ==
+            if sweep in ("pbit_brick_sweep", "pbit_brick_sweep_int"):
+                check(counts.get(f"{sweep}:lfsr_smem", 0) ==
                       counts.get(sweep, 0) == MAIN_SWEEPS // SYNC,
-                      f"{label}: one persistent launch per {SYNC}-sweep "
-                      f"call, each with its LFSR states in shared memory")
+                      f"{label}: {counts.get(sweep, 0)} {sweep} launches, "
+                      f"one persistent launch per {SYNC}-sweep call, each "
+                      f"with its LFSR states in shared memory")
+            if sweep == "pbit_brick_update":
+                check(counts.get(f"{sweep}:word", 0) ==
+                      counts.get(sweep, 0) == MAIN_SWEEPS * 2,
+                      f"{label}: one f32 phase launch per color phase, one "
+                      f"thread per word of 4 z-sites")
         for name in KERNELS:
             check(self.launches[name] > 0,
                   f"main path launched {name} {self.launches[name]} times")
@@ -661,7 +732,8 @@ class Smoke:
         from repro_torch.kernels import ref
         from repro_torch.kernels.lattice_energy import brick_energy
         from repro_torch.kernels.pbit_bitplane import pbit_bitplane_sweep
-        from repro_torch.kernels.pbit_lattice import (pbit_brick_sweep,
+        from repro_torch.kernels.pbit_lattice import (phase_width,
+                                                      pbit_brick_sweep,
                                                       pbit_brick_sweep_int,
                                                       pbit_brick_update,
                                                       pbit_brick_update_int)
@@ -703,7 +775,15 @@ class Smoke:
                     lambda: pbit_brick_sweep_int(*args),
                     lambda: ref.pbit_brick_sweep_int_ref(*args), byts,
                     SYNC * R * (6 * nc * n + 19 * decided), 0,
-                    f"{SYNC} sweeps, R={R}, {SYNC * nc} launches")
+                    f"{SYNC} sweeps, R={R}, 1 launch")
+        g = self.inputs_int8_global
+        R16 = int(g[0].shape[0])
+        byts16 = (2 * 5 * R16 * n + (nc + 7) * n + 4 * R16 + R16 * plane
+                  + 4 * lut.numel() + 4 * SYNC * R16)
+        ms = self.time_ms(lambda: pbit_brick_sweep_int(*g), reps=20)
+        print(f"  pbit_brick_sweep_int, R={R16}, LFSR in device memory "
+              f"({SYNC} sweeps, 1 launch): {ms:.4f} ms; on {card}",
+              flush=True)
 
         mw, s, rows, masks_w, signs6, nz6, base, hw, lut = self.inputs_bp
         W, R, nc = int(mw.shape[0]), int(s.shape[0]), int(masks_w.shape[0])
@@ -772,6 +852,17 @@ class Smoke:
                     lambda: ref.pbit_brick_update_ref(*args),
                     byts, 6 * R * n, 18 * R * decided,
                     f"one phase, R={R}, 1 launch")
+        # the host time of the wrapper's word-or-site choice (14 pointers
+        # read, their alignment tested), part of each call above
+        m, s, _, mask, h, w6, halos = args
+        wide, narrow = (s, s, h, *w6), (m, m, mask, *halos)
+        t0 = time.perf_counter()
+        for _ in range(10000):
+            phase_width(int(m.shape[-1]), [x.data_ptr() for x in wide],
+                        [x.data_ptr() for x in narrow])
+        print(f"  pbit_brick_update: the word-or-site choice takes "
+              f"{(time.perf_counter() - t0) * 100:.2f} us of host time "
+              f"per call; on {card}", flush=True)
         for name, r in self.results.items():
             print(f"  {name}: {r['ms']:.4f} ms ({r['work']}), plain "
                   f"{r['plain_ms']:.4f} ms, bound {r['bound_ms']:.4f} ms "
@@ -819,20 +910,24 @@ class Smoke:
             for key, count, us in sorted(rows, key=lambda r: -r[2])[:6]:
                 print(f"    {us / 1e3:10.3f} ms  {count:5d} x  {key[:90]}",
                       flush=True)
-            for name, kernel in REDESIGNED.items():
-                hits = [(c, us) for key, c, us in rows if kernel in key]
+            for name, parts in REDESIGNED.items():
+                hits = [(c, us) for key, c, us in rows
+                        if all(p in key for p in parts)]
                 if not hits or not _build.launch_counts[name]:
                     continue
                 count, us = sum(c for c, _ in hits), sum(u for _, u in hits)
                 mode = "per color phase"
-                if name == "pbit_brick_sweep":
+                if name in ("pbit_brick_sweep", "pbit_brick_sweep_int"):
                     m = self.inits[label].m
                     mode = persistent_mode(m)
+                    kind = "f32" if name == "pbit_brick_sweep" else "int8"
                     grid, tile, smem, per_sm = _persistent_config(
-                        0, mode == "lfsr_smem", int(m.shape[0]),
+                        0, kind, mode == "lfsr_smem", int(m.shape[0]),
                         int(m[0].numel()))
                     mode = (f"persistent, {mode} (grid {grid} = {per_sm} "
                             f"per SM, tile {tile} sites, {smem} B shared)")
+                elif name == "pbit_brick_update":
+                    mode = "per color phase, one thread per word"
                 print(f"  redesigned {name} in {label}: {mode}; {count} "
                       f"launches, {us / count:.1f} us per launch "
                       f"(profiler) on {card}", flush=True)

@@ -268,23 +268,23 @@ class LatticeDSIM:
                                      impl=self.impl)
             return pbit_sweep_int_op(m, s, sched, self.p.masks, self.h_q,
                                      self.w6_q, halos, lut, impl=self.impl)
-        # per-phase dispatch, flips counted per phase as the reference's
-        # _sweep_phases_block / _sweep_phases_int_block count them
-        flips = torch.zeros(self.replicas, dtype=torch.int64,
+        # per-phase dispatch, flips counted per phase (in the phase kernel
+        # on CUDA) as the reference's _sweep_phases_block /
+        # _sweep_phases_int_block count them
+        flips = torch.zeros(self.replicas, dtype=torch.int32,
                             device=self.device)
         for t in range(sched.shape[0]):
             for c in range(self.p.n_colors):
                 if f32:
-                    m2, s = pbit_update_op(
+                    m, s = pbit_update_op(
                         m, s, sched[t], self.p.masks[c], self.p.h, self.p.w6,
                         halos, fmt=self.fmt, bx=self.kernel_bx,
-                        impl=self.impl)
+                        impl=self.impl, flips=flips)
                 else:
-                    m2, s = pbit_update_int_op(
+                    m, s = pbit_update_int_op(
                         m, s, sched[t], self.p.masks[c], self.h_q, self.w6_q,
-                        halos, lut, bx=self.kernel_bx, impl=self.impl)
-                flips = flips + (m2 != m).flatten(1).sum(1)
-                m = m2
+                        halos, lut, bx=self.kernel_bx, impl=self.impl,
+                        flips=flips)
         return m, s, flips
 
     def _chunk(self, st, sched2d, iters: int, S: int, lut):
@@ -294,6 +294,11 @@ class LatticeDSIM:
         dtype = np.float32 if self.precision == "f32" else np.int32
         sched = torch.from_numpy(np.ascontiguousarray(sched2d, dtype)).to(
             self.device)
+        if not self.fused and sched.dim() == 2:
+            # the per-phase kernels take each phase's (R,) betas or rows
+            # as they lie: one expand and copy per chunk, none per phase
+            sched = sched[..., None].expand(
+                *sched.shape, self.replicas).contiguous()
         m, s, halos = st.m, st.s, st.halos
         local = torch.zeros(self.replicas, dtype=torch.int64,
                             device=self.device)

@@ -13,7 +13,8 @@ from __future__ import annotations
 from typing import Optional
 
 from repro_torch.core.pbit import FixedPoint
-from . import lattice_energy, pbit_bitplane, pbit_lattice, ref as _ref
+from . import _build, lattice_energy, pbit_bitplane, pbit_lattice, \
+    ref as _ref
 
 __all__ = ["IMPLS", "resolve_impl", "pbit_update_op", "pbit_sweep_op",
            "pbit_update_int_op", "pbit_sweep_int_op",
@@ -34,13 +35,22 @@ def resolve_impl(impl: str, on_cuda: bool) -> str:
 
 def pbit_update_op(m, s, beta, parity_mask, h, w6, halos,
                    fmt: Optional[FixedPoint] = None,
-                   bx: Optional[int] = None, impl: str = "auto"):
-    """One f32 color phase; ``beta`` scalar or (R,).  Returns (m, s)."""
+                   bx: Optional[int] = None, impl: str = "auto",
+                   flips=None):
+    """One f32 color phase; ``beta`` scalar or (R,).  ``flips`` is
+    port-internal (the engine's per-phase dispatch; the reference has no
+    such argument): an (R,) int32 tensor of a replica batch to which each
+    replica's changed sites are added in place, inside the kernel on CUDA.
+    Returns (m, s)."""
     if resolve_impl(impl, m.is_cuda) == "ref":
-        return _ref.pbit_brick_update_ref(m, s, beta, parity_mask, h, w6,
-                                          halos, fmt)
-    return pbit_lattice.pbit_brick_update(m, s, beta, parity_mask, h, w6,
-                                          halos, fmt=fmt, bx=bx)
+        out = _ref.pbit_brick_update_ref(m, s, beta, parity_mask, h, w6,
+                                         halos, fmt)
+        if flips is not None:
+            _ref.add_phase_flips_ref(flips, out[0], m)
+        return out
+    _build.check_bx(int(m.shape[-3]), bx)
+    return pbit_lattice.launch_update(m, s, beta, parity_mask, h, w6, halos,
+                                      fmt, flips)
 
 
 def pbit_sweep_op(m, s, betas, masks, h, w6, halos,
@@ -55,15 +65,20 @@ def pbit_sweep_op(m, s, betas, masks, h, w6, halos,
 
 
 def pbit_update_int_op(m, s, row, parity_mask, h_q, w6_q, halos, lut,
-                       bx: Optional[int] = None, impl: str = "auto"):
+                       bx: Optional[int] = None, impl: str = "auto",
+                       flips=None):
     """One fixed-point color phase: int8 couplings, int32 fields, LUT
-    thresholds (``row``, scalar or (R,), replaces beta).  Returns
-    (m, s)."""
+    thresholds (``row``, scalar or (R,), replaces beta); ``flips`` as
+    :func:`pbit_update_op`.  Returns (m, s)."""
     if resolve_impl(impl, m.is_cuda) == "ref":
-        return _ref.pbit_brick_update_int_ref(m, s, row, parity_mask, h_q,
-                                              w6_q, halos, lut)
-    return pbit_lattice.pbit_brick_update_int(m, s, row, parity_mask, h_q,
-                                              w6_q, halos, lut, bx=bx)
+        out = _ref.pbit_brick_update_int_ref(m, s, row, parity_mask, h_q,
+                                             w6_q, halos, lut)
+        if flips is not None:
+            _ref.add_phase_flips_ref(flips, out[0], m)
+        return out
+    _build.check_bx(int(m.shape[-3]), bx)
+    return pbit_lattice.launch_update_int(m, s, row, parity_mask, h_q, w6_q,
+                                          halos, lut, flips)
 
 
 def pbit_sweep_int_op(m, s, rows, masks, h_q, w6_q, halos, lut,

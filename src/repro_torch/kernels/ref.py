@@ -30,6 +30,7 @@ from repro_torch.core.pbit import (FixedPoint, lfsr_next, lfsr_uniform,
 __all__ = ["neighbor_sums_ref", "int_field_ref", "pbit_brick_update_ref",
            "pbit_brick_sweep_ref", "decision_ulps_ref",
            "pbit_brick_update_int_ref", "pbit_brick_sweep_int_ref",
+           "add_phase_flips_ref",
            "bitplane_ones_count_ref", "pbit_bitplane_sweep_ref",
            "brick_energy_ref"]
 
@@ -77,9 +78,15 @@ def _sweeps(phase, m, s, sched, masks):
     for t in range(sched.shape[0]):
         for c in range(masks.shape[0]):
             new, s = phase(m, s, sched[t], masks[c])
-            flips = flips + (new != m).flatten(1).sum(1)
+            add_phase_flips_ref(flips, new, m)
             m = new
     return m, s, flips
+
+
+def add_phase_flips_ref(flips, new, old):
+    """Add each replica's changed sites (``new != old``, (R, X, Y, Z)
+    spins) to ``flips`` ((R,), in place): the phase kernels' count."""
+    flips += (new != old).flatten(1).sum(1).to(flips.dtype)
 
 
 def _done(single, m, s, flips=None):

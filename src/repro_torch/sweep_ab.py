@@ -8,12 +8,20 @@ parent commit unpacked into a directory that ``.gitignore`` lists).  Each
 turn is a fresh process that imports ``repro_torch`` from one checkout,
 builds its kernels there and measures, at L=100 on the EA3D instance:
 
-- one call of the bit-plane sweep (R=64 lanes, 8 sweeps) and of the f32
-  sweep (R=4, 8 sweeps, with and without s{4}{1}), ms per call by CUDA
-  events over 20 calls after 2 warm ones;
+- one call of the bit-plane sweep (R=64 lanes, 8 sweeps), of the f32
+  sweep (R=4, 8 sweeps, with and without s{4}{1}) and of the int8 sweep
+  (R=4, 8 sweeps), ms per call by CUDA events over 20 calls after 2 warm
+  ones;
+- one call of the public single phases, f32 ``pbit_brick_update`` and
+  int8 ``pbit_brick_update_int`` (R=4, color 0, one launch each): host
+  bound, so the least of 9 blocks of 200 calls, each timed by CUDA
+  events;
 - the main path through ``make_engine("lattice", ...)``: 256 sweeps of
   ``ea_schedule(256)``, record points 16/64/128/256, ``sync_every=8``, wall
-  seconds to a device synchronise, best of 3 after one warm run.
+  seconds to a device synchronise, best of 8 after one warm run (the
+  per-phase path is host-bound and swings from run to run); at
+  bit-plane R=64, f32 R=4 (with and without s{4}{1}), int8 R=4 and the
+  f32 per-phase dispatch (``kernel_bx=25``) R=4.
 
 The turns run base, change, change, base, so a drift of the card shows as
 a difference between the two turns of one checkout.  Prints one JSON line
@@ -33,6 +41,8 @@ L = 100
 SWEEPS = 256
 POINTS = [16, 64, 128, 256]
 SYNC = 8
+# timed main-path runs per configuration and turn, after one warm run
+MAIN_RUNS = 8
 
 
 def worker(root: Path) -> dict:
@@ -47,7 +57,11 @@ def worker(root: Path) -> dict:
     from repro_torch.core.packing import pack_lanes
     from repro_torch.core.pbit import threshold_lut
     from repro_torch.kernels.pbit_bitplane import pbit_bitplane_sweep
-    from repro_torch.kernels.pbit_lattice import halo_shapes, pbit_brick_sweep
+    from repro_torch.kernels.pbit_lattice import (halo_shapes,
+                                                  pbit_brick_sweep,
+                                                  pbit_brick_sweep_int,
+                                                  pbit_brick_update,
+                                                  pbit_brick_update_int)
 
     dev = torch.device("cuda", 0)
     rng = np.random.default_rng(7)
@@ -96,15 +110,30 @@ def worker(root: Path) -> dict:
     out["f32_call_ms"] = ms_per_call(lambda: pbit_brick_sweep(*f32))
     out["f32_s41_call_ms"] = ms_per_call(
         lambda: pbit_brick_sweep(*f32, fmt=repro_torch.S41))
+    e8 = make_engine("lattice", L=L, seed=0, replicas=4,
+                     precision="int8").eng
+    lut8 = u32_from_numpy(threshold_lut(table, e8.q_scale, e8.f_max), dev)
+    int8 = (f32[0], f32[1], rows, p.masks, e8.h_q, e8.w6_q, halos, lut8)
+    out["int8_call_ms"] = ms_per_call(lambda: pbit_brick_sweep_int(*int8))
+    phase = f32[:2] + (0.5, p.masks[0], p.h, p.w6, halos)
+    out["f32_phase_call_ms"] = min(ms_per_call(
+        lambda: pbit_brick_update(*phase), reps=200) for _ in range(9))
+    phase8 = f32[:2] + (int(rows[0]), p.masks[0], e8.h_q, e8.w6_q, halos,
+                        lut8)
+    out["int8_phase_call_ms"] = min(ms_per_call(
+        lambda: pbit_brick_update_int(*phase8), reps=200) for _ in range(9))
 
     for label, kw in (("bitplane R=64", dict(precision="bitplane",
                                              replicas=64)),
                       ("f32 R=4", dict(replicas=4)),
-                      ("f32 s41 R=4", dict(replicas=4, fmt=repro_torch.S41))):
+                      ("f32 s41 R=4", dict(replicas=4, fmt=repro_torch.S41)),
+                      ("int8 R=4", dict(precision="int8", replicas=4)),
+                      ("f32 per-phase bx R=4", dict(replicas=4,
+                                                    kernel_bx=25))):
         h = make_engine("lattice", L=L, seed=0, **kw)
         init = h.init_state(seed=0)
         walls = []
-        for _ in range(4):
+        for _ in range(1 + MAIN_RUNS):
             torch.cuda.synchronize()
             t0 = time.perf_counter()
             h.run_recorded(init, ea_schedule(SWEEPS), POINTS,

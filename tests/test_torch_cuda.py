@@ -234,7 +234,7 @@ def test_cuda_int_sweep_matches_plain(cuda, per_replica, multibit):
     args = to(cuda, torch_int_args(d, rows))
     before = _build.launch_counts["pbit_brick_sweep_int"]
     got = pbit_brick_sweep_int(*args)
-    assert _build.launch_counts["pbit_brick_sweep_int"] == before + 8
+    assert _build.launch_counts["pbit_brick_sweep_int"] == before + 1
     assert_bitwise(got, t_ref.pbit_brick_sweep_int_ref(*args))
 
 
@@ -389,3 +389,159 @@ def test_cuda_f32_persistent_grid_too_large_raises(cuda):
     assert_f32_agrees(pbit_brick_sweep(*args),
                       t_ref.pbit_brick_sweep_ref(*args),
                       f32_boundary_sites(*args))
+
+
+# -- the redesigned int8 sweep (persistent) and f32 phase (site words) ------
+
+def force_lfsr_mode(monkeypatch, dev, mode):
+    """Force a persistent sweep's LFSR mode: device memory by a zero
+    shared-memory budget for the states (the launch shape still comes from
+    the card)."""
+    if mode == "lfsr_global":
+        sms = pbit_lattice.device_limits(dev.index)[0]
+        monkeypatch.setattr(pbit_lattice, "device_limits",
+                            lambda index: (sms, 0))
+
+
+def overlapping_masks(rng, shape, n_colors=3):
+    """Random masks that are no coloring: sites in two or more phases'
+    masks, sites in none, neighbors in one."""
+    masks = (rng.random((n_colors,) + shape) < 0.45).astype(np.int8)
+    assert (masks.sum(0) > 1).any() and (masks.sum(0) == 0).any()
+    return masks
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("mode", ["lfsr_smem", "lfsr_global"])
+@pytest.mark.parametrize("per_replica,multibit", [
+    (False, False), (True, True)])
+def test_cuda_int_persistent_modes_match_plain(cuda, monkeypatch, mode,
+                                               per_replica, multibit):
+    """Both LFSR modes, odd L (three colors, padding), shared and
+    per-replica rows, +-1 and multi-bit couplings: bitwise the plain
+    version."""
+    force_lfsr_mode(monkeypatch, cuda, mode)
+    R, L, shape = 3, 5, (6, 5, 5)
+    d = int_inputs(31, shape, R=R, multibit=multibit)
+    d["masks"] = lattice_masks(L, shape)
+    rows = d["rng"].integers(0, 3, size=(4, R)).astype(np.int32) \
+        if per_replica else np.array([0, 2, 1, 2], np.int32)
+    args = to(cuda, torch_int_args(d, rows))
+    assert pbit_lattice.persistent_mode(args[0]) == mode
+    before = _build.launch_counts[f"pbit_brick_sweep_int:{mode}"]
+    got = pbit_lattice.pbit_brick_sweep_int(*args)
+    assert _build.launch_counts[f"pbit_brick_sweep_int:{mode}"] == before + 1
+    assert_bitwise(got, t_ref.pbit_brick_sweep_int_ref(*args))
+    assert int(N(got[2]).sum()) > 0
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("mode", ["lfsr_smem", "lfsr_global"])
+@pytest.mark.parametrize("R", [1, 33])
+def test_cuda_int_persistent_overlapping_masks(cuda, monkeypatch, mode, R):
+    """Masks that are no coloring (the int8 sweep takes any, as the
+    reference does), R = 1 and 33, one brick and a batch."""
+    force_lfsr_mode(monkeypatch, cuda, mode)
+    shape = (7, 6, 9)
+    d = int_inputs(32, shape, R=R, multibit=True)
+    d["masks"] = overlapping_masks(d["rng"], shape)
+    rows = d["rng"].integers(0, 3, size=(3, R)).astype(np.int32)
+    args = to(cuda, torch_int_args(d, rows))
+    assert_bitwise(pbit_brick_sweep_int(*args),
+                   t_ref.pbit_brick_sweep_int_ref(*args))
+    one = to(cuda, (T(d["m"][0]), T(d["s"][0]), T(rows[:, 0]),
+                    T(d["masks"]), T(d["h_q"]),
+                    tuple(T(w) for w in d["w6_q"]),
+                    tuple(T(h[0]) for h in d["halos"]), T(d["lut"])))
+    assert_bitwise(pbit_brick_sweep_int(*one),
+                   t_ref.pbit_brick_sweep_int_ref(*one))
+
+
+@pytest.mark.cuda
+def test_cuda_int_persistent_zero_sweeps(cuda):
+    d = int_inputs(33, (6, 5, 4), R=2)
+    args = to(cuda, torch_int_args(d, np.zeros(0, np.int32)))
+    before = _build.launch_counts["pbit_brick_sweep_int"]
+    got = pbit_brick_sweep_int(*args)
+    assert _build.launch_counts["pbit_brick_sweep_int"] == before
+    assert_bitwise(got, t_ref.pbit_brick_sweep_int_ref(*args))
+
+
+@pytest.mark.cuda
+def test_cuda_int_persistent_grid_too_large_raises(cuda):
+    """A grid the card cannot co-schedule is refused at launch, and the
+    wrapper raises with the launch's error; the card stays usable."""
+    d = int_inputs(34, (6, 5, 4), R=2)
+    args = to(cuda, torch_int_args(d, np.array([1], np.int32)))
+    sms = pbit_lattice.device_limits(cuda.index)[0]
+    with pytest.raises(RuntimeError, match="pbit_sweep_int_persistent"):
+        pbit_lattice._int_persistent(*args, grid=64 * sms)
+    assert_bitwise(pbit_brick_sweep_int(*args),
+                   t_ref.pbit_brick_sweep_int_ref(*args))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("bx", [None, 2])
+@pytest.mark.parametrize("per_replica", [False, True])
+@pytest.mark.parametrize("fmt", [None, t_pbit.S41])
+@pytest.mark.parametrize("shape,width", [
+    ((6, 5, 8), "word"), ((6, 5, 7), "site"), ((4, 3, 4), "word")])
+def test_cuda_f32_phase_words_match_plain(cuda, shape, width, fmt,
+                                          per_replica, bx):
+    """One thread per word of 4 z-sites (Z a multiple of 4) or per site:
+    no site decided differently from the plain version, LFSR states
+    bitwise, and the in-kernel flip count equal to the changed sites."""
+    R = 3
+    d = f32_inputs(35, shape, R=R, pm_j=False)
+    m, s, _, masks, h, w6, halos = to(
+        cuda, torch_f32_args(d, np.zeros(1, np.float32)))
+    beta = torch.tensor([0.4, 1.1, 2.5], device=cuda) if per_replica \
+        else 1.3
+    want = t_ref.pbit_brick_update_ref(m, s, beta, masks[1], h, w6, halos,
+                                       fmt)
+    before = _build.launch_counts[f"pbit_brick_update:{width}"]
+    got = pbit_brick_update(m, s, beta, masks[1], h, w6, halos, fmt=fmt,
+                            bx=bx)
+    assert _build.launch_counts[f"pbit_brick_update:{width}"] == before + 1
+    assert_bitwise(got, want)
+    flips = torch.full((R,), 5, dtype=torch.int32, device=cuda)
+    got = pbit_lattice.launch_update(m, s, beta, masks[1], h, w6, halos, fmt,
+                                     flips)
+    assert_bitwise(got, want)
+    assert N(flips).tolist() == \
+        (5 + (N(want[0]) != N(m)).reshape(R, -1).sum(1)).tolist()
+
+
+@pytest.mark.cuda
+def test_cuda_f32_phase_unaligned_takes_site_path(cuda):
+    """Constants that are not 16-byte aligned send a Z % 4 == 0 brick down
+    the per-site path, with the same result."""
+    shape, R = (5, 4, 8), 2
+    d = f32_inputs(36, shape, R=R, pm_j=False)
+    m, s, _, masks, h, w6, halos = to(
+        cuda, torch_f32_args(d, np.zeros(1, np.float32)))
+    n = int(np.prod(shape))
+    h_off = torch.empty(n + 1, device=cuda)[1:].view(shape)
+    h_off.copy_(h)
+    before = _build.launch_counts["pbit_brick_update:site"]
+    got = pbit_brick_update(m, s, 0.9, masks[0], h_off, w6, halos)
+    assert _build.launch_counts["pbit_brick_update:site"] == before + 1
+    assert_bitwise(got, t_ref.pbit_brick_update_ref(m, s, 0.9, masks[0], h,
+                                                    w6, halos))
+
+
+@pytest.mark.cuda
+def test_cuda_int_phase_counts_flips(cuda):
+    R, shape = 3, (12, 10, 7)
+    d = int_inputs(37, shape, R=R, multibit=True)
+    m, s, _, masks, h_q, w6_q, halos, lut = to(
+        cuda, torch_int_args(d, np.zeros(1, np.int32)))
+    row = torch.tensor([2, 0, 1], dtype=torch.int32, device=cuda)
+    flips = torch.zeros(R, dtype=torch.int32, device=cuda)
+    got = pbit_lattice.launch_update_int(m, s, row, masks[0], h_q, w6_q,
+                                         halos, lut, flips)
+    want = t_ref.pbit_brick_update_int_ref(m, s, row, masks[0], h_q, w6_q,
+                                           halos, lut)
+    assert_bitwise(got, want)
+    assert N(flips).tolist() == \
+        (N(want[0]) != N(m)).reshape(R, -1).sum(1).tolist()

@@ -22,7 +22,8 @@ from repro_torch.core.pbit import lfsr_next
 from repro_torch.kernels import ref as t_ref
 from repro_torch.kernels.pbit_bitplane import (check_phase_masks,
                                                color_layout, color_order)
-from repro_torch.kernels.pbit_lattice import lfsr_resident, smem_budget
+from repro_torch.kernels.pbit_lattice import (launch_shape, lfsr_resident,
+                                              persistent_smem, smem_budget)
 from test_torch_cuda import (T, assert_bitwise, bitplane_inputs, bp_args,
                              lattice_masks)
 
@@ -118,10 +119,11 @@ def test_check_phase_masks_rejects_neighbors_in_one_phase():
         check_phase_masks(lane_masks_w(masks, 1))
 
 
-# -- the LFSR mode of the persistent f32 sweep ------------------------------
+# -- the LFSR mode and launch shape of the persistent sweeps ----------------
 
 def test_lfsr_mode_by_size():
-    """Resident exactly while one block per SM holds its tile's states;
+    """Resident exactly while one block per SM holds its tile's states
+    (the same rule for the int8 and f32 sweeps: 4 B per state either way);
     the main path's L=100, R=4 is resident and R=16 is not on a 132-SM,
     227 KB card."""
     sms, smem = 132, 232448
@@ -135,6 +137,51 @@ def test_lfsr_mode_by_size():
         assert lfsr_resident(R, n, sms, need)
         assert not lfsr_resident(R, n, sms, need - 1)
     assert lfsr_resident(64, 6 * 5 * 5, sms, 0) is False
+    assert smem_budget(4, 100 ** 3, sms) == persistent_smem(4, 7576, True)
+    assert persistent_smem(4, 7576, False) == 16
+
+
+def occupancy_of(regs_per_thread, smem_per_sm=233472, threads=512):
+    """A stand-in for the card's occupancy query: blocks of ``threads``
+    threads per SM by registers (64K per SM), threads (2048) and shared
+    memory; 0 where one block may not opt in to ``smem``."""
+    def occ(smem):
+        if smem > 232448:
+            return 0
+        by_smem = smem_per_sm // max(smem + 1024, 1)
+        return min(65536 // (regs_per_thread * threads), 2048 // threads,
+                   by_smem)
+    return occ
+
+
+@pytest.mark.parametrize("resident", [True, False])
+def test_launch_shape_per_kernel(resident):
+    """Each persistent kernel gets its own launch shape from its own
+    occupancy: at L=100, R=4 a 64-register kernel (the f32 sweep's
+    count) runs 2 blocks per SM with states resident, a 100-register one
+    (an int8 build with several sites in flight) 1, and without resident
+    states (or with few registers) up to 4 blocks per SM."""
+    n, R, sms = 100 ** 3, 4, 132
+    f32 = launch_shape(R, n, resident, sms, occupancy_of(64))
+    int8 = launch_shape(R, n, resident, sms, occupancy_of(100))
+    assert f32[3] == 2 and int8[3] == 1
+    for grid, tile, smem, per_sm in (f32, int8):
+        assert grid == per_sm * sms and tile == -(-n // grid)
+        assert tile * grid >= n > tile * (grid - 1)
+        assert smem == persistent_smem(R, tile, resident)
+    assert launch_shape(R, n, resident, sms, occupancy_of(32))[3] == 4
+
+
+def test_launch_shape_refuses_what_does_not_fit():
+    with pytest.raises(RuntimeError, match="not even one block per SM"):
+        launch_shape(4, 100 ** 3, True, 132, lambda smem: 0)
+    # the occupancy is asked with each candidate's shared memory, most
+    # blocks per SM first
+    asked = []
+    assert launch_shape(2, 1000, True, 10,
+                        lambda smem: asked.append(smem) or 3)[3] == 3
+    assert asked == [persistent_smem(2, 25, True),
+                     persistent_smem(2, 34, True)]
 
 
 # -- the color-lazy, color-major bit-plane schedule -------------------------
