@@ -10,17 +10,24 @@ Phases; every check raises on failure and the script then exits non-zero:
 2. hold each kernel to its plain PyTorch version on the card, at the
    L=100 shapes of the main path: the int8 sweep (both LFSR modes of its
    persistent kernel: shared memory at R=4, device memory at R=16), the
-   int8 phase and the bit-plane
-   sweep bitwise, the energy exactly on the +-J problem (and the same for
-   every x tile ``bx``); the f32 sweep (both LFSR modes) and the f32 phase
-   (one thread per word of 4 z-sites at L=100, per site at an odd Z) with
-   LFSR states bitwise and spins bitwise or differing only at sites within
-   8 ulp of the tanh decision boundary (counted and printed);
+   int8 phase (one thread per word of 4 z-sites at L=100, per site at
+   Z=99, its in-kernel flip count included) and the bit-plane sweep
+   bitwise; the energy exactly on the +-J problem (and the same for every
+   x tile ``bx``) at R=4 and 64, on Gaussian couplings within 1e-5 of the
+   energy's scale (another summation order), with equal bits on repeated
+   calls, and its word-plane readout equal to the int8 route bitwise at
+   R=20 and 64; the
+   f32 sweep (both LFSR modes) and the f32 phase (word path at L=100, site
+   path at Z=99) with LFSR states bitwise and spins bitwise or differing
+   only at sites within 8 ulp of the tanh decision boundary (counted and
+   printed); the word and site paths counted by the launch counters;
 3. drive the L=100 EA3D main path through ``make_engine("lattice", ...)``
    with no ``impl`` given, each configuration with the launch counters
    set to 0 just before it and read just after (every kernel it runs
    above 0; the int8 and f32 sweeps one persistent launch per call, with
-   the LFSR states in shared memory; the f32 phase one thread per word):
+   the LFSR states in shared memory; the phases and the energy one thread
+   per word; the bit-plane energy read from the word planes, with no
+   unpacking of lanes):
    int8, bit-plane, f32 (the default precision,
    with and without the paper's s{4}{1} format) and the per-phase
    dispatch (``fused=False``, ``kernel_bx``).  The first 16 sweeps equal
@@ -31,8 +38,10 @@ Phases; every check raises on failure and the script then exits non-zero:
    (w, b) equals int8 replica w*32+b;
 4. time the main path (p-bit updates per second, the repository's
    "flips/s"), profile it (device busy share, time by kernel, the
-   redesigned kernels' mode and time per launch) and time each kernel
-   against its plain version and its bound: the largest of its bytes
+   redesigned kernels' mode and time per launch), time the bit-plane
+   path's energy readout against the unpack-first readout it replaces,
+   and time each kernel against its plain version and its bound: the
+   largest of its bytes
    over the HBM bandwidth and its INT32 and FP32 operations over their
    own peaks (64 and 128 per SM per clock at the card's SM count and
    maximum SM clock);
@@ -78,6 +87,10 @@ KERNELS = ("pbit_brick_sweep_int", "pbit_bitplane_sweep", "brick_energy",
 # an f32 site may be decided differently from the plain version only
 # within this many ulp of tanh(act) of its boundary
 TANH_ULPS = 8
+# the energy on Gaussian couplings sums its sites in another order than
+# the plain version: difference allowed, relative to the energy's scale
+# (the larger of |E| and the root sum of squares of its site terms)
+ENERGY_RTOL = 1e-5
 
 # The JAX reference at L=100, seed 0, ea_schedule(16), record points
 # [8, 16], sync_every=8 (int8, R=2; bit-plane R=32 lanes 0-1 equal it).
@@ -105,11 +118,14 @@ GOLDEN_F32 = {
 HBM_BYTES_PER_S = 3.35e12
 INT32_PER_SM_CLOCK = 64
 FP32_PER_SM_CLOCK = 128
-# the redesigned kernels, by what the profiler's CUDA kernel name holds
+# the redesigned kernels, by what the profiler's CUDA kernel names hold
+# (the energy: both of its passes)
 REDESIGNED = {"pbit_bitplane_sweep": ("bitplane_color_kernel",),
               "pbit_brick_sweep": ("persistent_sweep", "F32Update"),
               "pbit_brick_sweep_int": ("persistent_sweep", "Int8Update"),
-              "pbit_brick_update": ("word_phase_kernel", "F32Update")}
+              "pbit_brick_update": ("word_phase_kernel", "F32Update"),
+              "pbit_brick_update_int": ("word_phase_kernel", "Int8Update"),
+              "brick_energy": ("energy_",)}
 
 
 class CheckFailed(RuntimeError):
@@ -158,6 +174,7 @@ class Smoke:
         self.torch = torch
         self.dev = torch.device("cuda", 0)
         self.results = {}     # kernel name -> dict of measured fields
+        self.inputs_energy = {}   # R -> the energy's +-J inputs
 
     # -- helpers ---------------------------------------------------------
 
@@ -250,7 +267,6 @@ class Smoke:
         from repro_torch.core.packing import pack_lanes
         from repro_torch.core.pbit import threshold_lut
         from repro_torch.kernels import ref
-        from repro_torch.kernels.lattice_energy import brick_energy
         from repro_torch.kernels.pbit_bitplane import pbit_bitplane_sweep
         from repro_torch.kernels import _build
         from repro_torch.kernels.pbit_lattice import (halo_shapes,
@@ -358,26 +374,124 @@ class Smoke:
                     args[3:]
         self.results["pbit_bitplane_sweep"] = {"max_abs_err": max(errs)}
 
-        # energy on the +-J problem, exact, for R = 4 and R = 64 spins
+        self.n = n
+        self.phase_kernels_energy()
+        self.phase_kernels_f32_and_per_phase(betas, table, S)
+
+    def gaussian(self, shape):
+        """Gaussian f32 couplings on the card: h (0.3) and six w6 (1.0)."""
+        on_card = lambda a: self.torch.from_numpy(a).to(self.dev)  # noqa: E731
+        return (on_card(self.rng.normal(0, 0.3, shape).astype(np.float32)),
+                tuple(on_card(self.rng.normal(0, 1.0, shape)
+                              .astype(np.float32)) for _ in range(6)))
+
+    def check_energy(self, what, got, want, args, exact: bool) -> float:
+        """An energy against its plain version on inputs ``args``: bitwise
+        where ``exact`` (+-J), else within ENERGY_RTOL of the energy's
+        scale.  Returns the largest difference."""
+        from repro_torch.kernels import ref
+        if exact:
+            check(self.same(got, want), f"{what}: exact (E[0]="
+                  f"{float(want[0])})")
+        else:
+            sites = ref.brick_energy_sites_ref(*args).double()
+            scale = self.torch.maximum(
+                want.double().abs(),
+                sites.square().sum(dim=(-3, -2, -1)).sqrt())
+            rel = float(((got.double() - want.double()).abs()
+                         / scale).max())
+            check(rel <= ENERGY_RTOL, f"{what}: within {ENERGY_RTOL} of the "
+                  f"energy's scale (largest difference {rel:.3e} of it, "
+                  f"E[0]={float(want[0])})")
+        return self.max_abs(got, want)
+
+    def phase_kernels_energy(self):
+        """The energy against its plain version on the card: the int8
+        route at R=4 and 64 (word path) and at Z=99 (site path), +-J and
+        Gaussian couplings, repeated calls; the word-plane route against
+        the int8 route at R=20 and 64."""
+        t = self.torch
+        from repro_torch.core.packing import (lane_words, pack_lanes,
+                                              unpack_lanes)
+        from repro_torch.kernels import _build, ref
+        from repro_torch.kernels.lattice_energy import (brick_energy,
+                                                        brick_energy_words)
+        from repro_torch.kernels.pbit_lattice import halo_shapes
+        rng, prob = self.rng, self.prob
+        spins = lambda R, shape: t.from_numpy(rng.choice(  # noqa: E731
+            np.array([-1, 1], np.int8), size=(R,) + shape)).to(self.dev)
+        cube = (L, L, L)
+        couplings = {"+-J": (prob.h, prob.w6), "Gaussian": self.gaussian(cube)}
         errs = []
         for R in (4, 64):
-            m = t.from_numpy(rng.choice(np.array([-1, 1], np.int8),
-                                        size=(R, L, L, L))).to(self.dev)
-            halos = self.rand_halos(rng, R, halo_shapes(R, L, L, L), False)
-            args = (m, prob.active, prob.h, prob.w6, halos)
-            got = brick_energy(*args)
-            want = ref.brick_energy_ref(*args)
-            t.cuda.synchronize()
-            errs.append(self.max_abs(got, want))
-            check(self.same(got, want),
-                  f"energy == plain, exact on +-J (R={R}, E[0]="
-                  f"{float(want[0])})")
-            check(self.same(brick_energy(*args, bx=BX), got),
-                  f"energy with bx={BX} == bx=None (R={R})")
+            m = spins(R, cube)
+            halos = self.rand_halos(rng, R, halo_shapes(R, *cube), False)
+            for label, (h, w6) in couplings.items():
+                args = (m, prob.active, h, w6, halos)
+                words = _build.launch_counts["brick_energy:word"]
+                got = brick_energy(*args)
+                again = brick_energy(*args)
+                want = ref.brick_energy_ref(*args)
+                t.cuda.synchronize()
+                check(_build.launch_counts["brick_energy:word"] == words + 2,
+                      f"energy at L={L}: one thread per word of 4 z-sites")
+                errs.append(self.check_energy(
+                    f"energy == plain ({label}, R={R})", got, want, args,
+                    label == "+-J"))
+                check(self.same(again, got), f"energy ({label}, R={R}): "
+                      f"equal bits on a repeated call")
+                if label == "+-J":
+                    check(self.same(brick_energy(*args, bx=BX), got),
+                          f"energy with bx={BX} == bx=None (R={R})")
+                    self.inputs_energy[R] = args
+
+        # rows not word-aligned (Z = 99): one site per thread
+        shape = (L, L, L - 1)
+        active = t.from_numpy((rng.random(shape) < 0.9).astype(np.int8)).to(
+            self.dev)
+        h, w6 = self.gaussian(shape)
+        R = 4
+        args = (spins(R, shape), active, h, w6,
+                self.rand_halos(rng, R, halo_shapes(R, *shape), False))
+        sites = _build.launch_counts["brick_energy:site"]
+        got = brick_energy(*args)
+        want = ref.brick_energy_ref(*args)
+        t.cuda.synchronize()
+        check(_build.launch_counts["brick_energy:site"] == sites + 1,
+              f"energy at Z={shape[2]}: one thread per site")
+        errs.append(self.check_energy(
+            f"energy == plain (Gaussian, R={R}, shape {shape})", got, want,
+            args, False))
+        check(self.same(brick_energy(*args), got),
+              f"energy at Z={shape[2]}: equal bits on a repeated call")
+
+        # the word-plane readout of the bit-plane path: a partial word and
+        # two words
+        for R in (20, 64):
+            W = lane_words(R)
+            m = spins(R, cube)
+            mw = pack_lanes(m)
+            hw = self.rand_halos(rng, W, halo_shapes(W, *cube), True)
+            halos = tuple(unpack_lanes(x, R) for x in hw)
+            for label, (h, w6) in couplings.items():
+                before = _build.launch_counts["brick_energy:bitplane"]
+                got = brick_energy_words(mw, R, prob.active, h, w6, hw)
+                int8 = brick_energy(m, prob.active, h, w6, halos)
+                want = ref.brick_energy_words_ref(mw, R, prob.active, h, w6,
+                                                  hw)
+                t.cuda.synchronize()
+                check(_build.launch_counts["brick_energy:bitplane"] ==
+                      before + 1, f"one word-plane energy launch (R={R})")
+                check(self.same(got, int8), f"energy of word planes == int8 "
+                      f"route on the unpacked spins, bitwise ({label}, "
+                      f"R={R}, W={W})")
+                errs.append(self.check_energy(
+                    f"word-plane energy == plain ({label}, R={R})", got,
+                    want, (m, prob.active, h, w6, halos), label == "+-J"))
+                if label == "+-J" and R == 64:
+                    self.inputs_energy_words = (mw, R, prob.active, h, w6,
+                                                hw)
         self.results["brick_energy"] = {"max_abs_err": max(errs)}
-        self.inputs_energy = args
-        self.n = n
-        self.phase_kernels_f32_and_per_phase(betas, table, S)
 
     def phase_kernels_f32_and_per_phase(self, betas, table, S: int):
         """The f32 sweep and the two single-phase kernels against their
@@ -385,6 +499,8 @@ class Smoke:
         t = self.torch
         from repro_torch import S41
         from repro_torch.core.bits import u32_from_numpy
+        from repro_torch.core.pbit import (field_bound, quantize_couplings,
+                                           threshold_lut)
         from repro_torch.kernels import _build, ref
         from repro_torch.kernels.pbit_lattice import (halo_shapes,
                                                       pbit_brick_sweep,
@@ -450,7 +566,8 @@ class Smoke:
                                   prob.h, prob.w6, halos16)
 
         # int8 phase: shared and per-replica LUT rows, bx None and BX
-        errs = []
+        errs_int = []
+        words = _build.launch_counts["pbit_brick_update_int:word"]
         for bx in (None, BX):
             for row in (3, on_card(rng.integers(0, len(table), size=R)
                                    .astype(np.int32))):
@@ -458,13 +575,16 @@ class Smoke:
                 got = pbit_brick_update_int(*args, bx=bx)
                 want = ref.pbit_brick_update_int_ref(*args)
                 t.cuda.synchronize()
-                errs += [self.max_abs(g, w) for g, w in zip(got, want)]
+                errs_int += [self.max_abs(g, w) for g, w in zip(got, want)]
                 check(all(self.same(g, w) for g, w in zip(got, want)),
                       f"int8 phase == plain, bitwise (R={R}, bx={bx}, row "
                       f"{'per replica' if isinstance(row, t.Tensor) else row})")
-        self.results["pbit_brick_update_int"] = {"max_abs_err": max(errs)}
+        check(_build.launch_counts["pbit_brick_update_int:word"] ==
+              words + 4, f"int8 phase at L={L}: one thread per word of 4 "
+              f"z-sites")
         self.inputs_update_int = (m, s, row, masks[0], h_q, w6_q, halos,
                                   lut)
+        self.check_int_flips(self.inputs_update_int)
 
         # f32 phase: per-replica betas, fmt None and s{4}{1}, bx None and BX
         errs = []
@@ -487,13 +607,12 @@ class Smoke:
         self.inputs_update_f32 = (m, s, beta, masks[1], prob.h, prob.w6,
                                   halos)
 
-        # f32 phase at an odd Z (rows not word-aligned: one site per
-        # thread), random Gaussian constants, a checkerboard
+        # the phases at an odd Z (rows not word-aligned: one site per
+        # thread), random Gaussian constants (int8: quantized, multi-bit),
+        # a checkerboard
         shape = (L, L, L - 1)
         par = np.indices(shape).sum(0) % 2
-        h_o = on_card(rng.normal(0, 0.3, shape).astype(np.float32))
-        w6_o = tuple(on_card(rng.normal(0, 1.0, shape).astype(np.float32))
-                     for _ in range(6))
+        h_o, w6_o = self.gaussian(shape)
         m_o = on_card(rng.choice(np.array([-1, 1], np.int8),
                                  size=(R,) + shape))
         s_o = u32_from_numpy(rng.integers(1, 2 ** 32, size=(R,) + shape,
@@ -514,6 +633,44 @@ class Smoke:
                 want, lambda what, args=args, fmt=fmt, got=got, want=want:
                 self.f32_boundary(what, args, fmt, got[0], want[0]))
         self.results["pbit_brick_update"] = {"max_abs_err": max(errs)}
+
+        h_q, w6_q, scale = quantize_couplings(
+            h_o.cpu().numpy(), [w.cpu().numpy() for w in w6_o])
+        lut_o = u32_from_numpy(threshold_lut(
+            table, scale, field_bound(h_q, w6_q)), self.dev)
+        args = (m_o, s_o, on_card(rng.integers(0, len(table), size=R)
+                                  .astype(np.int32)),
+                on_card((par == 1).astype(np.int8)), on_card(h_q),
+                tuple(on_card(w) for w in w6_q), halos_o, lut_o)
+        sites = _build.launch_counts["pbit_brick_update_int:site"]
+        got = pbit_brick_update_int(*args)
+        want = ref.pbit_brick_update_int_ref(*args)
+        t.cuda.synchronize()
+        check(_build.launch_counts["pbit_brick_update_int:site"] ==
+              sites + 1, f"int8 phase at Z={shape[2]}: one thread per site")
+        errs_int += [self.max_abs(g, w) for g, w in zip(got, want)]
+        check(all(self.same(g, w) for g, w in zip(got, want)),
+              f"int8 phase == plain, bitwise (R={R}, shape {shape}, "
+              f"multi-bit couplings, LUT width {lut_o.shape[1]})")
+        self.check_int_flips(args)
+        self.results["pbit_brick_update_int"] = {"max_abs_err": max(errs_int)}
+
+    def check_int_flips(self, args):
+        """The int8 phase's in-kernel flip count (the per-phase engine's)
+        equals the sites its plain version changes, added in place."""
+        t = self.torch
+        from repro_torch.kernels import ref
+        from repro_torch.kernels.ops import pbit_update_int_op
+        R = int(args[0].shape[0])
+        flips = t.full((R,), 7, dtype=t.int32, device=self.dev)
+        got = pbit_update_int_op(*args, flips=flips)
+        want = ref.pbit_brick_update_int_ref(*args)
+        changed = (want[0] != args[0]).reshape(R, -1).sum(1)
+        t.cuda.synchronize()
+        check(all(self.same(g, w) for g, w in zip(got, want)) and
+              flips.tolist() == (changed + 7).tolist(),
+              f"int8 phase with its flip count == plain, bitwise, flips "
+              f"{changed.tolist()} (shape {tuple(args[0].shape)})")
 
     def check_f32(self, what, got, want, boundary_ok):
         """An f32 kernel's (m, s[, flips]) against its plain version: LFSR
@@ -570,8 +727,9 @@ class Smoke:
         from repro_torch import make_engine
         from repro_torch.core.annealing import ea_schedule
         from repro_torch.core.bits import u32_to_numpy
+        from repro_torch.core import lattice_dsim
         from repro_torch.core.packing import unpack_lanes
-        from repro_torch.kernels import _build
+        from repro_torch.kernels import _build, ref
         print("== 3. main path: make_engine('lattice', L=100)", flush=True)
 
         # golden values from the JAX reference
@@ -661,20 +819,37 @@ class Smoke:
               "bit-plane lane (w, b) == int8 replica w*32+b (R=64, 16 "
               "sweeps: spins, LFSR, flips, energies)")
 
-        # the main path: each configuration's launches counted on their own
+        # the main path: each configuration's launches counted on their own,
+        # and the lanes unpacked (by the engine or a plain version) counted
         handles = {label: self.engine(kw) for label, kw in MAIN_RUNS.items()}
         inits = {label: hh.init_state(seed=SEED)
                  for label, hh in handles.items()}
         t.cuda.synchronize()
         self.rates = {}
         self.launches = dict.fromkeys(_build.launch_counts, 0)
+        unpacked = [0]
+
+        def counting(fn):
+            def wrapped(*a, **k):
+                unpacked[0] += 1
+                return fn(*a, **k)
+            return wrapped
+        patched = [(mod, mod.unpack_lanes) for mod in (lattice_dsim, ref)]
         for label, hh in handles.items():
             _build.reset_launch_counts()
-            t0 = time.perf_counter()
-            st, rec = hh.run_recorded(inits[label], ea_schedule(MAIN_SWEEPS),
-                                      MAIN_POINTS, sync_every=SYNC)
-            t.cuda.synchronize()
-            dt = time.perf_counter() - t0
+            unpacked[0] = 0
+            for mod, fn in patched:
+                mod.unpack_lanes = counting(fn)
+            try:
+                t0 = time.perf_counter()
+                st, rec = hh.run_recorded(inits[label],
+                                          ea_schedule(MAIN_SWEEPS),
+                                          MAIN_POINTS, sync_every=SYNC)
+                t.cuda.synchronize()
+                dt = time.perf_counter() - t0
+            finally:
+                for mod, fn in patched:
+                    mod.unpack_lanes = fn
             counts = {k: v for k, v in _build.launch_counts.items() if v}
             for k, v in counts.items():
                 self.launches[k] += v
@@ -707,11 +882,19 @@ class Smoke:
                       f"{label}: {counts.get(sweep, 0)} {sweep} launches, "
                       f"one persistent launch per {SYNC}-sweep call, each "
                       f"with its LFSR states in shared memory")
-            if sweep == "pbit_brick_update":
+            if sweep in ("pbit_brick_update", "pbit_brick_update_int"):
                 check(counts.get(f"{sweep}:word", 0) ==
                       counts.get(sweep, 0) == MAIN_SWEEPS * 2,
-                      f"{label}: one f32 phase launch per color phase, one "
-                      f"thread per word of 4 z-sites")
+                      f"{label}: one {hh.precision} phase launch per color "
+                      f"phase, one thread per word of 4 z-sites")
+            n_energy = counts.get("brick_energy", 0)
+            check(n_energy == counts.get("brick_energy:word", 0) ==
+                  len(MAIN_POINTS), f"{label}: one energy launch per record "
+                  f"point, one thread per word of 4 z-sites")
+            if hh.precision == "bitplane":
+                check(counts.get("brick_energy:bitplane", 0) == n_energy and
+                      unpacked[0] == 0, f"{label}: every energy read from "
+                      f"the word planes; lanes unpacked {unpacked[0]} times")
         for name in KERNELS:
             check(self.launches[name] > 0,
                   f"main path launched {name} {self.launches[name]} times")
@@ -730,7 +913,8 @@ class Smoke:
     def phase_timing(self, card: str):
         t = self.torch
         from repro_torch.kernels import ref
-        from repro_torch.kernels.lattice_energy import brick_energy
+        from repro_torch.kernels.lattice_energy import (brick_energy,
+                                                        brick_energy_words)
         from repro_torch.kernels.pbit_bitplane import pbit_bitplane_sweep
         from repro_torch.kernels.pbit_lattice import (phase_width,
                                                       pbit_brick_sweep,
@@ -799,7 +983,9 @@ class Smoke:
                     SYNC * (6 * nc * R * n + decided * (26 * W + 13 * R)),
                     0, f"{SYNC} sweeps, R={R}, W={W}, {SYNC * nc} launches")
 
-        args = self.inputs_energy
+        # the energy: its bound is the work of R int8 replicas (1 B per
+        # replica-site), whichever layout holds the spins
+        args = self.inputs_energy[64]
         R = int(args[0].shape[0])
         byts = R * n + 29 * n + R * plane + 4 * R
         self._timed("brick_energy", "src/repro_torch/kernels/csrc/"
@@ -807,7 +993,18 @@ class Smoke:
                     "src/repro/kernels/lattice_energy.py:57",
                     lambda: brick_energy(*args),
                     lambda: ref.brick_energy_ref(*args),
-                    byts, 0, 17 * R * n, f"R={R} spins, 1 launch")
+                    byts, 0, 17 * R * n, f"R={R} int8 spins, 2 launches")
+        for what, fn, r in (
+                ("int8 spins", lambda: brick_energy(*self.inputs_energy[4]),
+                 4),
+                ("word planes", lambda: brick_energy_words(
+                    *self.inputs_energy_words), 64)):
+            ms = self.time_ms(fn, reps=50)
+            byts = r * n + 29 * n + r * plane + 4 * r
+            bound = max(byts / HBM_BYTES_PER_S, 17 * r * n / self.f32_peak)
+            print(f"  brick_energy, R={r} {what}: {ms:.4f} ms per call, "
+                  f"bound {bound * 1e3:.4f} ms; on {card}", flush=True)
+        self.time_readout(card)
 
         args = self.inputs_f32
         m, masks = args[0], args[3]
@@ -870,6 +1067,33 @@ class Smoke:
                   f"launches on the main path; on {card}", flush=True)
             del r["work"], r["bounds"]
 
+    def time_readout(self, card: str):
+        """The bit-plane main path's energy readout (exchange of the word
+        planes, the word-plane energy) against the readout it replaces
+        (unpack the lanes, an int8 exchange, the int8 energy), on the same
+        state; they must agree bitwise (+-J)."""
+        from repro_torch.core.packing import unpack_lanes
+        from repro_torch.kernels.lattice_energy import brick_energy
+        eng = self.handles["bitplane R=64"].eng
+        st = self.inits["bitplane R=64"]
+        R = eng.replicas
+
+        def unpack_first():
+            m = unpack_lanes(st.m, R)
+            return brick_energy(m, eng.p.active, eng.p.h, eng.p.w6,
+                                eng._squeeze(eng._exchange(m)))
+        check(self.same(eng.energy(st), unpack_first()),
+              f"bit-plane readout (R={R}) == the unpack-first readout, "
+              f"bitwise")
+        new = self.time_ms(lambda: eng.energy(st), reps=50)
+        old = self.time_ms(unpack_first, reps=50)
+        unpack = self.time_ms(lambda: unpack_lanes(st.m, R), reps=50)
+        exch = self.time_ms(lambda: eng._exchange(st.m), reps=50)
+        print(f"  bit-plane readout (R={R}): {new:.4f} ms per record point "
+              f"(word exchange {exch:.4f} ms + word-plane energy); the "
+              f"unpack-first readout {old:.4f} ms (unpack {unpack:.4f} ms); "
+              f"on {card}", flush=True)
+
     def profile_main_path(self, card: str):
         """Device time by kernel over one more run of each main-path
         configuration, and the device's busy share of its wall time (the
@@ -916,6 +1140,7 @@ class Smoke:
                 if not hits or not _build.launch_counts[name]:
                     continue
                 count, us = sum(c for c, _ in hits), sum(u for _, u in hits)
+                calls = _build.launch_counts[name]
                 mode = "per color phase"
                 if name in ("pbit_brick_sweep", "pbit_brick_sweep_int"):
                     m = self.inits[label].m
@@ -926,11 +1151,13 @@ class Smoke:
                         int(m[0].numel()))
                     mode = (f"persistent, {mode} (grid {grid} = {per_sm} "
                             f"per SM, tile {tile} sites, {smem} B shared)")
-                elif name == "pbit_brick_update":
+                elif name in ("pbit_brick_update", "pbit_brick_update_int"):
                     mode = "per color phase, one thread per word"
+                elif name == "brick_energy":
+                    mode = "per record point, two passes, one thread per word"
                 print(f"  redesigned {name} in {label}: {mode}; {count} "
-                      f"launches, {us / count:.1f} us per launch "
-                      f"(profiler) on {card}", flush=True)
+                      f"kernel launches in {calls} calls, {us / calls:.1f} "
+                      f"us per call (profiler) on {card}", flush=True)
 
     def _timed(self, name, source, replaces, kernel, plain, byts, int_ops,
                f32_ops, work):

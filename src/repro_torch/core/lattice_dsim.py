@@ -33,7 +33,8 @@ from .pbit import (FixedPoint, LUT_SELECT_MAX_WIDTH, bitplane_planes,
                    threshold_lut_cached)
 from repro_torch.engines.base import (RecordedCursor, check_lanes,
                                       run_recorded_driver, spawn_seeds)
-from repro_torch.kernels.ops import (brick_energy_op, pbit_bitplane_sweep_op,
+from repro_torch.kernels.ops import (brick_energy_op, brick_energy_words_op,
+                                     pbit_bitplane_sweep_op,
                                      pbit_sweep_int_op, pbit_sweep_op,
                                      pbit_update_int_op, pbit_update_op,
                                      resolve_impl)
@@ -352,12 +353,19 @@ class LatticeDSIM:
 
     def energy(self, state) -> torch.Tensor:
         """True energies, one per replica, on the f32 problem, after a
-        fresh exchange of the current spins (not ``state.halos``).
-        Returns (R,), or a scalar when replicas == 1."""
-        m = self._spins(state)
-        e = brick_energy_op(m, self.p.active, self.p.h, self.p.w6,
-                            self._squeeze(self._exchange(m)),
-                            bx=self.kernel_bx, impl=self.impl)
+        fresh exchange of the current spins (not ``state.halos``); on the
+        bit-plane path of its word planes, read without unpacking on CUDA
+        (the plain version unpacks spins and word halos, as the
+        reference's readout does).  Returns (R,), or a scalar when
+        replicas == 1."""
+        halos = self._squeeze(self._exchange(state.m))
+        consts = (self.p.active, self.p.h, self.p.w6)
+        if self.precision == "bitplane":
+            e = brick_energy_words_op(state.m, self.replicas, *consts, halos,
+                                      bx=self.kernel_bx, impl=self.impl)
+        else:
+            e = brick_energy_op(state.m, *consts, halos, bx=self.kernel_bx,
+                                impl=self.impl)
         return e[0] if self.replicas == 1 else e
 
     def global_spins(self, state) -> torch.Tensor:

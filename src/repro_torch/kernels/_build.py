@@ -39,9 +39,16 @@ launch_counts = {"pbit_brick_sweep_int": 0, "pbit_bitplane_sweep": 0,
                  "pbit_brick_sweep_int:lfsr_global": 0,
                  "pbit_brick_sweep:lfsr_smem": 0,
                  "pbit_brick_sweep:lfsr_global": 0,
-                 # the f32 phase's launches by z-sites per thread
+                 # the phases' and the energy's launches by z-sites per
+                 # thread (a word of 4, or one site)
                  "pbit_brick_update:word": 0,
-                 "pbit_brick_update:site": 0}
+                 "pbit_brick_update:site": 0,
+                 "pbit_brick_update_int:word": 0,
+                 "pbit_brick_update_int:site": 0,
+                 "brick_energy:word": 0,
+                 "brick_energy:site": 0,
+                 # the energy's launches on bit-plane word planes
+                 "brick_energy:bitplane": 0}
 
 
 def reset_launch_counts():
@@ -110,9 +117,9 @@ _F = ctypes.c_float
 _P6 = ctypes.c_void_p * 6
 _SIGNATURES = {
     # m_in, m_out, s_in, s_out, rows_t, mask, h_q, w6, halos, lut,
-    # lw, R, X, Y, Z, flips, stream
+    # lw, R, X, Y, Z, width, flips, stream
     "pbit_update_int_phase": (_P, _P, _P, _P, _P, _P, _P, _P6, _P6, _P,
-                              _I, _I, _I, _I, _I, _P, _P),
+                              _I, _I, _I, _I, _I, _I, _P, _P),
     # m_in, m_out, s_in, s_out, betas_t, mask, h, w6, halos,
     # fmt_on, step, lo, hi, R, X, Y, Z, width, flips, stream
     "pbit_update_f32_phase": (_P, _P, _P, _P, _P, _P, _P, _P6, _P6,
@@ -138,8 +145,14 @@ _SIGNATURES = {
     "pbit_bitplane_color_phase": (_P, _P, _P, _P, _P, _P6, _P6, _P, _P6, _P,
                                   _I, _I, _I, _I, _I, _I, _I, _I, _I, _I,
                                   _I, _P, _P),
-    # m, active, h, w6, halos, R, X, Y, Z, out, stream
-    "brick_energy": (_P, _P, _P, _P6, _P6, _I, _I, _I, _I, _P, _P),
+    # m, active, h, w6, halos, R, X, Y, Z, width, blocks, partials, out,
+    # stream
+    "brick_energy": (_P, _P, _P, _P6, _P6, _I, _I, _I, _I, _I, _I, _P, _P,
+                     _P),
+    # mw, active, h, w6, halos, W, R, X, Y, Z, width, blocks, partials,
+    # out, stream
+    "brick_energy_words": (_P, _P, _P, _P6, _P6, _I, _I, _I, _I, _I, _I,
+                           _I, _P, _P, _P),
 }
 
 

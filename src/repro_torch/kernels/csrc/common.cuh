@@ -1,5 +1,6 @@
 // Shared helpers of the lattice kernels: the brick index map, the
-// neighbor read with fixed halo planes, and the xorshift32 LFSR step.
+// neighbor read with fixed halo planes (per site, and per row of kW
+// z-sites for the word kernels) and the xorshift32 LFSR step.
 #pragma once
 
 #include <cstdint>
@@ -72,6 +73,109 @@ __device__ __forceinline__ void neighbors(const T* m, const Six<T>& halo,
   nb[5] = c.z < Z - 1 ? ld(m + i + 1) : halo.p[5][(static_cast<long long>(r) * X + c.x) * Y + c.y];
 }
 
+// -- rows of kW consecutive z-sites (the word kernels) ------------------------
+
+// kW consecutive bytes (kW = 4: one aligned 32-bit load) as a word, byte q
+// of the word being site q.
+template <int kW>
+__device__ __forceinline__ uint32_t load_bytes(const int8_t* p) {
+  if constexpr (kW == 4) return *reinterpret_cast<const unsigned*>(p);
+  else return static_cast<uint8_t>(*p);
+}
+
+template <int kW>
+__device__ __forceinline__ void store_bytes(int8_t* p, uint32_t v) {
+  if constexpr (kW == 4) *reinterpret_cast<uint32_t*>(p) = v;
+  else *p = static_cast<int8_t>(v);
+}
+
+__device__ __forceinline__ int8_t byte_of(uint32_t v, int q) {
+  return static_cast<int8_t>(static_cast<uint8_t>(v >> (8 * q)));
+}
+
+// kW consecutive uint32 (kW = 4: one aligned 16 B load).
+template <int kW>
+struct Words {
+  uint32_t v[kW];
+};
+
+template <int kW>
+__device__ __forceinline__ Words<kW> load_words(const uint32_t* p) {
+  Words<kW> w;
+  if constexpr (kW == 4) {
+    const uint4 u = __ldg(reinterpret_cast<const uint4*>(p));
+    w.v[0] = u.x;
+    w.v[1] = u.y;
+    w.v[2] = u.z;
+    w.v[3] = u.w;
+  } else {
+    for (int q = 0; q < kW; ++q) w.v[q] = __ldg(p + q);
+  }
+  return w;
+}
+
+// How a row of kW sites is read: int8 spins as one word of kW bytes
+// (ByteRows), spin word planes as kW words (WordRows).
+template <int kW_>
+struct ByteRows {
+  static constexpr int kW = kW_;
+  using T = int8_t;
+  using Row = uint32_t;
+  __device__ static Row load(const T* p) { return load_bytes<kW>(p); }
+  __device__ static T at(const Row& w, int q) { return byte_of(w, q); }
+};
+
+template <int kW_>
+struct WordRows {
+  static constexpr int kW = kW_;
+  using T = uint32_t;
+  using Row = Words<kW>;
+  __device__ static Row load(const T* p) { return load_words<kW>(p); }
+  __device__ static T at(const Row& w, int q) { return w.v[q]; }
+};
+
+// The neighbors of a row of kW z-sites: the -x, +x, -y and +y rows, and
+// the z neighbors beyond the row's two ends.
+template <class Rows>
+struct NbrRows {
+  typename Rows::Row xm, xp, ym, yp;
+  typename Rows::T zm, zp;
+
+  // the six neighbors of site q of the row, whose own row is `own`
+  __device__ __forceinline__ void of(const typename Rows::Row& own, int q,
+                                     typename Rows::T nb[6]) const {
+    nb[0] = Rows::at(xm, q);
+    nb[1] = Rows::at(xp, q);
+    nb[2] = Rows::at(ym, q);
+    nb[3] = Rows::at(yp, q);
+    nb[4] = q > 0 ? Rows::at(own, q - 1) : zm;
+    nb[5] = q < Rows::kW - 1 ? Rows::at(own, q + 1) : zp;
+  }
+};
+
+// The neighbor rows of sites i0 .. i0 + kW - 1 (site i0 at c, c.z a
+// multiple of kW) of the brick `m` (replica / word plane `r`): inside the
+// brick from `m`, across a face from its halo plane (laid out as for
+// neighbors()); one load per row.  Every pointer is read-only for the
+// launch.
+template <class Rows>
+__device__ __forceinline__ NbrRows<Rows> nbr_rows(
+    const typename Rows::T* m, const Six<typename Rows::T>& halo, int i0,
+    Site c, int r, int X, int Y, int Z) {
+  const int yz = Y * Z;
+  const long long hx = (static_cast<long long>(r) * Y + c.y) * Z + c.z;
+  const long long hy = (static_cast<long long>(r) * X + c.x) * Z + c.z;
+  const long long hz = (static_cast<long long>(r) * X + c.x) * Y + c.y;
+  NbrRows<Rows> n;
+  n.xm = c.x > 0 ? Rows::load(m + i0 - yz) : Rows::load(halo.p[0] + hx);
+  n.xp = c.x < X - 1 ? Rows::load(m + i0 + yz) : Rows::load(halo.p[1] + hx);
+  n.ym = c.y > 0 ? Rows::load(m + i0 - Z) : Rows::load(halo.p[2] + hy);
+  n.yp = c.y < Y - 1 ? Rows::load(m + i0 + Z) : Rows::load(halo.p[3] + hy);
+  n.zm = c.z > 0 ? m[i0 - 1] : halo.p[4][hz];
+  n.zp = c.z + Rows::kW < Z ? m[i0 + Rows::kW] : halo.p[5][hz];
+  return n;
+}
+
 __device__ __forceinline__ uint32_t xorshift32(uint32_t s) {
   s ^= s << 13;
   s ^= s >> 17;
@@ -81,18 +185,6 @@ __device__ __forceinline__ uint32_t xorshift32(uint32_t s) {
 
 inline unsigned blocks_for(int n) {
   return static_cast<unsigned>((n + kBlock - 1) / kBlock);
-}
-
-// Sum of `v` over the block, valid in thread 0; every thread must call it.
-__device__ __forceinline__ unsigned block_sum(unsigned v) {
-  __shared__ unsigned warp_part[kBlock / 32];
-  for (int o = 16; o > 0; o >>= 1) v += __shfl_down_sync(0xffffffffu, v, o);
-  if ((threadIdx.x & 31) == 0) warp_part[threadIdx.x >> 5] = v;
-  __syncthreads();
-  v = 0;
-  if (threadIdx.x == 0)
-    for (int k = 0; k < kBlock / 32; ++k) v += warp_part[k];
-  return v;
 }
 
 }  // namespace repro_torch

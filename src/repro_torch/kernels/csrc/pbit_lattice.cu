@@ -6,10 +6,9 @@
 //   pbit_brick_sweep      (Pallas body _sweep_kernel)      by pbit_sweep_f32_persistent
 //   pbit_brick_update_int (Pallas body _kernel_int)        by pbit_update_int_phase
 //   pbit_brick_update     (Pallas body _kernel)            by pbit_update_f32_phase
-// A site update is written once per precision: the functors Int8Update
+// A site update is written once per precision, as the functors Int8Update
 // and F32Update (a site's constants are loaded once and serve every
-// replica) for both persistent sweeps and the f32 phase, and int_site
-// (Int8Update's arithmetic) for the int8 phase.
+// replica); both persistent sweeps and both single phases run them.
 //
 // int8: the int32 field h_q + sum_d w_q[d] * m_d and the LUT accept
 // u = s >> 8 >= T[row][f + f_off] (rows are monotone, so a direct lookup
@@ -24,29 +23,27 @@
 // decision equals torch.tanh's on the card, and differs from XLA's tanh
 // only where tanh(act) + r lies within a few ulp of 0.
 //
-// The int8 single phase: one launch per color phase, all R replicas in
-// one grid (sites / 256, R); per site the local field, one xorshift32 step
-// of EVERY site's LFSR (masked or not), the accept and the masked write of
-// every site of m_out (spins ping-pong between two buffers; the launch
-// boundary orders the phases); with a flips buffer, each replica's changed
-// sites are counted (one atomic per block).  Bound: memory traffic, 10 B
-// per replica-site plus 8 B per site of constants.
-//
-// The f32 single phase (word_phase_kernel).  What bounds it: bytes, 10 B
-// per replica-site (LFSR state in and out, spin in and out) and 29 B per
-// site of constants and mask; at L=100, R=4 about 69 MB, 21 us at the HBM
-// rate.  The one-thread-per-replica-site design it replaces re-read the 28
-// B of constants per replica (more than L2 keeps beside the spins and
-// states), ran the field, draw and tanhf on the masked-off half of every
-// warp and loaded each neighbor as a byte.  What this design does:
+// The single phases (word_phase_kernel<Update, kW>, one launch per color
+// phase; spins ping-pong between two buffers, the launch boundary orders
+// the phases).  What bounds them: bytes, 10 B per replica-site (LFSR state
+// in and out, spin in and out) and per site the mask and the constants (7
+// B int8, 28 B f32); at L=100, R=4 about 48 MB (int8, 14 us at the HBM
+// rate) and 69 MB (f32, 21 us).  The one-thread-per-replica-site design
+// they replace re-read the constants per replica (more than L2 keeps beside
+// the spins and states), computed the field, draw and accept on the
+// masked-off half of every warp and loaded each neighbor as a byte.  What
+// this design does:
 // - One thread per word of kW = 4 consecutive z-sites (or one site where
 //   rows are not word-aligned), looping over the R replicas: the word's
-//   constants are loaded once (16 B per plane) and serve every replica.
+//   constants are loaded once (one 4 B or 16 B load per plane) and serve
+//   every replica.
 // - States move as 16 B, spins as 32-bit words: own, +-x and +-y rows; the
 //   z neighbors of the word's sites come from the own word by bytes, plus
-//   the adjacent byte on each side, or the z halo at a face.
-// - Every state advances; the field, draw and tanhf run only at the
-//   word's masked sites, in the order and rounding of the arithmetic above.
+//   the adjacent byte on each side, or the z halo at a face (nbr_rows, which
+//   the energy kernel shares).
+// - Every site's state advances, masked or not; the field, draw and accept
+//   run only at the word's masked sites, in the order and rounding of the
+//   arithmetic above.
 // - With a flips buffer (the engine's per-phase dispatch), each replica's
 //   changed sites are summed per warp, then per block in shared memory,
 //   and added with one atomic per block per replica.
@@ -102,72 +99,6 @@ struct Fmt {
   int on;
   float step, lo, hi;
 };
-
-// New spin of site i of replica r on the int8 path; advances s.
-__device__ __forceinline__ int8_t int_site(
-    const int8_t* m, const Six<int8_t>& halo, int i, int r, int X, int Y,
-    int Z, const int8_t* __restrict__ mask, const int8_t* __restrict__ h_q,
-    const Six<int8_t>& w, const uint32_t* __restrict__ lut, int lw, int row,
-    uint32_t& s) {
-  int8_t nb[6];
-  neighbors<int8_t>(m, halo, i, site_of(i, Y, Z), r, X, Y, Z, nb);
-  int f = h_q[i];
-  for (int d = 0; d < 6; ++d) f += static_cast<int>(w.p[d][i]) * nb[d];
-  s = xorshift32(s);
-  int idx = f + (lw - 1) / 2;
-  idx = idx < 0 ? 0 : (idx > lw - 1 ? lw - 1 : idx);
-  const uint32_t thr = lut[static_cast<long long>(row) * lw + idx];
-  return mask[i] ? ((s >> 8) >= thr ? 1 : -1) : m[i];
-}
-
-// One int8 color phase; kCount adds each replica's changed sites to
-// flips[r] (one atomic per block).
-template <bool kCount>
-__global__ void __launch_bounds__(kBlock)
-int_phase_kernel(const int8_t* __restrict__ m_in, int8_t* __restrict__ m_out,
-                 const uint32_t* s_in, uint32_t* s_out,
-                 const int32_t* __restrict__ rows_t,
-                 const int8_t* __restrict__ mask,
-                 const int8_t* __restrict__ h_q, Six<int8_t> w,
-                 Six<int8_t> halo, const uint32_t* __restrict__ lut, int lw,
-                 int X, int Y, int Z, uint32_t* __restrict__ flips) {
-  const int r = blockIdx.y;
-  const int n = X * Y * Z;
-  const int i = blockIdx.x * blockDim.x + threadIdx.x;
-  const long long off = static_cast<long long>(r) * n;
-  bool changed = false;
-  if (i < n) {
-    const int8_t* m = m_in + off;
-    uint32_t s = s_in[off + i];
-    const int8_t nv = int_site(m, halo, i, r, X, Y, Z, mask, h_q, w, lut,
-                               lw, rows_t[r], s);
-    s_out[off + i] = s;
-    m_out[off + i] = nv;
-    changed = nv != m[i];
-  }
-  if constexpr (kCount) {
-    const unsigned total = block_sum(changed ? 1u : 0u);
-    if (threadIdx.x == 0 && total) atomicAdd(&flips[r], total);
-  }
-}
-
-template <bool kCount>
-int launch_int(const void* m_in, void* m_out, const void* s_in, void* s_out,
-               const void* rows_t, const void* mask, const void* h_q,
-               const void* const* w6, const void* const* halos,
-               const void* lut, int lw, int R, int X, int Y, int Z,
-               void* flips, void* stream) {
-  const dim3 grid(blocks_for(X * Y * Z), static_cast<unsigned>(R));
-  int_phase_kernel<kCount><<<grid, kBlock, 0,
-                             static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const int8_t*>(m_in), static_cast<int8_t*>(m_out),
-      static_cast<const uint32_t*>(s_in), static_cast<uint32_t*>(s_out),
-      static_cast<const int32_t*>(rows_t), static_cast<const int8_t*>(mask),
-      static_cast<const int8_t*>(h_q), six<int8_t>(w6), six<int8_t>(halos),
-      static_cast<const uint32_t*>(lut), lw, X, Y, Z,
-      static_cast<uint32_t*>(flips));
-  return static_cast<int>(cudaGetLastError());
-}
 
 // -- the site updates as functors ------------------------------------------
 
@@ -229,7 +160,7 @@ struct F32Update {
   }
 };
 
-// int8: int_site's arithmetic; 7 B of constants per site.
+// int8: the int32 field and the LUT accept; 7 B of constants per site.
 struct Int8Update {
   const int8_t* __restrict__ h_q;
   Six<int8_t> w;
@@ -248,6 +179,22 @@ struct Int8Update {
     return k;
   }
 
+  // the constants of sites i0 .. i0 + kW - 1; kW = 4 takes one 32-bit load
+  // per plane (i0 a multiple of 4, the planes 4 B aligned)
+  template <int kW>
+  __device__ __forceinline__ void load_word(int i0, Consts (&k)[kW]) const {
+    if constexpr (kW == 4) {
+      const uint32_t v = load_bytes<4>(h_q + i0);
+      for (int q = 0; q < 4; ++q) k[q].h = byte_of(v, q);
+      for (int d = 0; d < 6; ++d) {
+        const uint32_t u = load_bytes<4>(w.p[d] + i0);
+        for (int q = 0; q < 4; ++q) k[q].w[d] = byte_of(u, q);
+      }
+    } else {
+      for (int q = 0; q < kW; ++q) k[q] = load(i0 + q);
+    }
+  }
+
   __device__ __forceinline__ bool accept(const Consts& k, const int8_t nb[6],
                                          int t, int r, uint32_t s) const {
     int f = k.h;
@@ -259,25 +206,7 @@ struct Int8Update {
   }
 };
 
-// -- the f32 single phase ----------------------------------------------------
-
-// kW consecutive bytes (kW = 4: one aligned 32-bit load) as a word, byte q
-// of the word being site q.
-template <int kW>
-__device__ __forceinline__ uint32_t load_bytes(const int8_t* p) {
-  if constexpr (kW == 4) return *reinterpret_cast<const uint32_t*>(p);
-  else return static_cast<uint8_t>(*p);
-}
-
-template <int kW>
-__device__ __forceinline__ void store_bytes(int8_t* p, uint32_t v) {
-  if constexpr (kW == 4) *reinterpret_cast<uint32_t*>(p) = v;
-  else *p = static_cast<int8_t>(v);
-}
-
-__device__ __forceinline__ int8_t byte_of(uint32_t v, int q) {
-  return static_cast<int8_t>(static_cast<uint8_t>(v >> (8 * q)));
-}
+// -- the single phases -------------------------------------------------------
 
 // One color phase, one thread per kW consecutive z-sites of a row, all R
 // replicas; flips (R,) or nullptr.  Dynamic shared memory: R counters.
@@ -292,7 +221,6 @@ word_phase_kernel(const int8_t* __restrict__ m_in,
                   uint32_t* __restrict__ flips) {
   extern __shared__ uint32_t flips_s[];
   const int n = X * Y * Z;
-  const int yz = Y * Z;
   const int wi = blockIdx.x * blockDim.x + threadIdx.x;
   const bool live = wi < n / kW;
   const int i0 = live ? wi * kW : 0;
@@ -327,26 +255,13 @@ word_phase_kernel(const int8_t* __restrict__ m_in,
       const uint32_t own = load_bytes<kW>(m + i0);
       uint32_t nv = own;
       if (mk) {
-        const long long hx = (static_cast<long long>(r) * Y + c.y) * Z + c.z;
-        const long long hy = (static_cast<long long>(r) * X + c.x) * Z + c.z;
-        const long long hz = (static_cast<long long>(r) * X + c.x) * Y + c.y;
-        const uint32_t xm = c.x > 0 ? load_bytes<kW>(m + i0 - yz)
-                                    : load_bytes<kW>(halo.p[0] + hx);
-        const uint32_t xp = c.x < X - 1 ? load_bytes<kW>(m + i0 + yz)
-                                        : load_bytes<kW>(halo.p[1] + hx);
-        const uint32_t ym = c.y > 0 ? load_bytes<kW>(m + i0 - Z)
-                                    : load_bytes<kW>(halo.p[2] + hy);
-        const uint32_t yp = c.y < Y - 1 ? load_bytes<kW>(m + i0 + Z)
-                                        : load_bytes<kW>(halo.p[3] + hy);
-        const int8_t zm = c.z > 0 ? m[i0 - 1] : halo.p[4][hz];
-        const int8_t zp = c.z + kW < Z ? m[i0 + kW] : halo.p[5][hz];
+        const NbrRows<ByteRows<kW>> rows =
+            nbr_rows<ByteRows<kW>>(m, halo, i0, c, r, X, Y, Z);
 #pragma unroll
         for (int q = 0; q < kW; ++q) {
           if (((mk >> (8 * q)) & 0xffu) == 0) continue;
-          const int8_t nb[6] = {byte_of(xm, q), byte_of(xp, q),
-                                byte_of(ym, q), byte_of(yp, q),
-                                q > 0 ? byte_of(own, q - 1) : zm,
-                                q < kW - 1 ? byte_of(own, q + 1) : zp};
+          int8_t nb[6];
+          rows.of(own, q, nb);
           const uint32_t v = up.accept(kc[q], nb, 0, r, st[q]) ? 0x01u
                                                                : 0xffu;
           nv = (nv & ~(0xffu << (8 * q))) | (v << (8 * q));
@@ -368,12 +283,12 @@ word_phase_kernel(const int8_t* __restrict__ m_in,
   }
 }
 
-template <int kW>
-int launch_f32_phase(const void* m_in, void* m_out, const void* s_in,
-                     void* s_out, const void* mask, const void* const* halos,
-                     const F32Update& up, int R, int X, int Y, int Z,
-                     void* flips, void* stream) {
-  word_phase_kernel<F32Update, kW>
+template <int kW, class Update>
+int launch_phase_w(const void* m_in, void* m_out, const void* s_in,
+                   void* s_out, const void* mask, const void* const* halos,
+                   const Update& up, int R, int X, int Y, int Z, void* flips,
+                   void* stream) {
+  word_phase_kernel<Update, kW>
       <<<blocks_for(X * Y * Z / kW), kBlock, 4 * static_cast<size_t>(R),
          static_cast<cudaStream_t>(stream)>>>(
           static_cast<const int8_t*>(m_in), static_cast<int8_t*>(m_out),
@@ -381,6 +296,22 @@ int launch_f32_phase(const void* m_in, void* m_out, const void* s_in,
           static_cast<const int8_t*>(mask), six<int8_t>(halos), up, R, X, Y,
           Z, static_cast<uint32_t*>(flips));
   return static_cast<int>(cudaGetLastError());
+}
+
+// One single phase at `width` z-sites per thread: 4 (Z a multiple of 4)
+// or 1; cudaErrorInvalidValue for any other.
+template <class Update>
+int launch_phase(int width, const void* m_in, void* m_out, const void* s_in,
+                 void* s_out, const void* mask, const void* const* halos,
+                 const Update& up, int R, int X, int Y, int Z, void* flips,
+                 void* stream) {
+  if (width == 4 && Z % 4 == 0)
+    return launch_phase_w<4>(m_in, m_out, s_in, s_out, mask, halos, up, R, X,
+                             Y, Z, flips, stream);
+  if (width == 1)
+    return launch_phase_w<1>(m_in, m_out, s_in, s_out, mask, halos, up, R, X,
+                             Y, Z, flips, stream);
+  return static_cast<int>(cudaErrorInvalidValue);
 }
 
 // -- the persistent sweep ----------------------------------------------------
@@ -741,9 +672,11 @@ extern "C" int pbit_sweep_int_persistent(
 // Common arguments of the single phases: m_in / m_out (R, X, Y, Z) int8,
 // distinct; s_in / s_out (R, X, Y, Z) uint32, distinct; mask (X, Y, Z)
 // int8 (this color); w6 six and h one (X, Y, Z) constant arrays; halos six
-// (R, plane) int8; flips (R,) uint32 to which each replica's changed sites
-// are added, or null.  Each returns cudaGetLastError() right after the
-// launch.
+// (R, plane) int8; width 4 (Z a multiple of 4, s_in / s_out and the f32
+// constants 16 B and the int8 arrays 4 B aligned) or 1, the z-sites per
+// thread; flips (R,) uint32 to which each replica's changed sites are
+// added, or null.  Each returns cudaGetLastError() right after the launch
+// (cudaErrorInvalidValue, and no launch, for another width).
 
 // int8 single phase: rows_t (R,) int32 LUT rows of this phase; h_q / w6
 // int8; lut (n_rows, lw) uint32.
@@ -751,20 +684,19 @@ extern "C" int pbit_update_int_phase(
     const void* m_in, void* m_out, const void* s_in, void* s_out,
     const void* rows_t, const void* mask, const void* h_q,
     const void* const* w6, const void* const* halos, const void* lut,
-    int lw, int R, int X, int Y, int Z, void* flips, void* stream) {
+    int lw, int R, int X, int Y, int Z, int width, void* flips,
+    void* stream) {
   using namespace repro_torch;
-  return flips ? launch_int<true>(m_in, m_out, s_in, s_out, rows_t, mask,
-                                  h_q, w6, halos, lut, lw, R, X, Y, Z, flips,
-                                  stream)
-               : launch_int<false>(m_in, m_out, s_in, s_out, rows_t, mask,
-                                   h_q, w6, halos, lut, lw, R, X, Y, Z,
-                                   nullptr, stream);
+  const Int8Update up{static_cast<const int8_t*>(h_q), six<int8_t>(w6),
+                      static_cast<const int32_t*>(rows_t),
+                      static_cast<const uint32_t*>(lut), lw, R};
+  return launch_phase(width, m_in, m_out, s_in, s_out, mask, halos, up, R, X,
+                      Y, Z, flips, stream);
 }
 
 // f32 single phase: betas_t (R,) f32 betas of this phase; h / w6 f32;
 // fmt_on, step, lo, hi the activation's fixed-point format (fmt_on = 0:
-// none); width 4 (Z a multiple of 4, s_in / s_out / h / w6 16 B and the
-// int8 arrays 4 B aligned) or 1, the z-sites per thread.
+// none).
 extern "C" int pbit_update_f32_phase(
     const void* m_in, void* m_out, const void* s_in, void* s_out,
     const void* betas_t, const void* mask, const void* h,
@@ -775,11 +707,6 @@ extern "C" int pbit_update_f32_phase(
   const F32Update up{static_cast<const float*>(h), six<float>(w6),
                      static_cast<const float*>(betas_t),
                      Fmt{fmt_on, step, lo, hi}, R};
-  if (width == 4 && Z % 4 == 0)
-    return launch_f32_phase<4>(m_in, m_out, s_in, s_out, mask, halos, up, R,
-                               X, Y, Z, flips, stream);
-  if (width == 1)
-    return launch_f32_phase<1>(m_in, m_out, s_in, s_out, mask, halos, up, R,
-                               X, Y, Z, flips, stream);
-  return static_cast<int>(cudaErrorInvalidValue);
+  return launch_phase(width, m_in, m_out, s_in, s_out, mask, halos, up, R, X,
+                      Y, Z, flips, stream);
 }

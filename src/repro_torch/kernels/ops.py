@@ -18,7 +18,8 @@ from . import _build, lattice_energy, pbit_bitplane, pbit_lattice, \
 
 __all__ = ["IMPLS", "resolve_impl", "pbit_update_op", "pbit_sweep_op",
            "pbit_update_int_op", "pbit_sweep_int_op",
-           "pbit_bitplane_sweep_op", "brick_energy_op"]
+           "pbit_bitplane_sweep_op", "brick_energy_op",
+           "brick_energy_words_op"]
 
 IMPLS = ("auto", "cuda", "ref")
 
@@ -111,3 +112,16 @@ def brick_energy_op(m, active, h, w6, halos, bx: Optional[int] = None,
     if resolve_impl(impl, m.is_cuda) == "ref":
         return _ref.brick_energy_ref(m, active, h, w6, halos)
     return lattice_energy.brick_energy(m, active, h, w6, halos, bx=bx)
+
+
+def brick_energy_words_op(mw, n_lanes: int, active, h, w6, halos_w,
+                          bx: Optional[int] = None, impl: str = "auto"):
+    """Energies (n_lanes,) of the replicas in the bit lanes of word planes
+    ``mw`` with word halos ``halos_w``: "ref" unpacks both and runs
+    :func:`brick_energy_op`'s plain version (the reference's bit-plane
+    readout); "cuda" reads the words directly."""
+    if resolve_impl(impl, mw.is_cuda) == "ref":
+        return _ref.brick_energy_words_ref(mw, n_lanes, active, h, w6,
+                                           halos_w)
+    return lattice_energy.brick_energy_words(mw, n_lanes, active, h, w6,
+                                             halos_w, bx=bx)

@@ -28,7 +28,8 @@ __all__ = ["pbit_brick_sweep_int", "pbit_brick_sweep",
            "pbit_brick_update_int", "pbit_brick_update", "halo_shapes",
            "device_limits", "persistent_smem", "smem_budget",
            "lfsr_resident", "launch_shape", "persistent_mode",
-           "phase_width", "launch_update", "launch_update_int"]
+           "phase_width", "count_width", "launch_update",
+           "launch_update_int"]
 
 # the persistent kernels' kind argument
 _KINDS = {"f32": 0, "int8": 1}
@@ -344,9 +345,11 @@ def pbit_brick_update_int(m, s, row, parity_mask, h_q, w6_q, halos, lut,
 def launch_update_int(m, s, row, parity_mask, h_q, w6_q, halos, lut,
                       flips=None):
     """The int8 phase kernel on CUDA tensors (arguments as
-    :func:`pbit_brick_update_int`, ``bx`` checked by the caller); with
-    ``flips`` ((R,) int32) each replica's changed sites are added to it
-    in place, in the kernel.  Returns (m, s)."""
+    :func:`pbit_brick_update_int`, ``bx`` checked by the caller), one
+    thread per word of 4 z-sites or per site (:func:`phase_width`, counted
+    as ``pbit_brick_update_int:word`` or ``:site``); with ``flips`` ((R,)
+    int32) each replica's changed sites are added to it in place, in the
+    kernel.  Returns (m, s)."""
     single, m, s, halos = _checked(m, s, parity_mask, (), h_q, w6_q, halos,
                                    torch.int8)
     R, X, Y, Z = (int(d) for d in m.shape)
@@ -354,27 +357,39 @@ def launch_update_int(m, s, row, parity_mask, h_q, w6_q, halos, lut,
     _build.require("lut", lut, torch.uint32, (n_rows, lw), m.device)
     rows = device_rows(_one_phase(row), R, n_rows, m.device)
     m_out, s_out = torch.empty_like(m), _new_states(s)
+    width = phase_width(
+        Z, [t.data_ptr() for t in (s, s_out)],
+        [t.data_ptr() for t in (m, m_out, parity_mask, h_q, *w6_q, *halos)])
     with torch.cuda.device(m.device):
         err = _build.library().pbit_update_int_phase(
             m.data_ptr(), m_out.data_ptr(), s.data_ptr(), s_out.data_ptr(),
             rows.data_ptr(), parity_mask.data_ptr(), h_q.data_ptr(),
             _build.ptrs6(w6_q), _build.ptrs6(halos), lut.data_ptr(), lw, R,
-            X, Y, Z, _flips_ptr(flips, R, m.device), _build.stream_of(m))
+            X, Y, Z, width, _flips_ptr(flips, R, m.device),
+            _build.stream_of(m))
     _build.check_launch("pbit_update_int_phase", err)
-    _build.launch_counts["pbit_brick_update_int"] += 1
+    count_width("pbit_brick_update_int", width)
     return _done(single, m_out, s_out)
 
 
 def phase_width(Z: int, wide, narrow) -> int:
-    """z-sites per thread of the f32 phase kernel: 4 (one 32-bit word of
-    spins per thread) where rows are word-aligned — Z a multiple of 4, the
-    data pointers ``wide`` (LFSR states, f32 constants) 16-byte and
-    ``narrow`` (spins, mask, halos) 4-byte aligned — else 1 (one site per
-    thread)."""
+    """z-sites per thread of the word kernels (the single phases and the
+    energy): 4 (one 32-bit word of int8 spins per thread) where rows are
+    word-aligned — Z a multiple of 4, the data pointers ``wide`` (read or
+    written 16 bytes at a time: LFSR states, f32 constants, spin word
+    planes) 16-byte and ``narrow`` (4 bytes at a time: int8 spins, masks,
+    constants and halos) 4-byte aligned — else 1 (one site per thread)."""
     if Z % 4 == 0 and all(p % 16 == 0 for p in wide) and \
             all(p % 4 == 0 for p in narrow):
         return 4
     return 1
+
+
+def count_width(name: str, width: int):
+    """Count a word kernel's launch under ``name`` and ``name:word`` or
+    ``name:site`` by its z-sites per thread."""
+    _build.launch_counts[name] += 1
+    _build.launch_counts[f"{name}:{'word' if width == 4 else 'site'}"] += 1
 
 
 def pbit_brick_update(m, s, beta, parity_mask, h, w6, halos,
@@ -415,7 +430,5 @@ def launch_update(m, s, beta, parity_mask, h, w6, halos,
             _build.ptrs6(w6), _build.ptrs6(halos), *_fmt_args(fmt), R, X, Y,
             Z, width, _flips_ptr(flips, R, m.device), _build.stream_of(m))
     _build.check_launch("pbit_update_f32_phase", err)
-    _build.launch_counts["pbit_brick_update"] += 1
-    _build.launch_counts["pbit_brick_update:" +
-                         ("word" if width == 4 else "site")] += 1
+    count_width("pbit_brick_update", width)
     return _done(single, m_out, s_out)

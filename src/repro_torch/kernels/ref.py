@@ -23,7 +23,7 @@ from typing import Optional
 import torch
 
 from repro_torch.core.bits import MASK32, i64_to_i32, i64_to_u32, u32_to_i64
-from repro_torch.core.packing import LANE_WIDTH
+from repro_torch.core.packing import LANE_WIDTH, unpack_lanes
 from repro_torch.core.pbit import (FixedPoint, lfsr_next, lfsr_uniform,
                                    pbit_update, quantize)
 
@@ -32,7 +32,8 @@ __all__ = ["neighbor_sums_ref", "int_field_ref", "pbit_brick_update_ref",
            "pbit_brick_update_int_ref", "pbit_brick_sweep_int_ref",
            "add_phase_flips_ref",
            "bitplane_ones_count_ref", "pbit_bitplane_sweep_ref",
-           "brick_energy_ref"]
+           "brick_energy_sites_ref", "brick_energy_ref",
+           "brick_energy_words_ref"]
 
 
 def _shifted(m, halos):
@@ -286,11 +287,27 @@ def pbit_bitplane_sweep_ref(mw, s, rows, masks_w, signs6, nz6, base,
     return i64_to_u32(mw), i64_to_u32(s), i64_to_i32(flips)
 
 
+def brick_energy_sites_ref(m, active, h, w6, halos):
+    """The terms of :func:`brick_energy_ref`, one f32 per site (and
+    replica)."""
+    field = neighbor_sums_ref(m, h, w6, halos)
+    mc = m.to(torch.float32)
+    return (-0.5 * mc * (field - h) - h * mc) * active.to(torch.float32)
+
+
 def brick_energy_ref(m, active, h, w6, halos):
     """Brick Ising energy ``sum active * (-1/2 m sum_d w_d m_d - h m)``
     with f32 h and w6 (the unquantized problem).  Returns an f32 scalar
     for one brick, (R,) for a replica batch."""
-    field = neighbor_sums_ref(m, h, w6, halos)
-    mc = m.to(torch.float32)
-    e = (-0.5 * mc * (field - h) - h * mc) * active.to(torch.float32)
-    return e.sum(dim=(-3, -2, -1))
+    return brick_energy_sites_ref(m, active, h, w6, halos).sum(
+        dim=(-3, -2, -1))
+
+
+def brick_energy_words_ref(mw, n_lanes, active, h, w6, halos_w):
+    """:func:`brick_energy_ref` of the ``n_lanes`` replicas held in the bit
+    lanes of word planes ``mw`` (W, X, Y, Z), with word halos (W, plane):
+    both unpacked to int8 first, as the reference's bit-plane readout does.
+    Returns (n_lanes,) f32."""
+    return brick_energy_ref(unpack_lanes(mw, n_lanes), active, h, w6,
+                            tuple(unpack_lanes(hw, n_lanes)
+                                  for hw in halos_w))

@@ -16,12 +16,16 @@ builds its kernels there and measures, at L=100 on the EA3D instance:
   int8 ``pbit_brick_update_int`` (R=4, color 0, one launch each): host
   bound, so the least of 9 blocks of 200 calls, each timed by CUDA
   events;
+- one call of the energy ``brick_energy`` on int8 spins at R=4 and R=64,
+  and the bit-plane engine's readout ``LatticeDSIM.energy`` of a state at
+  R=64 (exchange and energy, as at each record point), ms per call by
+  CUDA events over 50 calls after 2 warm ones;
 - the main path through ``make_engine("lattice", ...)``: 256 sweeps of
   ``ea_schedule(256)``, record points 16/64/128/256, ``sync_every=8``, wall
   seconds to a device synchronise, best of 8 after one warm run (the
   per-phase path is host-bound and swings from run to run); at
   bit-plane R=64, f32 R=4 (with and without s{4}{1}), int8 R=4 and the
-  f32 per-phase dispatch (``kernel_bx=25``) R=4.
+  per-phase dispatch (int8 ``fused=False`` and f32 ``kernel_bx=25``) R=4.
 
 The turns run base, change, change, base, so a drift of the card shows as
 a difference between the two turns of one checkout.  Prints one JSON line
@@ -56,6 +60,7 @@ def worker(root: Path) -> dict:
     from repro_torch.core.bits import u32_from_numpy
     from repro_torch.core.packing import pack_lanes
     from repro_torch.core.pbit import threshold_lut
+    from repro_torch.kernels.lattice_energy import brick_energy
     from repro_torch.kernels.pbit_bitplane import pbit_bitplane_sweep
     from repro_torch.kernels.pbit_lattice import (halo_shapes,
                                                   pbit_brick_sweep,
@@ -122,12 +127,24 @@ def worker(root: Path) -> dict:
                         lut8)
     out["int8_phase_call_ms"] = min(ms_per_call(
         lambda: pbit_brick_update_int(*phase8), reps=200) for _ in range(9))
+    for R in (4, 64):
+        halos_r = tuple(torch.from_numpy(rng.choice(
+            np.array([-1, 1], np.int8), size=sh)).to(dev)
+            for sh in halo_shapes(R, L, L, L))
+        energy = (spins(R), p.active, p.h, p.w6, halos_r)
+        out[f"energy_R{R}_call_ms"] = ms_per_call(
+            lambda: brick_energy(*energy), reps=50)
+    bp_state = eng.init_state(seed=0)
+    out["bitplane_readout_ms"] = ms_per_call(lambda: eng.energy(bp_state),
+                                             reps=50)
 
     for label, kw in (("bitplane R=64", dict(precision="bitplane",
                                              replicas=64)),
                       ("f32 R=4", dict(replicas=4)),
                       ("f32 s41 R=4", dict(replicas=4, fmt=repro_torch.S41)),
                       ("int8 R=4", dict(precision="int8", replicas=4)),
+                      ("int8 per-phase R=4", dict(precision="int8",
+                                                  replicas=4, fused=False)),
                       ("f32 per-phase bx R=4", dict(replicas=4,
                                                     kernel_bx=25))):
         h = make_engine("lattice", L=L, seed=0, **kw)

@@ -20,7 +20,8 @@ from repro_torch.core import pbit as t_pbit
 from repro_torch.core.bits import u32_from_numpy, u32_to_numpy
 from repro_torch.kernels import _build
 from repro_torch.kernels import ref as t_ref
-from repro_torch.kernels.lattice_energy import brick_energy
+from repro_torch.kernels.lattice_energy import (brick_energy,
+                                                brick_energy_words)
 from repro_torch.kernels import pbit_lattice
 from repro_torch.kernels.pbit_bitplane import pbit_bitplane_sweep
 from repro_torch.kernels.pbit_lattice import (pbit_brick_sweep,
@@ -204,6 +205,74 @@ def energy_inputs(seed, shape, pm_j: bool, R=None):
                   for sh in [(By, Bz), (By, Bz), (Bx, Bz), (Bx, Bz),
                              (Bx, By), (Bx, By)])
     return m, active, h, w6, halos
+
+
+# -- the energy kernel's dataflow, in plain PyTorch ---------------------------
+
+ENERGY_RTOL = 1e-5
+
+
+def assert_energy_close(got, want, args):
+    """Energies summed in another order than the plain version's (Gaussian
+    couplings): within ENERGY_RTOL of each replica's scale, the larger of
+    |E| and the root sum of squares of its site terms (a replica whose
+    terms cancel has an |E| far below the rounding its sum carries)."""
+    sites = t_ref.brick_energy_sites_ref(*args).double()
+    scale = torch.maximum(want.double().abs(),
+                          sites.square().sum(dim=(-3, -2, -1)).sqrt())
+    err = (got.double() - want.double()).abs()
+    assert bool((err <= ENERGY_RTOL * scale).all()), \
+        (N(err / scale).max(), N(got), N(want))
+
+ENERGY_THREADS = 256      # threads per block of the energy kernels
+
+
+def _warp_tree(v):
+    """Lane 0's sum of a warp's 32 values (last axis) by the shuffle tree
+    v[l] += v[l + o] for o = 16, 8, 4, 2, 1."""
+    for o in (16, 8, 4, 2, 1):
+        v = v[..., :o] + v[..., o:2 * o]
+    return v[..., 0]
+
+
+def _block_sum(v):
+    """A block's sum of its threads' values (last axis, 256): the warp
+    trees, then the 8 warps in order from 0."""
+    warps = _warp_tree(v.reshape(*v.shape[:-1], -1, 32))
+    total = torch.zeros(warps.shape[:-1], dtype=torch.float32)
+    for j in range(warps.shape[-1]):
+        total = total + warps[..., j]
+    return total
+
+
+def energy_dataflow(m, active, h, w6, halos, kw):
+    """The CUDA energy kernels' arithmetic and reduction order in plain
+    PyTorch (CPU) on (R, X, Y, Z) spins: per site the Pallas kernel's
+    order; per thread its kw consecutive z-sites summed in order from 0;
+    blocks of 256 threads; per block the warp trees and the warps in order;
+    per replica, thread t of the second pass sums block partials t, t+256,
+    ... in order, then the same block sum.  Returns (R,) f32."""
+    R = int(m.shape[0])
+    f32 = torch.float32
+    nb = t_ref._shifted(m, halos)
+    pair = w6[0] * nb[0].to(f32)
+    for d in range(1, 6):
+        pair = pair + w6[d] * nb[d].to(f32)
+    mc = m.to(f32)
+    e = (-0.5 * (mc * pair) - h * mc) * active.to(f32)
+    sites = e.reshape(R, -1, kw)
+    thread = torch.zeros(sites.shape[:2], dtype=f32)
+    for q in range(kw):
+        thread = thread + sites[..., q]
+    blocks = -(-thread.shape[1] // ENERGY_THREADS)
+    pad = blocks * ENERGY_THREADS - thread.shape[1]
+    thread = torch.cat([thread, torch.zeros(R, pad, dtype=f32)], 1)
+    part = _block_sum(thread.reshape(R, blocks, ENERGY_THREADS))
+    second = torch.zeros(R, ENERGY_THREADS, dtype=f32)
+    for b0 in range(0, blocks, ENERGY_THREADS):
+        chunk = part[:, b0:b0 + ENERGY_THREADS]
+        second[:, :chunk.shape[1]] = second[:, :chunk.shape[1]] + chunk
+    return _block_sum(second)
 
 
 # -- on the card: each CUDA kernel against its plain version ---------------------
@@ -545,3 +614,114 @@ def test_cuda_int_phase_counts_flips(cuda):
     assert_bitwise(got, want)
     assert N(flips).tolist() == \
         (N(want[0]) != N(m)).reshape(R, -1).sum(1).tolist()
+
+
+# -- the redesigned int8 phase (site words) and energy (fixed order) --------
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("bx", [None, 2])
+@pytest.mark.parametrize("per_replica,multibit", [
+    (False, False), (True, True)])
+@pytest.mark.parametrize("shape,width", [
+    ((6, 5, 8), "word"), ((6, 5, 7), "site"), ((4, 3, 4), "word")])
+def test_cuda_int_phase_words_match_plain(cuda, shape, width, per_replica,
+                                          multibit, bx):
+    """One thread per word of 4 z-sites (Z a multiple of 4) or per site:
+    bitwise the plain version, and the in-kernel flip count equal to the
+    changed sites."""
+    R = 3
+    d = int_inputs(38, shape, R=R, multibit=multibit)
+    m, s, _, masks, h_q, w6_q, halos, lut = to(
+        cuda, torch_int_args(d, np.zeros(1, np.int32)))
+    row = torch.tensor([2, 0, 1], dtype=torch.int32, device=cuda) \
+        if per_replica else 1
+    want = t_ref.pbit_brick_update_int_ref(m, s, row, masks[1], h_q, w6_q,
+                                           halos, lut)
+    before = _build.launch_counts[f"pbit_brick_update_int:{width}"]
+    got = pbit_brick_update_int(m, s, row, masks[1], h_q, w6_q, halos, lut,
+                                bx=bx)
+    assert _build.launch_counts[f"pbit_brick_update_int:{width}"] == \
+        before + 1
+    assert_bitwise(got, want)
+    flips = torch.full((R,), 5, dtype=torch.int32, device=cuda)
+    got = pbit_lattice.launch_update_int(m, s, row, masks[1], h_q, w6_q,
+                                         halos, lut, flips)
+    assert_bitwise(got, want)
+    assert N(flips).tolist() == \
+        (5 + (N(want[0]) != N(m)).reshape(R, -1).sum(1)).tolist()
+
+
+@pytest.mark.cuda
+def test_cuda_int_phase_unaligned_takes_site_path(cuda):
+    """int8 constants that are not 4-byte aligned send a Z % 4 == 0 brick
+    down the per-site path, with the same result."""
+    shape, R = (5, 4, 8), 2
+    d = int_inputs(39, shape, R=R, multibit=True)
+    m, s, _, masks, h_q, w6_q, halos, lut = to(
+        cuda, torch_int_args(d, np.zeros(1, np.int32)))
+    n = int(np.prod(shape))
+    h_off = torch.empty(n + 1, dtype=torch.int8, device=cuda)[1:].view(shape)
+    h_off.copy_(h_q)
+    before = _build.launch_counts["pbit_brick_update_int:site"]
+    got = pbit_brick_update_int(m, s, 2, masks[0], h_off, w6_q, halos, lut)
+    assert _build.launch_counts["pbit_brick_update_int:site"] == before + 1
+    assert_bitwise(got, t_ref.pbit_brick_update_int_ref(
+        m, s, 2, masks[0], h_q, w6_q, halos, lut))
+
+
+def energy_args(dev, seed, shape, pm_j, R):
+    m, active, h, w6, halos = energy_inputs(seed, shape, pm_j, R=R)
+    return to(dev, (T(m), T(active), T(h), tuple(T(w) for w in w6),
+                    tuple(T(x) for x in halos)))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("pm_j", [True, False])
+@pytest.mark.parametrize("shape,width,R", [
+    ((10, 9, 8), "word", 3), ((10, 9, 7), "site", 3),
+    ((12, 11, 8), "word", 64)])
+def test_cuda_energy_fixed_order(cuda, shape, width, R, pm_j):
+    """The kernel's bits are the plain emulation of its reduction tree,
+    equal on repeated calls; against the plain version exact on +-J and
+    within ENERGY_RTOL of the energy's scale on Gaussian couplings."""
+    args = energy_args(cuda, 40, shape, pm_j, R)
+    before = _build.launch_counts[f"brick_energy:{width}"]
+    got = brick_energy(*args)
+    assert _build.launch_counts[f"brick_energy:{width}"] == before + 1
+    kw = 4 if width == "word" else 1
+    assert_bitwise([got], [energy_dataflow(*to("cpu", args), kw)])
+    assert torch.equal(brick_energy(*args), got)
+    want = t_ref.brick_energy_ref(*args)
+    if pm_j:
+        assert torch.equal(got, want)
+    else:
+        assert_energy_close(got, want, args)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("pm_j", [True, False])
+@pytest.mark.parametrize("shape,R", [
+    ((9, 6, 8), 20), ((9, 6, 8), 64), ((7, 5, 5), 33)])
+def test_cuda_energy_words_match_int8_route(cuda, shape, R, pm_j):
+    """The word-plane readout equals the int8 kernel on the unpacked
+    spins and word halos bitwise (any couplings), and its plain version
+    exactly on +-J."""
+    m, active, h, w6, _ = energy_args(cuda, 41, shape, pm_j, R)
+    rng = np.random.default_rng(42)
+    W = t_pack.lane_words(R)
+    mw = t_pack.pack_lanes(m)
+    halos_w = tuple(to(cuda, T(rng.integers(0, 2 ** 32, size=sh,
+                                            dtype=np.uint32)))
+                    for sh in pbit_lattice.halo_shapes(W, *shape))
+    before = _build.launch_counts["brick_energy:bitplane"]
+    got = brick_energy_words(mw, R, active, h, w6, halos_w)
+    assert _build.launch_counts["brick_energy:bitplane"] == before + 1
+    halos = tuple(t_pack.unpack_lanes(x, R) for x in halos_w)
+    assert torch.equal(got, brick_energy(m, active, h, w6, halos))
+    assert torch.equal(brick_energy_words(mw, R, active, h, w6, halos_w),
+                       got)
+    want = t_ref.brick_energy_words_ref(mw, R, active, h, w6, halos_w)
+    if pm_j:
+        assert torch.equal(got, want)
+    else:
+        assert_energy_close(got, want, (m, active, h, w6, halos))
