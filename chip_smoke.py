@@ -36,7 +36,18 @@ Phases; every check raises on failure and the script then exits non-zero:
    recomputed from the JAX reference by ``tests/test_torch_golden.py``
    match (f32 to 0.5%, its LFSR digest exactly), and bit-plane lane
    (w, b) equals int8 replica w*32+b;
-4. time the main path (p-bit updates per second, the repository's
+4. drive the mesh path: ``make_engine("lattice", L=100, mesh=make_mesh(
+   ...), dim_axes=("x", "y", "z"))`` with every brick on the card: the
+   JAX reference's (2,2,2) mesh golden values (int8 R=2 bitwise with its
+   spin and LFSR digests, bit-plane R=32 lanes 0-1, f32 within 0.5% with
+   the LFSR digest), the first 16 sweeps of int8 R=4 on (2,2,2) and
+   (2,2,1), bit-plane R=64 and f32 R=4 on (2,2,2) against their
+   ``impl="ref"`` runs on the card (bitwise, f32 to 0.5%), their full
+   runs timed with the launches counted per kernel and path (one sweep
+   launch per brick and call, one energy launch per brick and record
+   point), the exchange's time per call and the measured eta
+   (``EtaMeter``) at ``sync_every`` 1 and 8, and one profiled mesh run;
+5. time the main path (p-bit updates per second, the repository's
    "flips/s"), profile it (device busy share, time by kernel, the
    redesigned kernels' mode and time per launch), time the bit-plane
    path's energy readout against the unpack-first readout it replaces,
@@ -45,8 +56,9 @@ Phases; every check raises on failure and the script then exits non-zero:
    over the HBM bandwidth and its INT32 and FP32 operations over their
    own peaks (64 and 128 per SM per clock at the card's SM count and
    maximum SM clock);
-5. print one JSON line of kernels, the card's name and power limit, and
-   last ``{"ok": true, "device": {...}}``.
+6. print one JSON line of kernels (``launches`` over the main and mesh
+   paths, ``mesh_launches`` the mesh path's), the card's name and power
+   limit, and last ``{"ok": true, "device": {...}}``.
 
 It exits non-zero, printing no result, where CUDA is absent or the
 script stands outside a checkout of the repository.
@@ -108,6 +120,35 @@ GOLDEN = {
 GOLDEN_F32 = {
     "energies": [[-1588460.0, -1588156.0], [-1640684.0, -1640154.0]],
     "flips": [1371830, 1372900],
+}
+
+# The mesh path: the lattice cut into bricks on one card (make_mesh with
+# no process group), each configuration at L=100 over
+# ea_schedule(MAIN_SWEEPS) as the main path, and its exchange cadence eta
+# read at sync_every 1 and SYNC.
+AXES = ("x", "y", "z")
+MESH_RUNS = {
+    "int8 R=4 mesh (2,2,2)": dict(precision="int8", replicas=4,
+                                  mesh=(2, 2, 2)),
+    "int8 R=4 mesh (2,2,1)": dict(precision="int8", replicas=4,
+                                  mesh=(2, 2, 1)),
+    "bitplane R=64 mesh (2,2,2)": dict(precision="bitplane", replicas=64,
+                                       mesh=(2, 2, 2)),
+    "f32 R=4 mesh (2,2,2)": dict(replicas=4, mesh=(2, 2, 2)),
+}
+ETA_RUN = "int8 R=4 mesh (2,2,2)"
+MESH_PROFILED = "int8 R=4 mesh (2,2,2)"
+# The JAX reference on 8 forced host devices, mesh (2,2,2), otherwise the
+# GOLDEN run (int8, R=2; bit-plane R=32 lanes 0-1 and f32 equal it; the
+# LFSR states do not depend on the partition or the precision).
+# tests/test_torch_golden.py recomputes these from the JAX package.
+MESH_GOLDEN = {
+    "energies": [[-1572742.0, -1572536.0], [-1632230.0, -1630884.0]],
+    "flips": [1389820, 1389756],
+    "m_sha256": "5d1ac3b1de493f930528ea18c44051d6"
+                "c5a2235ecb64b5e739446face9b855fb",
+    "s_sha256": "905250766f8dad54e31f56f3f05db473"
+                "4793481ad86ce2426567059e5a87975d",
 }
 
 # H100 SXM published HBM3 bandwidth (NVIDIA data sheet).  The operation
@@ -234,7 +275,10 @@ class Smoke:
         self.phase_build()
         self.phase_kernels()
         self.phase_main_path()
+        self.phase_mesh(card)
         self.phase_timing(card)
+        for k in KERNELS:
+            self.results[k]["mesh_launches"] = self.mesh_launches[k]
         print(json.dumps({"kernels": [self.results[k] for k in KERNELS]}))
         print(card)
         print(json.dumps({"ok": True, "device": {
@@ -722,6 +766,48 @@ class Smoke:
         check(self.same(m, got[0]) and self.same(s, got[1]),
               f"{what}: the sweep equals its phases run one at a time")
 
+    def f32_mesh_steps(self, label, h, st0, got):
+        """The first 16 sweeps of an f32 mesh engine on the card, one
+        SYNC-sweep iteration at a time: each brick's sweep against the
+        halos the engine gave it is held to the plain sweep by
+        ``check_f32`` (LFSR states bitwise, every differing spin within
+        TANH_ULPS ulp of the boundary, phase by phase); the engine's
+        iteration is those brick sweeps and its exchange, bitwise; and the
+        iterations in turn are the engine's 16-sweep run ``got``."""
+        t = self.torch
+        from repro_torch.core.annealing import ea_schedule
+        from repro_torch.kernels import ref
+        from repro_torch.kernels.pbit_lattice import pbit_brick_sweep
+        eng, st = h.eng, st0
+        betas = ea_schedule(MAIN_SWEEPS).beta_array()
+        for it in range(MAIN_POINTS[0] // SYNC):
+            b_it = np.ascontiguousarray(betas[it * SYNC:(it + 1) * SYNC],
+                                        np.float32)
+            nxt = eng._chunk(st, b_it[None], 1, SYNC, None)
+            same = True
+            for k, (b, hk) in enumerate(zip(eng._bricks,
+                                            eng._brick_halos(st.halos))):
+                args = (st.m[k], st.s[k], t.from_numpy(b_it).to(self.dev),
+                        b.masks, b.h, b.w6, hk)
+                kern = pbit_brick_sweep(*args, fmt=eng.fmt)
+                want = ref.pbit_brick_sweep_ref(*args, fmt=eng.fmt)
+                self.check_f32(
+                    f"{label}, iteration {it}, brick {eng.coords[k]}", kern,
+                    want, lambda what, args=args, kern=kern: self.f32_steps(
+                        what, args, eng.fmt, kern))
+                same &= self.same(nxt.m[k], kern[0]) and \
+                    self.same(nxt.s[k], kern[1])
+            same &= all(self.same(p, q) for p, q in
+                        zip(eng._exchange(nxt.m), nxt.halos))
+            check(same, f"{label}, iteration {it}: the engine's "
+                  f"{len(eng.coords)} brick sweeps and exchange, bitwise")
+            st = nxt
+        check(self.same(st.m, got.m) and self.same(st.s, got.s) and
+              self.same(st.flips, got.flips) and
+              all(self.same(p, q) for p, q in zip(st.halos, got.halos)),
+              f"{label}: its iterations in turn are its 16-sweep run, "
+              f"bitwise")
+
     def phase_main_path(self):
         t = self.torch
         from repro_torch import make_engine
@@ -902,13 +988,264 @@ class Smoke:
 
     def engine(self, kw):
         """``make_engine("lattice", L=100)`` of the main path with ``kw``
-        (``fmt`` by name), on the card with no ``impl`` unless given."""
+        (``fmt`` by name, ``mesh`` by its shape over AXES), on the card
+        with no ``impl`` unless given."""
         from repro_torch import make_engine
+        from repro_torch.core.mesh import make_mesh
         import repro_torch
         kw = dict(kw)
         if "fmt" in kw:
             kw["fmt"] = getattr(repro_torch, kw["fmt"])
+        if "mesh" in kw:
+            kw["mesh"] = make_mesh(kw["mesh"], AXES)
+            kw["dim_axes"] = AXES
         return make_engine("lattice", L=L, seed=SEED, **kw)
+
+    def phase_mesh(self, card: str):
+        """The mesh path: the golden values of the JAX reference's (2,2,2)
+        mesh, the first 16 sweeps of each MESH_RUNS configuration against
+        its impl="ref" run on the card, the full runs timed with their
+        launches counted, eta at two exchange cadences, a profiled run."""
+        t = self.torch
+        from repro_torch.core.annealing import ea_schedule
+        from repro_torch.core.bits import u32_to_numpy
+        from repro_torch.kernels import _build
+        print("== 4. mesh path: make_engine('lattice', L=100, mesh=...)",
+              flush=True)
+        # golden values: int8 R=2, bit-plane R=32 lanes 0-1, f32 R=2
+        for label, kw in (("int8 R=2", dict(precision="int8", replicas=2)),
+                          ("bitplane R=32", dict(precision="bitplane",
+                                                 replicas=32)),
+                          ("f32 R=2", dict(replicas=2))):
+            h = self.engine(dict(kw, mesh=(2, 2, 2)))
+            st, rec = h.run_recorded(h.init_state(seed=SEED),
+                                     ea_schedule(16), [8, 16],
+                                     sync_every=SYNC)
+            g = h.eng.global_state(st)
+            e, fl = rec.energies[:, :2].cpu().numpy(), \
+                st.flips[:2].cpu().numpy()
+            s_sha = hashlib.sha256(u32_to_numpy(g.s[:2]).tobytes()) \
+                .hexdigest()
+            check(s_sha == MESH_GOLDEN["s_sha256"],
+                  f"mesh (2,2,2) {label}: sha256(s) of lanes 0-1 "
+                  f"{s_sha[:16]}")
+            if label.startswith("f32"):
+                e_rel = float(np.max(np.abs(
+                    e / np.array(MESH_GOLDEN["energies"]) - 1)))
+                f_rel = float(np.max(np.abs(
+                    fl / np.array(MESH_GOLDEN["flips"]) - 1)))
+                check(e_rel < 0.005 and f_rel < 0.005,
+                      f"mesh (2,2,2) {label}: energies {e.tolist()} and "
+                      f"flips {fl.tolist()} within 0.5% of JAX (max "
+                      f"relative differences {e_rel:.3e}, {f_rel:.3e})")
+                continue
+            check(e.tolist() == MESH_GOLDEN["energies"] and
+                  fl.tolist() == MESH_GOLDEN["flips"],
+                  f"mesh (2,2,2) {label}: golden energies {e.tolist()} and "
+                  f"flips {fl.tolist()}")
+            if label.startswith("int8"):
+                m_sha = hashlib.sha256(g.m.cpu().numpy().tobytes()) \
+                    .hexdigest()
+                check(m_sha == MESH_GOLDEN["m_sha256"],
+                      f"mesh (2,2,2) {label}: sha256(m) {m_sha[:16]}")
+
+        # the first 16 sweeps of each configuration: CUDA == impl="ref"
+        for label, kw in MESH_RUNS.items():
+            first = []
+            for impl in ("auto", "ref"):
+                h = self.engine(dict(kw, impl=impl))
+                st0 = h.init_state(seed=SEED)
+                cur = h.start_recorded(st0, ea_schedule(MAIN_SWEEPS),
+                                       MAIN_POINTS, sync_every=SYNC)
+                cur.advance(1)
+                if impl == "auto":
+                    auto = (h, st0, cur.state)
+                first.append((h.eng.global_state(cur.state),
+                              cur.record().energies,
+                              cur.flips_per_replica()))
+            (a, ea, fa), (b, eb, fb) = first
+            if h.precision == "f32":
+                rel_e = float(((ea - eb).abs() / eb.abs()).max())
+                rel_f = float(np.max(np.abs(fa / fb - 1)))
+                n_diff = int((a.m != b.m).sum())
+                check(self.same(a.s, b.s) and rel_e < 0.005 and
+                      rel_f < 0.005, f"16 sweeps: {label} == impl='ref': "
+                      f"LFSR states bitwise, energies and flips within 0.5% "
+                      f"(largest {rel_e:.3e}, {rel_f:.3e}; "
+                      f"{n_diff} spins differ)")
+                self.f32_mesh_steps(label, *auto)
+                if n_diff:
+                    continue
+            check(self.same(a.m, b.m) and self.same(a.s, b.s) and
+                  self.same(a.flips, b.flips) and self.same(ea, eb) and
+                  bool((fa == fb).all()) and
+                  all(self.same(p, q) for p, q in zip(a.halos, b.halos)),
+                  f"16 sweeps: {label} == impl='ref', bitwise (spins, LFSR, "
+                  f"halos, flips, energies; E[0]={float(ea[0, 0])})")
+
+        # the full runs, each with its launches counted on their own
+        self.mesh_handles = {label: self.engine(kw)
+                             for label, kw in MESH_RUNS.items()}
+        inits = {label: hh.init_state(seed=SEED)
+                 for label, hh in self.mesh_handles.items()}
+        self.mesh_inits = inits
+        self.mesh_launches = dict.fromkeys(_build.launch_counts, 0)
+        self.mesh_rates = {}
+        for label, hh in self.mesh_handles.items():
+            K = len(hh.eng.coords)
+            # a first run (the engine's first: its exchange maps and, on
+            # the bit-plane path, its bricks' layouts are built in it),
+            # its launches counted, then a second run timed again
+            walls = []
+            for turn in range(2):
+                _build.reset_launch_counts()
+                t0 = time.perf_counter()
+                st, rec = hh.run_recorded(inits[label],
+                                          ea_schedule(MAIN_SWEEPS),
+                                          MAIN_POINTS, sync_every=SYNC)
+                t.cuda.synchronize()
+                walls.append(time.perf_counter() - t0)
+                if turn == 0:
+                    counts = {k: v for k, v in _build.launch_counts.items()
+                              if v}
+            dt = walls[1]
+            for k, v in counts.items():
+                self.mesh_launches[k] += v
+            R = hh.replicas
+            e = rec.energies
+            rate = L ** 3 * R * MAIN_SWEEPS / dt
+            self.mesh_rates[label] = (rate, dt, rec.flips)
+            per_spin = (e[-1] / L ** 3).cpu()
+            check(tuple(e.shape) == (len(MAIN_POINTS), R) and
+                  bool(t.isfinite(e).all()) and bool((e[-1] < e[0]).all())
+                  and bool(((per_spin > -1.75) & (per_spin < -1.55)).all()),
+                  f"{label}: energies finite, annealed, E/N at "
+                  f"{MAIN_SWEEPS} sweeps in [{float(per_spin.min()):.4f}, "
+                  f"{float(per_spin.max()):.4f}]")
+            sweep = {"bitplane": "pbit_bitplane_sweep",
+                     "int8": "pbit_brick_sweep_int",
+                     "f32": "pbit_brick_sweep"}[hh.precision]
+            calls = K * MAIN_SWEEPS // SYNC
+            if hh.precision == "bitplane":
+                check(counts.get(sweep, 0) == calls * SYNC * 2,
+                      f"{label}: {counts.get(sweep, 0)} {sweep} launches, "
+                      f"one per color phase of each of {K} bricks")
+            else:
+                check(counts.get(sweep, 0) == calls,
+                      f"{label}: {counts.get(sweep, 0)} {sweep} launches, "
+                      f"one persistent launch per {SYNC}-sweep call of each "
+                      f"of {K} bricks")
+            path = "word" if hh.eng.brick[2] % 4 == 0 else "site"
+            check(counts.get("brick_energy", 0) == K * len(MAIN_POINTS) and
+                  (hh.precision == "bitplane" or
+                   counts.get(f"brick_energy:{path}", 0) ==
+                   K * len(MAIN_POINTS)),
+                  f"{label}: one energy launch per brick and record point, "
+                  f"brick {hh.eng.brick} on the {path} path")
+            unit = "lane-flips/s" if hh.precision == "bitplane" \
+                else "flips/s"
+            print(f"  mesh path {label}: {K} bricks of {hh.eng.brick}, "
+                  f"{MAIN_SWEEPS} sweeps in {dt:.4f} s = {rate:.4e} {unit} "
+                  f"(first run {walls[0]:.4f} s; {rec.flips} accepted "
+                  f"flips); launches {counts}; on {card}", flush=True)
+        for name in ("pbit_brick_sweep_int", "pbit_bitplane_sweep",
+                     "pbit_brick_sweep", "brick_energy"):
+            check(self.mesh_launches[name] > 0,
+                  f"mesh path launched {name} {self.mesh_launches[name]} "
+                  f"times")
+            self.launches[name] += self.mesh_launches[name]
+        self.mesh_eta(card)
+        self.profile_mesh(card)
+
+    def mesh_eta(self, card: str):
+        """The exchange alone (boundary_exchange_fn, CUDA events) and the
+        EtaMeter's measured eta of ETA_RUN at sync_every 1 and SYNC."""
+        from repro_torch.core.annealing import ea_schedule
+        from repro_torch.obs.timing import EtaMeter
+        hh = self.mesh_handles[ETA_RUN]
+        st = self.mesh_inits[ETA_RUN]
+        fn = hh.eng.boundary_exchange_fn()
+        ms = self.time_ms(lambda: fn(st), reps=200, warm=5)
+        print(f"  mesh exchange ({ETA_RUN}, {len(hh.eng.coords)} bricks): "
+              f"{ms * 1e3:.1f} us per call (CUDA events); an in-process "
+              f"gather on one card, not a network link; on {card}",
+              flush=True)
+        for sync in (1, SYNC):
+            hh.run_recorded(st, ea_schedule(MAIN_SWEEPS), MAIN_POINTS,
+                            sync_every=sync)                    # warm
+            cur = hh.start_recorded(st, ea_schedule(MAIN_SWEEPS),
+                                    MAIN_POINTS, sync_every=sync)
+            meter = EtaMeter(n_color=hh.eng.p.n_colors,
+                             sync_every=sync).attach(cur)
+            while not cur.done:
+                cur.advance(1)
+            meter.measure_exchange(lambda: fn(cur.state), reps=100,
+                                   warmup=5)
+            r = meter.report()
+            check(np.isnan(r["eta_threshold"]) and
+                  all(np.isfinite(r[k]) and r[k] > 0 for k in (
+                      "measured_eta", "f_comm_hz", "f_pbit_hz")),
+                  f"eta at sync_every={sync}: finite")
+            print(f"  eta {ETA_RUN}, sync_every={sync}: measured eta "
+                  f"{r['measured_eta']:.4e}, f_comm {r['f_comm_hz']:.4e} "
+                  f"Hz (exchange {r['t_exchange_s'] * 1e6:.1f} us), f_pbit "
+                  f"{r['f_pbit_hz']:.4e} Hz (sweep "
+                  f"{r['t_pbit_sweep_s'] * 1e6:.1f} us), "
+                  f"{r['chunks_recorded']} chunks, "
+                  f"{r['exchanges_attributed']:.0f} exchanges attributed; "
+                  f"the exchange is an in-process gather on one card, not "
+                  f"a network link; on {card}", flush=True)
+
+    def profile_mesh(self, card: str):
+        """Device time by kernel over one more run of MESH_PROFILED at
+        ``sync_every`` SYNC and 1, and the device's busy share of its wall
+        time; the int8 sweep's launch shape on one brick and its device
+        time per launch."""
+        t = self.torch
+        from torch.autograd import DeviceType
+        from torch.profiler import ProfilerActivity, profile
+        from repro_torch.core.annealing import ea_schedule
+        from repro_torch.kernels.pbit_lattice import (_persistent_config,
+                                                      persistent_mode)
+        hh = self.mesh_handles[MESH_PROFILED]
+        m = self.mesh_inits[MESH_PROFILED].m[0]
+        mode = persistent_mode(m)
+        grid, tile, smem, per_sm = _persistent_config(
+            0, "int8", mode == "lfsr_smem", int(m.shape[0]),
+            int(m[0].numel()))
+        print(f"  {MESH_PROFILED}: the int8 sweep on one brick of "
+              f"{tuple(m.shape[1:])}: persistent, {mode} (grid {grid} = "
+              f"{per_sm} per SM, tile {tile} sites, {smem} B shared)",
+              flush=True)
+        for sync in (SYNC, 1):
+            with profile(activities=[ProfilerActivity.CPU,
+                                     ProfilerActivity.CUDA]) as prof:
+                t0 = time.perf_counter()
+                hh.run_recorded(self.mesh_inits[MESH_PROFILED],
+                                ea_schedule(MAIN_SWEEPS), MAIN_POINTS,
+                                sync_every=sync)
+                t.cuda.synchronize()
+                wall = time.perf_counter() - t0
+            rows = [(e.key, e.count, e.self_device_time_total)
+                    for e in prof.key_averages()
+                    if e.device_type == DeviceType.CUDA
+                    and e.self_device_time_total > 0]
+            what = f"profile {MESH_PROFILED}, sync_every={sync}"
+            if not rows:
+                print(f"  {what}: the profiler saw no device time; device "
+                      f"busy share not measured", flush=True)
+                continue
+            busy = sum(us for _, _, us in rows) / 1e6
+            hits = [(c, us) for key, c, us in rows if all(
+                p in key for p in REDESIGNED["pbit_brick_sweep_int"])]
+            count, us = sum(c for c, _ in hits), sum(u for _, u in hits)
+            print(f"  {what}: wall {wall:.4f} s under the profiler, device "
+                  f"busy {busy:.4f} s ({100 * busy / wall:.1f}%); int8 "
+                  f"sweep {count} launches, {us / max(count, 1):.1f} us per "
+                  f"launch of {sync} sweeps on {card}", flush=True)
+            for key, count, us in sorted(rows, key=lambda r: -r[2])[:8]:
+                print(f"    {us / 1e3:10.3f} ms  {count:5d} x  {key[:90]}",
+                      flush=True)
 
     def phase_timing(self, card: str):
         t = self.torch
@@ -921,7 +1258,7 @@ class Smoke:
                                                       pbit_brick_sweep_int,
                                                       pbit_brick_update,
                                                       pbit_brick_update_int)
-        print(f"== 4. timing on {card}", flush=True)
+        print(f"== 5. timing on {card}", flush=True)
         sms = t.cuda.get_device_properties(0).multi_processor_count
         clock = max_sm_clock_hz()
         self.int_peak = sms * INT32_PER_SM_CLOCK * clock

@@ -1,14 +1,24 @@
-"""Lattice DSIM on one GPU: one brick, no mesh (the production engine's
-single-device form).
+"""Lattice DSIM: the brick-partitioned EA3D lattice on one GPU or one
+brick per rank.
 
 Port of ``repro.core.lattice_dsim.LatticeDSIM`` at ``precision="f32"``,
-``"int8"`` and ``"bitplane"``.  Each chunk runs ``sync_every`` sweeps
-against halos held fixed — one fused sweep call, or on the per-phase path
-(``fused=False`` or ``kernel_bx``) one single-phase call per color — then
-one halo exchange.  In a single brick the exchange is local: the x and y
-halos are zero (open chains) and the z halo is the brick's own opposite
-face (the periodic ring of one brick) as of the last exchange — never the
-live spins.
+``"int8"`` and ``"bitplane"``.  With no mesh the engine is one brick: its
+state holds the whole lattice in the reference's shapes.  With a mesh
+(:func:`repro_torch.core.mesh.make_mesh`) and ``dim_axes`` naming the mesh
+axis of each lattice dimension, the lattice is cut into bricks
+(``core/bricks.py``): all of them in this process on one device, or one
+per rank of a ``torch.distributed`` group; the state is then a
+:class:`BrickState`, brick-major, and :meth:`LatticeDSIM.global_state` /
+:meth:`LatticeDSIM.shard_state` convert to and from the reference's global
+shapes.
+
+Each chunk iteration runs ``sync_every`` sweeps of every brick against
+its halos held fixed (one fused sweep call per brick, or on the per-phase
+path, ``fused=False`` or ``kernel_bx``, one single-phase call per color
+and brick), then one halo exchange: x and y are open chains and z is a
+periodic ring, so one brick alone sees zero x and y halos and its own
+opposite z face, as of the last exchange.  Flips and record-point energies
+are summed over the bricks (the reference's ``psum``).
 
 Replicas ride a leading axis R; on the bit-plane path they are the bit
 lanes of W = ceil(R / 32) stacked uint32 word planes, lane (w, b)
@@ -24,7 +34,9 @@ import numpy as np
 import torch
 
 from .annealing import ArraySchedule, beta_row_indices, beta_table
-from .bits import u32_from_numpy, u32_to_i64, u32_zeros
+from .bits import u32_from_numpy, u32_to_i64
+from .bricks import (BrickState, GatherExchange, GroupExchange,
+                     brick_coords, cut, join)
 from .device import resolve_device
 from .lattice import LatticeProblem
 from .packing import LANE_WIDTH, pack_lanes, unpack_lanes
@@ -40,7 +52,7 @@ from repro_torch.kernels.ops import (brick_energy_op, brick_energy_words_op,
                                      resolve_impl)
 
 __all__ = ["LatticeDSIM", "LatticeState", "BitplaneLatticeState",
-           "to_device"]
+           "BrickState", "join_bricks", "to_device"]
 
 
 @dataclasses.dataclass
@@ -81,16 +93,52 @@ def to_device(t: torch.Tensor, device) -> torch.Tensor:
     return t.to(device)
 
 
-def _face(m: torch.Tensor, idx: slice) -> torch.Tensor:
-    """Contiguous copy of ``m[..., idx]`` (a z face), uint32 via int32."""
-    if m.dtype == torch.uint32:
-        return m.view(torch.int32)[..., idx].contiguous().view(torch.uint32)
-    return m[..., idx].contiguous()
+def join_bricks(st: BrickState, coords=None):
+    """A :class:`BrickState` holding every brick of its mesh (bricks in
+    row-major order, or at ``coords``) -> the reference's global state, a
+    ``LatticeState`` or (word planes) ``BitplaneLatticeState``."""
+    coords = brick_coords(st.nb) if coords is None else list(coords)
+    if len(coords) != int(st.m.shape[0]):
+        raise ValueError(f"a state of {int(st.m.shape[0])} bricks cannot "
+                         f"be joined into a mesh of {len(coords)}; over a "
+                         f"process group use the engine's global_state")
+    brick = tuple(int(e) for e in st.m.shape[2:])
+    m, s = (join(t, brick, coords, st.nb) for t in (st.m, st.s))
+    halos = tuple(join(h, brick, coords, st.nb, d // 2)
+                  for d, h in enumerate(st.halos))
+    cls = BitplaneLatticeState if st.m.dtype == torch.uint32 \
+        else LatticeState
+    return cls(m=m, s=s, halos=halos, sweep=st.sweep, flips=st.flips)
+
+
+def _stack(ts) -> torch.Tensor:
+    """Brick results -> one brick-major tensor (a view for one brick)."""
+    if len(ts) == 1:
+        return ts[0][None]
+    if ts[0].dtype == torch.uint32:
+        return torch.stack([t.view(torch.int32) for t in ts]).view(
+            torch.uint32)
+    return torch.stack(ts)
+
+
+@dataclasses.dataclass
+class _Brick:
+    """One brick's problem constants, cut once at construction."""
+
+    masks: torch.Tensor
+    h: torch.Tensor
+    w6: tuple
+    active: torch.Tensor
+    h_q: Optional[torch.Tensor] = None
+    w6_q: Optional[tuple] = None
+    masks_w: Optional[torch.Tensor] = None
+    signs6_w: Optional[tuple] = None
+    nz6_w: Optional[tuple] = None
+    base_w: Optional[torch.Tensor] = None
 
 
 class LatticeDSIM:
-    """One-brick lattice engine, ``precision`` "f32", "int8" or
-    "bitplane".
+    """Lattice engine, ``precision`` "f32", "int8" or "bitplane".
 
     f32 (the reference's default): f32 fields and ``tanh(beta * field) +
     r >= 0``, ``fmt`` rounding the activation.  int8: couplings quantized
@@ -102,17 +150,28 @@ class LatticeDSIM:
     one single-phase kernel per color instead of the fused sweep, bitwise
     the same; the bit-plane path has only its word sweep.  ``impl`` picks
     the kernels ("auto": CUDA kernels on a CUDA device, plain PyTorch on
-    the CPU; "ref" forces the plain versions)."""
+    the CPU; "ref" forces the plain versions).
+
+    ``mesh`` and ``dim_axes`` (the mesh axis name, or None, of each of
+    x, y, z) partition the lattice into bricks; every extent must divide
+    by its brick count.  ``bitpack_halos`` is the reference's 1-bit halo
+    wire of the int8 and f32 paths: it ships :func:`pack_pm1` bytes over a
+    process group, and in both forms makes the outer x and y faces of an
+    axis of several bricks read -1 (``core/bricks.py``).  ``device`` is
+    the engine's device (default CUDA), and a one-process mesh's."""
 
     def __init__(self, prob: LatticeProblem, fmt: Optional[FixedPoint] = None,
                  impl: str = "auto", replicas: int = 1,
                  precision: str = "f32", fused: bool = True,
-                 kernel_bx: Optional[int] = None, device=None):
+                 kernel_bx: Optional[int] = None, device=None, mesh=None,
+                 dim_axes=None, bitpack_halos: bool = True):
         if precision not in ("f32", "int8", "bitplane"):
             raise ValueError(f"unknown precision {precision!r}")
         if precision == "bitplane" and kernel_bx is not None:
             raise ValueError("kernel_bx (per-phase x-tiling) is not "
                              "available on the bitplane path")
+        if mesh is not None and dim_axes is None:
+            raise ValueError("pass dim_axes when passing a mesh")
         self.device = resolve_device(device)
         resolve_impl(impl, self.device.type == "cuda")
         self.p = prob.to(self.device)
@@ -123,6 +182,7 @@ class LatticeDSIM:
         self.words = check_lanes(precision, self.replicas)
         self.n_sites = prob.n_active
         self.kernel_bx = kernel_bx
+        self.bitpack_halos = bool(bitpack_halos)
         # the fused-vs-per-phase decision: x-tiling forces per-phase, as in
         # the reference; its VMEM-budget fallback is a TPU fact, not ported
         self.fused_requested = bool(fused)
@@ -136,6 +196,7 @@ class LatticeDSIM:
             self.q_scale, self.f_max = 1.0, 0
         else:
             self._fixed_point_constants(prob)
+        self._partition(mesh, dim_axes)
 
     def _fixed_point_constants(self, prob: LatticeProblem):
         """Quantized couplings and, on the bit-plane path, its word
@@ -173,6 +234,108 @@ class LatticeDSIM:
                          lane_masks.astype(np.uint32)[None, :, None, None,
                                                       None], 0), dev)
 
+    def _partition(self, mesh, dim_axes):
+        """Brick counts and the bricks this process holds, their problem
+        constants, and the exchange."""
+        self.mesh = mesh
+        self.dim_axes = None if mesh is None else tuple(dim_axes)
+        self.group = None if mesh is None else mesh.group
+        if mesh is None:
+            self.nb = (1, 1, 1)
+        else:
+            if len(self.dim_axes) != 3:
+                raise ValueError(f"dim_axes names the mesh axis of x, y and "
+                                 f"z, got {dim_axes!r}")
+            self.nb = tuple(1 if a is None else int(mesh.shape[a])
+                            for a in self.dim_axes)
+        for d, (ext, k) in enumerate(zip(self.p.dims, self.nb)):
+            if ext % k != 0:
+                raise ValueError(f"dim {d} extent {ext} not divisible by "
+                                 f"mesh factor {k}")
+        self.brick = tuple(e // k for e, k in zip(self.p.dims, self.nb))
+        if self.group is None:
+            self.coords = brick_coords(self.nb)
+        else:
+            self.coords = [self._rank_coord(mesh.coords(
+                self._group_rank()))]
+        self._bricks = [self._brick_consts(c) for c in self.coords]
+        self._exchangers = {}
+        self._exchange_only_fn = None
+
+    # -- the partition -----------------------------------------------------
+
+    def _group_rank(self) -> int:
+        import torch.distributed as dist
+        return dist.get_rank(self.group)
+
+    def _rank_coord(self, mc: dict) -> tuple:
+        used = {a for a in self.dim_axes if a is not None}
+        idle = [a for a, k in self.mesh.shape.items()
+                if a not in used and k > 1]
+        if idle:
+            raise ValueError(f"over a process group every mesh axis must "
+                             f"cut the lattice; {idle} name none of x, y, z")
+        return tuple(0 if a is None else mc[a] for a in self.dim_axes)
+
+    def _cut(self, t: torch.Tensor, axis=None) -> torch.Tensor:
+        return cut(t, self.brick, self.coords, axis)
+
+    def _brick_consts(self, c) -> _Brick:
+        def one(t):
+            """Brick ``c``'s block of a (..., X, Y, Z) constant."""
+            if self.mesh is None:
+                return t
+            lead = tuple(t.shape[:-3])
+            flat = t.reshape((-1,) + tuple(t.shape[-3:]))
+            return cut(flat, self.brick, [c])[0].reshape(lead + self.brick)
+        p = self.p
+        b = _Brick(masks=one(p.masks), h=one(p.h),
+                   w6=tuple(one(w) for w in p.w6), active=one(p.active))
+        if self.precision != "f32":
+            b.h_q = one(self.h_q)
+            b.w6_q = tuple(one(w) for w in self.w6_q)
+        if self.precision == "bitplane":
+            b.masks_w = one(self.masks_w)
+            b.signs6_w = tuple(one(w) for w in self.signs6_w)
+            b.nz6_w = tuple(one(w) for w in self.nz6_w)
+            b.base_w = one(self.base_w)
+        return b
+
+    def _neighbor_ranks(self):
+        """(-1 neighbour, +1 neighbour) global ranks along each lattice
+        axis: x and y open chains, z a ring; None where there is none."""
+        import torch.distributed as dist
+        me = self.mesh.coords(self._group_rank())
+        peers = []
+        for a, name in enumerate(self.dim_axes):
+            pair = []
+            for step in (-1, 1):
+                if name is None or self.nb[a] == 1:
+                    pair.append(None)
+                    continue
+                mc = dict(me)
+                mc[name] += step
+                if a == 2:
+                    mc[name] %= self.nb[a]
+                if not 0 <= mc[name] < self.nb[a]:
+                    pair.append(None)
+                    continue
+                r = int(np.ravel_multi_index(
+                    [mc[n] for n in self.mesh.axis_names], self.mesh.sizes))
+                pair.append(dist.get_global_rank(self.group, r)
+                            if self.group is not dist.group.WORLD else r)
+            peers.append(tuple(pair))
+        return peers
+
+    def _sum_ranks(self, t: torch.Tensor) -> torch.Tensor:
+        """Sum over the ranks of a process-group mesh (the reference's
+        ``psum``); identity in one process."""
+        if self.group is None:
+            return t
+        import torch.distributed as dist
+        dist.all_reduce(t, group=self.group)
+        return t
+
     @property
     def kernel_path(self) -> str:
         """The update dispatch that runs: "fused", "per_phase" or
@@ -188,19 +351,23 @@ class LatticeDSIM:
 
     # -- halo plumbing ---------------------------------------------------------
 
-    def _exchange(self, m: torch.Tensor):
-        """The six halo planes of one brick from its spins ``m`` ((R, ...)
-        int8 or (W, ...) words): x/y open chains give zero planes, the z
-        ring of one brick wraps the brick's own opposite face."""
-        lead, X, Y, Z = (int(d) for d in m.shape)
-        if m.dtype == torch.uint32:
-            zero = lambda sh: u32_zeros(sh, m.device)  # noqa: E731
-        else:
-            zero = lambda sh: torch.zeros(sh, dtype=m.dtype,  # noqa: E731
-                                          device=m.device)
-        return (zero((lead, 1, Y, Z)), zero((lead, 1, Y, Z)),
-                zero((lead, X, 1, Z)), zero((lead, X, 1, Z)),
-                _face(m, slice(Z - 1, Z)), _face(m, slice(0, 1)))
+    def _exchanger(self, lead: int, dtype):
+        """The exchange of brick-major spins or words (K, lead, bx, by, bz):
+        called, it returns a halo buffer whose ``planes`` are the six
+        (K, lead, A, B) halo planes and whose ``bricks`` are each brick's
+        six (lead, A, B) planes.  Built once per (lead, dtype)."""
+        ex = self._exchangers.get((lead, dtype))
+        if ex is None:
+            fill = -1 if self.bitpack_halos and dtype == torch.int8 else 0
+            if self.group is None:
+                ex = GatherExchange(self.nb, self.brick, lead, fill, dtype,
+                                    self.device)
+            else:
+                ex = GroupExchange(self.group, self._neighbor_ranks(),
+                                   self.brick, lead, self.nb,
+                                   self.bitpack_halos, dtype)
+            self._exchangers[(lead, dtype)] = ex
+        return ex
 
     @staticmethod
     def _squeeze(halos):
@@ -210,22 +377,92 @@ class LatticeDSIM:
         return (xlo[:, 0], xhi[:, 0], ylo[:, :, 0], yhi[:, :, 0],
                 zlo[..., 0], zhi[..., 0])
 
+    def _state_halos(self, ex, buf) -> tuple:
+        """A halo buffer -> the halos in the state's form: brick-major on a
+        mesh, (lead, 1, Y, Z)-style planes for one brick."""
+        if self.mesh is not None:
+            return ex.planes(buf)
+        return tuple(h.unsqueeze(d // 2 + 1)
+                     for d, h in enumerate(ex.bricks(buf)[0]))
+
+    def _brick_halos(self, halos) -> list:
+        """Halos in the state's form -> each brick's six planes as its
+        kernels read them."""
+        if self.mesh is not None:
+            return list(zip(*(h.unbind(0) for h in halos)))
+        return [self._squeeze(halos)]
+
+    def _bricks_of(self, t: torch.Tensor) -> torch.Tensor:
+        """A state's spins or states as (K, lead, bx, by, bz)."""
+        return t if self.mesh is not None else t[None]
+
+    def _exchange(self, m: torch.Tensor):
+        """The halos of spins or words ``m`` in the state's form: of one
+        brick (lead, X, Y, Z) -> (lead, 1, Y, Z)-style planes; on a mesh
+        brick-major."""
+        mb = self._bricks_of(m)
+        ex = self._exchanger(int(mb.shape[1]), mb.dtype)
+        return self._state_halos(ex, ex(mb))
+
     def _refresh_halos(self, st):
         return dataclasses.replace(st, halos=self._exchange(st.m))
 
+    def boundary_exchange_fn(self):
+        """The exchange alone, ``fn(state) -> halos`` on live state: the
+        measured-η probe (``obs.EtaMeter.measure_exchange`` times it).
+        Cached, and dropped by :meth:`shard_state`."""
+        if self._exchange_only_fn is None:
+            self._exchange_only_fn = \
+                lambda st: self._refresh_halos(st).halos  # noqa: E731
+        return self._exchange_only_fn
+
+    # -- state layout ----------------------------------------------------------
+
     def shard_state(self, st):
-        """Place every tensor of a state on the engine's device (one brick:
-        no sharding beyond that)."""
-        return type(st)(
-            m=to_device(st.m, self.device), s=to_device(st.s, self.device),
-            halos=tuple(to_device(h, self.device) for h in st.halos),
-            sweep=to_device(st.sweep, self.device),
-            flips=to_device(st.flips, self.device))
+        """A state in the reference's global shapes -> the engine's: on
+        its device, and on a mesh cut into the bricks held here."""
+        self._exchange_only_fn = None
+        mv = lambda t: to_device(t, self.device)  # noqa: E731
+        st = type(st)(m=mv(st.m), s=mv(st.s),
+                      halos=tuple(mv(h) for h in st.halos),
+                      sweep=mv(st.sweep), flips=mv(st.flips))
+        if self.mesh is None:
+            return st
+        return BrickState(
+            m=self._cut(st.m), s=self._cut(st.s),
+            halos=tuple(self._cut(h, d // 2) for d, h in enumerate(st.halos)),
+            sweep=st.sweep, flips=st.flips, nb=self.nb)
+
+    def global_state(self, st):
+        """The engine's state in the reference's global shapes (a
+        ``LatticeState`` or ``BitplaneLatticeState``); over a process
+        group every rank calls it and receives the whole lattice."""
+        if self.mesh is None:
+            return st
+        if self.group is None:
+            return join_bricks(st, self.coords)
+        import torch.distributed as dist
+        world = self.mesh.size
+        parts = []
+        for t in (st.m, st.s) + tuple(st.halos):
+            x = t.view(torch.int32) if t.dtype == torch.uint32 else t
+            bufs = [torch.empty_like(x) for _ in range(world)]
+            dist.all_gather(bufs, x.contiguous(), group=self.group)
+            y = torch.cat(bufs)
+            parts.append(y.view(torch.uint32) if t.dtype == torch.uint32
+                         else y)
+        whole = BrickState(m=parts[0], s=parts[1], halos=tuple(parts[2:]),
+                           sweep=st.sweep, flips=st.flips, nb=self.nb)
+        return join_bricks(whole, [self._rank_coord(self.mesh.coords(r))
+                                   for r in range(world)])
 
     def init_state(self, seed: int = 0,
                    seeds: Optional[Sequence[int]] = None):
         """Fresh state; ``seeds=[...]`` (length R) seeds every replica
-        explicitly (replica r's trajectory depends only on seeds[r])."""
+        explicitly (replica r's trajectory depends only on seeds[r]).
+        Spins and LFSR states are drawn for the whole lattice and then cut
+        into bricks, so a brick's states are its slice of
+        ``lfsr_init(X*Y*Z, seed)``."""
         X, Y, Z = self.p.dims
         R = self.replicas
         if seeds is not None:
@@ -242,33 +479,33 @@ class LatticeDSIM:
         dev = self.device
         m = torch.from_numpy(np.stack(ms)).to(dev)
         s = u32_from_numpy(np.stack(ss), dev)
-        zero = lambda: torch.zeros((), dtype=torch.int32, device=dev)  # noqa: E731
+        zero = torch.zeros((), dtype=torch.int32, device=dev)
         flips = torch.zeros((R,), dtype=torch.int32, device=dev)
         if self.precision == "bitplane":
             st = BitplaneLatticeState(m=pack_lanes(m), s=s, halos=(),
-                                      sweep=zero(), flips=flips)
+                                      sweep=zero, flips=flips)
         else:
-            st = LatticeState(m=m, s=s, halos=(), sweep=zero(), flips=flips)
+            st = LatticeState(m=m, s=s, halos=(), sweep=zero, flips=flips)
         # one refreshing exchange so the first sweeps see real halos
-        return self._refresh_halos(st)
+        return self._refresh_halos(self.shard_state(st))
 
     # -- runners ---------------------------------------------------------------
 
-    def _sweeps(self, m, s, sched, halos, lut):
-        """S sweeps of every replica against fixed halos; ``sched`` (S,)
-        or (S, R), f32 betas or int32 LUT rows.  Returns (m, s, flips)."""
+    def _sweeps(self, b: _Brick, m, s, sched, halos, lut):
+        """S sweeps of every replica of brick ``b`` against fixed halos;
+        ``sched`` (S,) or (S, R), f32 betas or int32 LUT rows.  Returns
+        (m, s, flips)."""
         if self.precision == "bitplane":
             return pbit_bitplane_sweep_op(
-                m, s, sched, self.masks_w, self.signs6_w, self.nz6_w,
-                self.base_w, halos, lut, impl=self.impl)
+                m, s, sched, b.masks_w, b.signs6_w, b.nz6_w, b.base_w, halos,
+                lut, impl=self.impl)
         f32 = self.precision == "f32"
         if self.fused:
             if f32:
-                return pbit_sweep_op(m, s, sched, self.p.masks, self.p.h,
-                                     self.p.w6, halos, fmt=self.fmt,
-                                     impl=self.impl)
-            return pbit_sweep_int_op(m, s, sched, self.p.masks, self.h_q,
-                                     self.w6_q, halos, lut, impl=self.impl)
+                return pbit_sweep_op(m, s, sched, b.masks, b.h, b.w6, halos,
+                                     fmt=self.fmt, impl=self.impl)
+            return pbit_sweep_int_op(m, s, sched, b.masks, b.h_q, b.w6_q,
+                                     halos, lut, impl=self.impl)
         # per-phase dispatch, flips counted per phase (in the phase kernel
         # on CUDA) as the reference's _sweep_phases_block /
         # _sweep_phases_int_block count them
@@ -278,20 +515,19 @@ class LatticeDSIM:
             for c in range(self.p.n_colors):
                 if f32:
                     m, s = pbit_update_op(
-                        m, s, sched[t], self.p.masks[c], self.p.h, self.p.w6,
-                        halos, fmt=self.fmt, bx=self.kernel_bx,
-                        impl=self.impl, flips=flips)
+                        m, s, sched[t], b.masks[c], b.h, b.w6, halos,
+                        fmt=self.fmt, bx=self.kernel_bx, impl=self.impl,
+                        flips=flips)
                 else:
                     m, s = pbit_update_int_op(
-                        m, s, sched[t], self.p.masks[c], self.h_q, self.w6_q,
-                        halos, lut, bx=self.kernel_bx, impl=self.impl,
-                        flips=flips)
+                        m, s, sched[t], b.masks[c], b.h_q, b.w6_q, halos,
+                        lut, bx=self.kernel_bx, impl=self.impl, flips=flips)
         return m, s, flips
 
     def _chunk(self, st, sched2d, iters: int, S: int, lut):
-        """``iters`` iterations of S sweeps against fixed halos, each ended
-        by one exchange; sched2d (iters, S) or (iters, S, R) betas (f32)
-        or LUT rows."""
+        """``iters`` iterations of S sweeps of every brick against fixed
+        halos, each ended by one exchange; sched2d (iters, S) or
+        (iters, S, R) betas (f32) or LUT rows."""
         dtype = np.float32 if self.precision == "f32" else np.int32
         sched = torch.from_numpy(np.ascontiguousarray(sched2d, dtype)).to(
             self.device)
@@ -300,15 +536,27 @@ class LatticeDSIM:
             # as they lie: one expand and copy per chunk, none per phase
             sched = sched[..., None].expand(
                 *sched.shape, self.replicas).contiguous()
-        m, s, halos = st.m, st.s, st.halos
-        local = torch.zeros(self.replicas, dtype=torch.int64,
-                            device=self.device)
+        m = self._bricks_of(st.m)
+        ms, ss = list(m.unbind(0)), list(self._bricks_of(st.s).unbind(0))
+        hs = self._brick_halos(st.halos)
+        ex = self._exchanger(int(m.shape[1]), m.dtype)
+        flips = []
         for it in range(iters):
-            m, s, f = self._sweeps(m, s, sched[it], self._squeeze(halos), lut)
-            halos = self._exchange(m)
-            local = local + u32_to_i64(f)
-        return type(st)(m=m, s=s, halos=halos, sweep=st.sweep + iters * S,
-                        flips=flips_publish(st.flips, local))
+            outs = [self._sweeps(b, mk, sk, sched[it], hk, lut)
+                    for b, mk, sk, hk in zip(self._bricks, ms, ss, hs)]
+            ms = [o[0] for o in outs]
+            ss = [o[1] for o in outs]
+            m = _stack(ms)
+            buf = ex(m)
+            hs = ex.bricks(buf)
+            flips += [o[2] for o in outs]
+        # every (iteration, brick) count of the chunk, summed once, exactly
+        local = u32_to_i64(torch.stack(flips)).sum(0)
+        m, s = (ms[0], ss[0]) if self.mesh is None else (m, _stack(ss))
+        return dataclasses.replace(
+            st, m=m, s=s, halos=self._state_halos(ex, buf),
+            sweep=st.sweep + iters * S,
+            flips=flips_publish(st.flips, self._sum_ranks(local)))
 
     def run_recorded_full(self, state, schedule,
                           record_points: Sequence[int], sync_every: int = 1,
@@ -346,31 +594,33 @@ class LatticeDSIM:
 
     # -- observables -----------------------------------------------------------
 
-    def _spins(self, state) -> torch.Tensor:
-        if self.precision == "bitplane":
-            return unpack_lanes(state.m, self.replicas)
-        return state.m
-
     def energy(self, state) -> torch.Tensor:
         """True energies, one per replica, on the f32 problem, after a
-        fresh exchange of the current spins (not ``state.halos``); on the
-        bit-plane path of its word planes, read without unpacking on CUDA
-        (the plain version unpacks spins and word halos, as the
-        reference's readout does).  Returns (R,), or a scalar when
-        replicas == 1."""
-        halos = self._squeeze(self._exchange(state.m))
-        consts = (self.p.active, self.p.h, self.p.w6)
-        if self.precision == "bitplane":
-            e = brick_energy_words_op(state.m, self.replicas, *consts, halos,
-                                      bx=self.kernel_bx, impl=self.impl)
-        else:
-            e = brick_energy_op(state.m, *consts, halos, bx=self.kernel_bx,
-                                impl=self.impl)
+        fresh exchange of the current spins (not ``state.halos``), summed
+        over the bricks in their order; on the bit-plane path of its word
+        planes, read without unpacking on CUDA (the plain version unpacks
+        spins and word halos, as the reference's readout does).  Returns
+        (R,), or a scalar when replicas == 1."""
+        m = self._bricks_of(state.m)
+        ex = self._exchanger(int(m.shape[1]), m.dtype)
+        e = None
+        for b, mk, hk in zip(self._bricks, m.unbind(0), ex.bricks(ex(m))):
+            if self.precision == "bitplane":
+                ek = brick_energy_words_op(mk, self.replicas, b.active, b.h,
+                                           b.w6, hk, bx=self.kernel_bx,
+                                           impl=self.impl)
+            else:
+                ek = brick_energy_op(mk, b.active, b.h, b.w6, hk,
+                                     bx=self.kernel_bx, impl=self.impl)
+            e = ek if e is None else e + ek
+        e = self._sum_ranks(e)
         return e[0] if self.replicas == 1 else e
 
     def global_spins(self, state) -> torch.Tensor:
         """(R, L^3) active-site spins in ea3d node order; (L^3,) at R=1."""
         L = self.p.L
-        spins = self._spins(state)[:, :L, :L, :L].reshape(self.replicas,
-                                                          L ** 3)
+        m = self.global_state(state).m
+        if self.precision == "bitplane":
+            m = unpack_lanes(m, self.replicas)
+        spins = m[:, :L, :L, :L].reshape(self.replicas, L ** 3)
         return spins[0] if self.replicas == 1 else spins

@@ -1,10 +1,14 @@
-"""Lane packing: independent replicas in the bit lanes of uint32 words.
+"""1-bit packing of p-bit states; port of ``repro.core.packing``.
 
-Port of ``repro.core.packing``'s W-plane lane format.  A lane count L
-occupies ``W = ceil(L / 32)`` stacked word planes: lane ``l`` lives at word
-``l // 32``, bit ``l % 32`` (1 = +1, 0 = -1), and dead lanes are confined
-to the tail of the LAST word.  The bit-plane engine (``precision=
-"bitplane"``) keeps its spins in this form.
+* **site packing** (``pack_pm1``/``unpack_pm1``): the spins of one chain
+  packed 8 per uint8 along the last axis, least significant bit first
+  (1 = +1, 0 = -1): the wire format of the int8 and f32 halo exchange
+  with ``bitpack_halos=True``.  A zero byte unpacks to eight -1 spins.
+* **lane packing** (``pack_lanes``/``unpack_lanes``): a lane count L
+  occupies ``W = ceil(L / 32)`` stacked uint32 word planes: lane ``l``
+  lives at word ``l // 32``, bit ``l % 32`` (1 = +1, 0 = -1), and dead
+  lanes are confined to the tail of the LAST word.  The bit-plane engine
+  (``precision="bitplane"``) keeps its spins in this form.
 """
 
 from __future__ import annotations
@@ -13,8 +17,34 @@ import torch
 
 from .bits import i64_to_u32, u32_to_i64
 
-__all__ = ["LANE_WIDTH", "MAX_LANE_WORDS", "lane_words", "pack_lanes",
-           "unpack_lanes"]
+__all__ = ["pad_to_multiple", "pack_pm1", "unpack_pm1", "LANE_WIDTH",
+           "MAX_LANE_WORDS", "lane_words", "pack_lanes", "unpack_lanes"]
+
+
+def _pow2(device) -> torch.Tensor:
+    return torch.tensor([1, 2, 4, 8, 16, 32, 64, 128], dtype=torch.uint8,
+                        device=device)
+
+
+def pad_to_multiple(n: int, k: int = 8) -> int:
+    return ((n + k - 1) // k) * k
+
+
+def pack_pm1(x: torch.Tensor) -> torch.Tensor:
+    """Pack +-1 int8 spins (last dim, multiple of 8) into uint8 bitmaps."""
+    *lead, n = x.shape
+    if n % 8 != 0:
+        raise ValueError("last dim must be a multiple of 8")
+    bits = (x > 0).to(torch.uint8).reshape(*lead, n // 8, 8)
+    return (bits * _pow2(x.device)).sum(dim=-1).to(torch.uint8)
+
+
+def unpack_pm1(p: torch.Tensor, n: int) -> torch.Tensor:
+    """Inverse of :func:`pack_pm1`; returns +-1 int8 of last-dim size n."""
+    *lead, nb = p.shape
+    bits = (p[..., :, None] & _pow2(p.device)) > 0
+    out = torch.where(bits, 1, -1).to(torch.int8).reshape(*lead, nb * 8)
+    return out[..., :n]
 
 LANE_WIDTH = 32       # replica lanes per word — the uint32 word width
 MAX_LANE_WORDS = 8    # stacked word planes the packed paths accept (W cap)

@@ -1,7 +1,8 @@
 """``make_engine`` for the port; mirrors ``repro.engines.registry``.
 
-The port builds the single-GPU lattice engine at ``precision="f32"`` (the
-default), ``"int8"`` and ``"bitplane"``, fused or per phase.  Everything
+The port builds the lattice engine at ``precision="f32"`` (the default),
+``"int8"`` and ``"bitplane"``, fused or per phase, as one brick or, with
+a mesh, as bricks in one process or one per rank of a process group.  Everything
 else the reference's factory offers raises ``NotImplementedError`` naming
 the ROADMAP.md item that brings it; nothing is substituted.
 """
@@ -170,11 +171,13 @@ class _LatticeHandle:
         return HandleCursor(cur, self.replicas, handle=self)
 
     def snapshot(self, state):
-        """Host-side owned copy of a state (see core.snapshot)."""
-        return snapshot_state(state)
+        """Host-side owned copy of a state in the reference's global
+        shapes (see core.snapshot)."""
+        return snapshot_state(self.eng.global_state(state))
 
     def restore(self, snap):
-        """Snapshot -> live state on the engine's device."""
+        """Snapshot -> live state on the engine's device (cut into bricks
+        on a mesh)."""
         return self.eng.shard_state(restore_state(snap, self.eng.device))
 
     def energy(self, state) -> torch.Tensor:
@@ -202,14 +205,18 @@ def make_engine(name: str, graph=None, *, coloring: Optional[Coloring] = None,
     """Build a sampling engine by name (the reference's signature plus
     ``device``; CUDA unless ``device="cpu"``, raising without CUDA).
 
-    "lattice" — the brick-partitioned EA3D lattice as ONE brick on one
-    GPU: pass ``lattice=`` a LatticeProblem or ``L=`` to build one from
-    ``seed``; ``precision`` "f32", "int8" or "bitplane"; ``replicas=R``
-    chains per call (bit lanes on the bitplane path); ``fused=False`` or
-    ``kernel_bx`` for the per-phase kernels.  ``impl`` "auto" | "cuda" |
-    "ref".  ``rng``, ``axis``, ``dim_axes`` and ``bitpack_halos`` do not
-    change a one-brick lattice run; ``graph``, ``coloring``, ``K``,
-    ``labels``, ``mode`` and ``bitpack`` belong to the other engines.
+    "lattice" — the brick-partitioned EA3D lattice: pass ``lattice=`` a
+    LatticeProblem or ``L=`` to build one from ``seed``; ``precision``
+    "f32", "int8" or "bitplane"; ``replicas=R`` chains per call (bit lanes
+    on the bitplane path); ``fused=False`` or ``kernel_bx`` for the
+    per-phase kernels.  With no ``mesh`` it is one brick on one GPU; a
+    ``mesh`` from ``repro_torch.core.mesh.make_mesh`` with ``dim_axes``
+    (the mesh axis, or None, of x, y and z) cuts it into bricks, all on
+    one device or one per rank of the mesh's process group, with
+    ``bitpack_halos`` the reference's 1-bit halo wire.  ``impl`` "auto" |
+    "cuda" | "ref".  ``rng`` and ``axis`` do not change a lattice run;
+    ``graph``, ``coloring``, ``K``, ``labels``, ``mode`` and ``bitpack``
+    belong to the other engines.
     """
     if name not in ENGINE_NAMES:
         raise ValueError(f"unknown engine {name!r}; choose from {ENGINE_NAMES}")
@@ -223,10 +230,6 @@ def make_engine(name: str, graph=None, *, coloring: Optional[Coloring] = None,
         raise NotImplementedError(
             "degrade policies come with the degraded mesh: ROADMAP.md "
             "queue A item 9")
-    if mesh is not None:
-        raise NotImplementedError(
-            "a mesh (more than one brick) comes with the multi-GPU lattice: "
-            "ROADMAP.md queue A item 5")
     if vmem_budget_bytes is not None:
         raise ValueError(
             "vmem_budget_bytes sizes the TPU kernel's VMEM working set; the "
@@ -238,5 +241,6 @@ def make_engine(name: str, graph=None, *, coloring: Optional[Coloring] = None,
         prob = build_ea3d_lattice(int(L), seed=seed, device=device)
     eng = LatticeDSIM(prob, fmt=fmt, impl=impl, replicas=replicas,
                       precision=precision, fused=fused, kernel_bx=kernel_bx,
-                      device=device)
+                      device=device, mesh=mesh, dim_axes=dim_axes,
+                      bitpack_halos=bitpack_halos)
     return _LatticeHandle(eng, replicas, prob.n_active)

@@ -3,7 +3,9 @@
 The reference's ``LatticeProblem`` / ``LatticeState`` /
 ``BitplaneLatticeState`` fields, given as numpy arrays, become the port's
 problem and states (and back), so both packages can compute the same thing
-from the same data.  The dtypes are the reference's: int8 spins, uint32
+from the same data.  States cross in the reference's global shapes: a
+mesh engine's ``shard_state`` cuts one into its bricks, and a
+``BrickState`` of a one-process mesh is joined back.  The dtypes are the reference's: int8 spins, uint32
 LFSR states and words, f32 couplings, int32 counters.
 """
 
@@ -16,7 +18,8 @@ import torch
 
 from repro_torch.core.device import resolve_device
 from repro_torch.core.lattice import LatticeProblem
-from repro_torch.core.lattice_dsim import BitplaneLatticeState, LatticeState
+from repro_torch.core.lattice_dsim import (BitplaneLatticeState, BrickState,
+                                           LatticeState, join_bricks)
 from repro_torch.core.snapshot import restore_state, snapshot_state
 
 __all__ = ["problem_from_numpy", "state_from_numpy", "state_to_numpy"]
@@ -55,6 +58,8 @@ def state_from_numpy(*, m, s, halos, sweep, flips, device=None):
 
 def state_to_numpy(state) -> dict:
     """The port's state -> a dict of the reference field names with owned
-    numpy arrays (``halos`` a tuple)."""
+    numpy arrays (``halos`` a tuple), in the reference's global shapes."""
+    if isinstance(state, BrickState):
+        state = join_bricks(state)
     snap = snapshot_state(state)
     return {f.name: getattr(snap, f.name) for f in dataclasses.fields(snap)}

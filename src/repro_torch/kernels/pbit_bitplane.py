@@ -121,10 +121,10 @@ def _build_layout(masks_w, signs6, nz6, base) -> _Layout:
 
 
 # Layouts by mask set, each valid while its masks and planes are the same
-# tensors at the same versions (the engine passes the same ones every
-# call, so the order is built once per engine).
+# tensors at the same versions, and dropped when its masks tensor is freed:
+# an engine passes the same tensors every call (one mask set per brick), so
+# each brick's order is built once per engine, however many bricks live.
 _LAYOUTS: dict = {}
-_MAX_LAYOUTS = 4
 
 
 def color_layout(masks_w, signs6, nz6, base) -> _Layout:
@@ -132,15 +132,16 @@ def color_layout(masks_w, signs6, nz6, base) -> _Layout:
     the tensors' identities and versions."""
     src = (masks_w, *signs6, *nz6, base)
     stamp = tuple(t._version for t in src)
-    hit = _LAYOUTS.get(id(masks_w))
+    key = id(masks_w)
+    hit = _LAYOUTS.get(key)
     if hit is not None:
         refs, old_stamp, lay = hit
         if old_stamp == stamp and all(r() is t for r, t in zip(refs, src)):
             return lay
     lay = _build_layout(masks_w, signs6, nz6, base)
-    if len(_LAYOUTS) >= _MAX_LAYOUTS:
-        _LAYOUTS.pop(next(iter(_LAYOUTS)))
-    _LAYOUTS[id(masks_w)] = (tuple(weakref.ref(t) for t in src), stamp, lay)
+    if hit is None:
+        weakref.finalize(masks_w, _LAYOUTS.pop, key, None)
+    _LAYOUTS[key] = (tuple(weakref.ref(t) for t in src), stamp, lay)
     return lay
 
 

@@ -23,7 +23,8 @@ builds its kernels there and measures, at L=100 on the EA3D instance:
 - the main path through ``make_engine("lattice", ...)``: 256 sweeps of
   ``ea_schedule(256)``, record points 16/64/128/256, ``sync_every=8``, wall
   seconds to a device synchronise, best of 8 after one warm run (the
-  per-phase path is host-bound and swings from run to run); at
+  per-phase path is host-bound and swings from run to run), and the warm
+  run's own wall (an engine's first run, as ``chip_smoke.py`` times it); at
   bit-plane R=64, f32 R=4 (with and without s{4}{1}), int8 R=4 and the
   per-phase dispatch (int8 ``fused=False`` and f32 ``kernel_bx=25``) R=4.
 
@@ -157,6 +158,7 @@ def worker(root: Path) -> dict:
                            sync_every=SYNC)
             torch.cuda.synchronize()
             walls.append(time.perf_counter() - t0)
+        out[f"main {label} first s"] = walls[0]
         out[f"main {label} s"] = min(walls[1:])
     return out
 

@@ -725,3 +725,81 @@ def test_cuda_energy_words_match_int8_route(cuda, shape, R, pm_j):
         assert torch.equal(got, want)
     else:
         assert_energy_close(got, want, (m, active, h, w6, halos))
+
+
+def f32_mesh_steps(h, st, betas, S):
+    """The S-sweep iterations of a fused f32 mesh engine from ``st``, one
+    at a time: each brick's sweep against its halos agrees with the plain
+    sweep (LFSR states bitwise, spins except at sites within 8 ulp of the
+    decision boundary), and the engine's iteration is those brick sweeps
+    followed by its exchange, bitwise.  Returns the state after them."""
+    eng = h.eng
+    for it in range(len(betas) // S):
+        b_it = np.ascontiguousarray(betas[it * S:(it + 1) * S], np.float32)
+        nxt = eng._chunk(st, b_it[None], 1, S, None)
+        for k, (b, hk) in enumerate(zip(eng._bricks,
+                                        eng._brick_halos(st.halos))):
+            args = (st.m[k], st.s[k], torch.from_numpy(b_it).to(eng.device),
+                    b.masks, b.h, b.w6, hk)
+            got = pbit_brick_sweep(*args, fmt=eng.fmt)
+            assert_f32_agrees(got, t_ref.pbit_brick_sweep_ref(
+                *args, fmt=eng.fmt), f32_boundary_sites(*args, fmt=eng.fmt))
+            assert_bitwise((nxt.m[k], nxt.s[k]), got[:2])
+        assert_bitwise(eng._exchange(nxt.m), nxt.halos)
+        st = nxt
+    return st
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("prec,R,shape,fused", [
+    ("int8", 3, (2, 2, 2), True), ("int8", 2, (2, 1, 2), False),
+    ("bitplane", 40, (2, 2, 2), True), ("bitplane", 5, (1, 2, 1), True),
+    ("f32", 3, (2, 2, 2), True), ("f32", 2, (1, 2, 2), True)])
+def test_cuda_mesh_equals_plain(cuda, monkeypatch, prec, R, shape, fused):
+    """A small mesh through the CUDA kernels, brick by brick, equals the
+    same mesh on the plain versions bitwise (states, halos, energies,
+    flips); the bit-plane bricks' color-major layouts are built once.  On
+    f32 (L=10: bricks of Z=5, the site path, as L=100 on (2,2,2)) the
+    card's tanhf is not the CPU's: LFSR states bitwise, and every brick's
+    sweep held to the plain one with real halos by ``f32_mesh_steps``."""
+    from repro_torch import make_engine
+    from repro_torch.core.annealing import ea_schedule
+    from repro_torch.core.mesh import make_mesh
+    from repro_torch.kernels import pbit_bitplane
+    builds = []
+    real = pbit_bitplane._build_layout
+    monkeypatch.setattr(pbit_bitplane, "_build_layout",
+                        lambda *a: builds.append(1) or real(*a))
+    L = 10 if prec == "f32" else 8
+    runs = {}
+    for impl in ("ref", "auto"):
+        h = make_engine("lattice", L=L, seed=1, replicas=R, precision=prec,
+                        fused=fused, impl=impl,
+                        mesh=make_mesh(shape, ("x", "y", "z")),
+                        dim_axes=("x", "y", "z"), device=cuda)
+        st0 = h.init_state(seed=2)
+        _build.reset_launch_counts()
+        runs[impl] = h.run_recorded(st0, ea_schedule(12), [4, 12],
+                                    sync_every=4)
+        if impl == "auto":
+            K = int(np.prod(shape))
+            sweep = {"int8": "pbit_brick_sweep_int" if fused
+                     else "pbit_brick_update_int",
+                     "bitplane": "pbit_bitplane_sweep",
+                     "f32": "pbit_brick_sweep"}[prec]
+            assert _build.launch_counts[sweep] > 0
+            assert _build.launch_counts["brick_energy"] == 2 * K
+            assert len(builds) == (K if prec == "bitplane" else 0)
+    (sa, ra), (sb, rb) = runs["ref"], runs["auto"]
+    if prec == "f32":
+        st = f32_mesh_steps(h, st0, ea_schedule(12).beta_array(), 4)
+        for x, y in zip((st.m, st.s, st.flips) + st.halos,
+                        (sb.m, sb.s, sb.flips) + sb.halos):
+            assert_bitwise((x,), (y,))
+        assert_bitwise((sa.s,), (sb.s,))
+    if prec != "f32" or torch.equal(sa.m, sb.m):
+        assert torch.equal(ra.energies, rb.energies) and \
+            ra.flips == rb.flips
+        for x, y in zip((sa.m, sa.s, sa.flips) + sa.halos,
+                        (sb.m, sb.s, sb.flips) + sb.halos):
+            assert_bitwise((x,), (y,))

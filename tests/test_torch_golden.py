@@ -68,3 +68,52 @@ def test_f32_golden_values_match_jax():
     assert np.asarray(st.flips).tolist() == smoke.GOLDEN_F32["flips"]
     s = np.asarray(st.s)
     assert hashlib.sha256(s.tobytes()).hexdigest() == golden["s_sha256"]
+
+
+MESH_REFERENCE = """
+import hashlib, json, warnings
+import numpy as np, jax
+from jax.sharding import Mesh
+from repro.core.annealing import ea_schedule
+from repro.engines.registry import make_engine
+
+mesh = Mesh(np.asarray(jax.devices()[:8]).reshape(2, 2, 2), ("x", "y", "z"))
+out = {}
+for prec, R in (("int8", 2), ("f32", 2), ("bitplane", 32)):
+    with warnings.catch_warnings():
+        warnings.simplefilter("ignore", RuntimeWarning)
+        h = make_engine("lattice", L=%(L)d, seed=%(seed)d, replicas=R,
+                        precision=prec, impl="ref", mesh=mesh,
+                        dim_axes=("x", "y", "z"))
+    st, rec = h.run_recorded(h.init_state(seed=%(seed)d), ea_schedule(16),
+                             [8, 16], sync_every=%(sync)d)
+    sha = lambda a: hashlib.sha256(np.asarray(a).tobytes()).hexdigest()
+    out[prec] = dict(energies=np.asarray(rec.energies)[:, :2].tolist(),
+                     flips=np.asarray(st.flips)[:2].tolist(),
+                     m_sha256=sha(st.m), s_sha256=sha(np.asarray(st.s)[:2]))
+print(json.dumps(out))
+"""
+
+
+def test_mesh_golden_values_match_jax_on_8_devices():
+    """``MESH_GOLDEN``: the JAX reference's (2,2,2) mesh on 8 forced host
+    devices at L=100 (int8 R=2; f32 and bit-plane R=32 lanes 0-1 give the
+    same energies and flips, and every LFSR digest is the int8 one)."""
+    import json
+    import os
+    import subprocess
+    import sys
+    smoke = chip_smoke()
+    code = MESH_REFERENCE % dict(L=smoke.L, seed=smoke.SEED, sync=smoke.SYNC)
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"), JAX_PLATFORMS="cpu",
+               XLA_FLAGS="--xla_force_host_platform_device_count=8")
+    r = subprocess.run([sys.executable, "-c", code], capture_output=True,
+                       text=True, env=env, timeout=600)
+    assert r.returncode == 0, r.stderr[-3000:]
+    out = json.loads(r.stdout.strip().splitlines()[-1])
+    golden = smoke.MESH_GOLDEN
+    assert out["int8"] == golden
+    for prec in ("f32", "bitplane"):
+        assert out[prec]["energies"] == golden["energies"]
+        assert out[prec]["flips"] == golden["flips"]
+        assert out[prec]["s_sha256"] == golden["s_sha256"]

@@ -23,6 +23,7 @@ from repro.engines.registry import make_engine as j_make
 from repro_torch import make_engine as t_make
 from repro_torch.core.annealing import ea_schedule, replica_beta_arrays
 from repro_torch.core.lattice_dsim import BitplaneLatticeState, LatticeState
+from repro_torch.core.mesh import make_mesh
 from repro_torch.core.packing import unpack_lanes
 from repro_torch.core.pbit import S41
 from repro_torch.core.snapshot import restore_state, snapshot_state
@@ -275,8 +276,13 @@ def test_make_engine_raises_for_what_this_slice_does_not_port():
         t_make("lattice", precision="bitplane", kernel_bx=2, **kw)
     with pytest.raises(NotImplementedError, match="ROADMAP.*item 9"):
         t_make("lattice", precision="int8", degrade="fail_fast", **kw)
-    with pytest.raises(NotImplementedError, match="ROADMAP.*item 5"):
-        t_make("lattice", precision="int8", mesh=object(), **kw)
+    # the mesh is ported (ROADMAP queue A item 5): it needs dim_axes, as
+    # in the reference, and then builds
+    mesh = make_mesh((2, 1, 1), ("x", "y", "z"))
+    with pytest.raises(ValueError, match="dim_axes"):
+        t_make("lattice", precision="int8", mesh=mesh, **kw)
+    assert t_make("lattice", precision="int8", mesh=mesh,
+                  dim_axes=("x", "y", "z"), **kw).eng.nb == (2, 1, 1)
     for name in ("gibbs", "dsim", "dsim_dist"):
         with pytest.raises(NotImplementedError, match="ROADMAP.*item 7"):
             t_make(name, precision="int8", **kw)
