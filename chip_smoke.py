@@ -56,7 +56,20 @@ Phases; every check raises on failure and the script then exits non-zero:
    over the HBM bandwidth and its INT32 and FP32 operations over their
    own peaks (64 and 128 per SM per clock at the card's SM count and
    maximum SM clock);
-6. print one JSON line of kernels (``launches`` over the main and mesh
+6. drive the general-graph engines, ``make_engine("gibbs", graph)`` and
+   ``make_engine("dsim", partitioned)``, on the L=100 instance as an ELL
+   graph (and Max-Cut on a G81-size torus): the JAX reference's golden
+   values (dsim int8 on the (2,2,2) brick partition bitwise with its
+   spin and LFSR digests, gibbs f32 within 0.5% with its LFSR digest),
+   every configuration against the same engine on the CPU over 16
+   sweeps (int8 bitwise; f32 with each colour phase held to the CPU's:
+   LFSR states bitwise, a differing spin only within 8 ulp of its
+   boundary; philox within 0.5% and repeatable on the card), then timed
+   (two runs each; none of the six kernels may launch: these engines are
+   PyTorch operations), and one profiled run of each engine (device
+   busy share, device operations and time per colour phase beside the
+   phase's byte floor);
+7. print one JSON line of kernels (``launches`` over the main and mesh
    paths, ``mesh_launches`` the mesh path's), the card's name and power
    limit, and last ``{"ok": true, "device": {...}}``.
 
@@ -150,6 +163,57 @@ MESH_GOLDEN = {
     "s_sha256": "905250766f8dad54e31f56f3f05db473"
                 "4793481ad86ce2426567059e5a87975d",
 }
+
+# The general-graph engines on the same instance as an ELL graph
+# (ea3d(L, SEED), lattice3d_coloring(L); dsim on the (2,2,2) brick
+# partition, K=8), rng="lfsr" unless named, each at full width over
+# ea_schedule(MAIN_SWEEPS) from init_state(seed=SEED), record points
+# MAIN_POINTS; "sync" is run_recorded's sync_every.
+BRICKS = (2, 2, 2)
+GRAPH_RUNS = {
+    "gibbs f32 R=4": dict(engine="gibbs", replicas=4),
+    "gibbs f32 s41 R=4": dict(engine="gibbs", replicas=4, fmt="S41"),
+    "gibbs philox R=4": dict(engine="gibbs", replicas=4, rng="philox"),
+    "dsim int8 R=4 K=8": dict(engine="dsim", replicas=4, precision="int8",
+                              sync=SYNC),
+    "dsim int8 R=4 K=8 phase": dict(engine="dsim", replicas=4,
+                                    precision="int8", sync="phase"),
+    "dsim f32 R=4 K=8": dict(engine="dsim", replicas=4, sync=SYNC),
+    "cmft f32 R=4 K=8": dict(engine="dsim", replicas=4, mode="cmft",
+                             sync=SYNC),
+    # the G81 shape (Max-Cut, J = -w on a 100x200 +-1 torus; greedy
+    # colouring), as benchmarks/tableS2_maxcut.py anneals it
+    "maxcut G81 gibbs R=4": dict(engine="gibbs", replicas=4, graph="g81"),
+}
+GRAPH_PROFILED = ("gibbs f32 R=4", "dsim int8 R=4 K=8")
+G81 = dict(rows=100, cols=200, seed=81)
+# The JAX reference's GibbsEngine (f32) and DSIMEngine (int8, K=8,
+# sync_every=SYNC) at L=100, rng="lfsr", R=2, every replica started from
+# graph_m0(L^3) (the reference draws initial spins with jax.random, which
+# PyTorch cannot reproduce), ea_schedule(16), record points [8, 16].
+# tests/test_torch_golden.py recomputes these from the JAX package.
+GRAPH_M0_SEED = 1
+GIBBS_GOLDEN = {
+    "energies": [[-1594412.0, -1593918.0], [-1644082.0, -1643616.0]],
+    "flips": [1366814, 1364108],
+    "s_sha256": "fb1e5f4bbba32792de4c54c18737f3ea"
+                "b46dce4046fd6572679d8124a6e8f48a",
+}
+DSIM_GOLDEN = {
+    "energies": [[-1572812.0, -1574028.0], [-1632730.0, -1632706.0]],
+    "flips": [1391343, 1387169],
+    "m_sha256": "d09d941741d30b43a256d64953fa1cd6"
+                "d911c468f9690220aa38ffbfbb24657a",
+    "s_sha256": "fb1e5f4bbba32792de4c54c18737f3ea"
+                "b46dce4046fd6572679d8124a6e8f48a",
+}
+
+
+def graph_m0(n: int) -> np.ndarray:
+    """The golden runs' initial spins, one draw shared by every replica."""
+    return np.random.default_rng(GRAPH_M0_SEED).choice(
+        np.array([-1, 1], np.int8), size=n)
+
 
 # H100 SXM published HBM3 bandwidth (NVIDIA data sheet).  The operation
 # peaks are taken from the card in the run: Hopper issues 64 INT32 and
@@ -277,6 +341,7 @@ class Smoke:
         self.phase_main_path()
         self.phase_mesh(card)
         self.phase_timing(card)
+        self.phase_graph(card)
         for k in KERNELS:
             self.results[k]["mesh_launches"] = self.mesh_launches[k]
         print(json.dumps({"kernels": [self.results[k] for k in KERNELS]}))
@@ -1495,6 +1560,322 @@ class Smoke:
                 print(f"  redesigned {name} in {label}: {mode}; {count} "
                       f"kernel launches in {calls} calls, {us / calls:.1f} "
                       f"us per call (profiler) on {card}", flush=True)
+
+    # -- the general-graph engines -----------------------------------------
+
+    def phase_graph(self, card: str):
+        """The general-graph engines at L=100 through make_engine("gibbs")
+        and make_engine("dsim"): the JAX golden values, every GRAPH_RUNS
+        configuration against its device="cpu" twin over the first 16
+        sweeps, then timed over MAIN_SWEEPS with the kernel launch counts
+        read (these engines are PyTorch operations; they launch none of
+        the six kernels), and one profiled run of each engine."""
+        t = self.torch
+        from repro_torch.core.annealing import ea_schedule
+        from repro_torch.core.coloring import (greedy_coloring,
+                                               lattice3d_coloring)
+        from repro_torch.core.dsim import build_partitioned
+        from repro_torch.core.graph import ea3d
+        from repro_torch.core.partition import brick_partition
+        from repro_torch.kernels import _build
+        from repro_torch.problems.maxcut import (cut_of, gset_like_toroidal,
+                                                 maxcut_to_ising)
+        print(f"== 6. general-graph engines: make_engine('gibbs' | 'dsim') "
+              f"at L={L}", flush=True)
+        t0 = time.perf_counter()
+        self.g = ea3d(L, seed=SEED)
+        self.col = lattice3d_coloring(L)
+        self.prob = build_partitioned(
+            self.g, self.col, brick_partition((L, L, L), BRICKS),
+            int(np.prod(BRICKS)))
+        t1 = time.perf_counter()
+        self.g81 = gset_like_toroidal(**G81)
+        self.g81_ising = maxcut_to_ising(self.g81)
+        self.col81 = greedy_coloring(self.g81_ising.idx, self.g81_ising.w)
+        check(self.g.device.type == self.prob.device.type ==
+              self.g81.device.type == "cuda",
+              f"graph ({self.g.n} p-bits), partition (K={self.prob.K}, "
+              f"n_max {self.prob.n_max}, g_max {self.prob.g_max}) and G81 "
+              f"graph ({self.g81.n} p-bits, {self.col81.n_colors} colours) "
+              f"built on {self.g.device} in {t1 - t0:.2f} s and "
+              f"{time.perf_counter() - t1:.2f} s of host time")
+        self.graph_golden()
+        self.graph_rates = {}
+        for label, kw in GRAPH_RUNS.items():
+            self.graph_vs_cpu(label, kw)
+        for label, kw in GRAPH_RUNS.items():
+            hh, sync = self.graph_engine(kw)
+            n = hh.n_sites
+            st0 = hh.init_state(seed=SEED)
+            walls = []
+            for _ in range(2):      # the engine's first run, then a second
+                t.cuda.synchronize()
+                _build.reset_launch_counts()
+                t0 = time.perf_counter()
+                st, rec = hh.run_recorded(st0, ea_schedule(MAIN_SWEEPS),
+                                          MAIN_POINTS, sync_every=sync)
+                t.cuda.synchronize()
+                walls.append(time.perf_counter() - t0)
+            dt = walls[1]
+            counts = {k: v for k, v in _build.launch_counts.items() if v}
+            check(not counts, f"{label}: plain PyTorch operations, none of "
+                  f"the six kernels launched ({counts})")
+            R = hh.replicas
+            e = rec.energies
+            per_spin = (e[-1] / n).cpu()
+            lo, hi = (-1.45, -1.25) if kw.get("graph") == "g81" else \
+                (-1.75, -1.55)
+            check(tuple(e.shape) == (len(MAIN_POINTS), R) and
+                  bool(t.isfinite(e).all()) and bool((e[-1] < e[0]).all())
+                  and bool(((per_spin > lo) & (per_spin < hi)).all()),
+                  f"{label}: energies finite, shape {tuple(e.shape)}, "
+                  f"annealed, E/N at {MAIN_SWEEPS} sweeps in "
+                  f"[{float(per_spin.min()):.4f}, {float(per_spin.max()):.4f}]"
+                  f" (within ({lo}, {hi}))")
+            if kw.get("graph") == "g81":
+                w_tot = float(self.g81.w.sum()) / 2
+                cuts = [cut_of(self.g81, st.m[r]) for r in range(R)]
+                check(all(c == (w_tot - float(er)) / 2
+                          for c, er in zip(cuts, e[-1].tolist())),
+                      f"{label}: Max-Cut values {cuts} == (W - E) / 2")
+            self.graph_rates[label] = (n * R * MAIN_SWEEPS / dt, dt,
+                                       rec.flips)
+            print(f"  {label}: {MAIN_SWEEPS} sweeps of {n} p-bits x R={R} in "
+                  f"{dt:.4f} s = {n * R * MAIN_SWEEPS / dt:.4e} flips/s "
+                  f"(first run {walls[0]:.4f} s; {rec.flips} accepted "
+                  f"flips) on {card}", flush=True)
+        for label in GRAPH_PROFILED:
+            self.profile_graph(label, card)
+
+    def graph_engine(self, kw, device=None):
+        """(handle, sync_every) of a GRAPH_RUNS configuration, on the card
+        or on ``device``."""
+        import repro_torch
+        from repro_torch import make_engine
+        kw = dict(kw)
+        engine, sync = kw.pop("engine"), kw.pop("sync", 1)
+        graph = kw.pop("graph", None)
+        if "fmt" in kw:
+            kw["fmt"] = getattr(repro_torch, kw["fmt"])
+        kw.setdefault("rng", "lfsr")
+        if engine == "dsim":
+            return make_engine("dsim", self.prob, device=device, **kw), sync
+        g, col = (self.g81_ising, self.col81) if graph == "g81" else \
+            (self.g, self.col)
+        return make_engine("gibbs", g, coloring=col, device=device,
+                           **kw), sync
+
+    def graph_golden(self):
+        """The JAX reference's L=100 runs from graph_m0: gibbs f32 (LFSR
+        digest exactly, energies and flips to 0.5%), dsim int8 on K=8
+        (energies, flips, spin and LFSR digests bitwise)."""
+        from repro_torch import make_engine
+        from repro_torch.core.annealing import ea_schedule
+        from repro_torch.core.bits import u32_to_numpy
+        sha = lambda a: hashlib.sha256(a.tobytes()).hexdigest()  # noqa: E731
+        m0 = graph_m0(L ** 3)
+        h = make_engine("gibbs", self.g, coloring=self.col, rng="lfsr",
+                        replicas=2)
+        st, rec = h.run_recorded(h.eng.init_state(SEED, m0=m0, replicas=2),
+                                 ea_schedule(16), [8, 16])
+        s_sha = sha(u32_to_numpy(st.rng))
+        check(s_sha == GIBBS_GOLDEN["s_sha256"],
+              f"gibbs f32 R=2 golden sha256(LFSR) {s_sha[:16]}")
+        e_rel = float(np.max(np.abs(rec.energies.cpu().numpy()
+                                    / np.array(GIBBS_GOLDEN["energies"]) - 1)))
+        f_rel = float(np.max(np.abs(st.flips.cpu().numpy()
+                                    / np.array(GIBBS_GOLDEN["flips"]) - 1)))
+        check(e_rel < 0.005 and f_rel < 0.005,
+              f"gibbs f32 R=2 energies {rec.energies.tolist()} and flips "
+              f"{st.flips.tolist()} within 0.5% of JAX (max relative "
+              f"differences {e_rel:.3e}, {f_rel:.3e})")
+        h = make_engine("dsim", self.prob, rng="lfsr", precision="int8",
+                        replicas=2)
+        st, rec = h.run_recorded(h.eng.init_state(SEED, m0=m0, replicas=2),
+                                 ea_schedule(16), [8, 16], sync_every=SYNC)
+        check(rec.energies.tolist() == DSIM_GOLDEN["energies"] and
+              st.flips.tolist() == DSIM_GOLDEN["flips"],
+              f"dsim int8 K=8 R=2 golden energies {rec.energies.tolist()} "
+              f"and flips {st.flips.tolist()}")
+        m_sha, s_sha = sha(st.m.cpu().numpy()), sha(u32_to_numpy(st.rng))
+        check(m_sha == DSIM_GOLDEN["m_sha256"] and
+              s_sha == DSIM_GOLDEN["s_sha256"],
+              f"dsim int8 K=8 R=2 golden sha256(m) {m_sha[:16]}, "
+              f"sha256(LFSR) {s_sha[:16]}")
+
+    def graph_vs_cpu(self, label: str, kw):
+        """The first 16 sweeps of a configuration on the card against its
+        device="cpu" twin.  int8: bitwise.  f32 with LFSR: the card's
+        engine runs with every colour phase held to the twin's phase from
+        the same input (LFSR states bitwise, each differing spin within
+        TANH_ULPS ulp of its decision boundary, the twin's spins carried
+        on), and the whole run must then equal the twin's own run bitwise.
+        philox (another stream on each device): energies within 0.5%, and
+        the card's run repeated from the same state bitwise."""
+        hg, sync = self.graph_engine(kw)
+        hc, _ = self.graph_engine(kw, device="cpu")
+        held = None
+        if hg.precision == "f32" and hg.eng.rng_kind == "lfsr":
+            held = self.hold_phases(hg.eng, hc.eng)
+        try:
+            got = self.first16(hg, sync)
+        finally:
+            if held is not None:
+                del hg.eng._phase
+        want = self.first16(hc, sync)
+        (a, ea, fa), (b, eb, fb) = got, want
+        if hg.eng.rng_kind == "philox":
+            rel = float(((ea.cpu() - eb) / eb).abs().max())
+            check(rel < 0.005, f"{label}: 16 sweeps on the card vs the CPU "
+                  f"(another philox stream): energies within 0.5% "
+                  f"({rel:.2e})")
+            again = self.first16(hg, sync)
+            check(self.same(again[1], ea) and self.same(again[0].m, a.m),
+                  f"{label}: the card's philox run repeats bitwise")
+            return
+        same = all(self.same(getattr(a, f).cpu(), getattr(b, f))
+                   for f in ("m", "rng", "sweep", "flips")) and \
+            self.same(ea.cpu(), eb) and bool((fa == fb).all())
+        for f in ("E", "ghosts", "macc"):
+            if hasattr(a, f):
+                same &= self.same(getattr(a, f).cpu(), getattr(b, f))
+        what = "bitwise" if held is None else (
+            f"bitwise, each of its {held['phases']} phases held to the CPU's "
+            f"({held['differ']} decisions differed, all within {TANH_ULPS} "
+            f"ulp of the boundary)")
+        check(same, f"{label}: 16 sweeps on the card == device='cpu', "
+              f"{what} (spins, LFSR, flips, energies; E[0]="
+              f"{float(ea[0, 0])})")
+
+    def first16(self, hh, sync):
+        from repro_torch.core.annealing import ea_schedule
+        cur = hh.start_recorded(hh.init_state(seed=SEED),
+                                ea_schedule(MAIN_SWEEPS), MAIN_POINTS,
+                                sync_every=sync)
+        cur.advance(1)
+        check(cur.sweeps_done == 16 and cur.points_recorded == 1,
+              f"{hh.name} on {hh.device}: first chunk is 16 sweeps")
+        return cur.state, cur.record().energies, cur.flips_per_replica()
+
+    def hold_phases(self, eng, twin) -> dict:
+        """Wrap the card engine's colour phase: each call also runs the CPU
+        twin's phase on CPU copies of its inputs; the LFSR states must be
+        equal and every differing spin within TANH_ULPS ulp of its
+        boundary; the card then carries the twin's spins and returns its
+        counts, so the two runs cannot drift apart.  Returns the tally."""
+        t = self.torch
+        from repro_torch.core.gibbs import color_fields
+        from repro_torch.core.pbit import lfsr_next, lfsr_uniform, quantize
+        tally = {"phases": 0, "differ": 0}
+        phase = eng._phase
+        gibbs = not hasattr(eng, "_colors")
+
+        def host(x):
+            return x.to("cpu", copy=True)
+
+        def held(*args):
+            if gibbs:
+                c, m, s, gens, beta = args
+                nodes = twin._nodes[c]
+                field = color_fields(host(m), twin._idx[c], twin._w[c],
+                                     twin._h[c])
+                rest = ()
+            else:
+                col, m, ghosts, s, gens, beta, thr = args
+                k = next(i for i, x in enumerate(eng._colors) if x is col)
+                c, nodes = twin._colors[k], twin._colors[k].slots
+                field = twin._field(c, host(m), host(ghosts))
+                rest = (host(ghosts),)
+            R = m.shape[0]
+            mc, sc = host(m), host(s)
+            r = lfsr_uniform(lfsr_next(
+                sc.reshape(R, -1).index_select(1, nodes))).reshape(
+                    field.shape)
+            want = twin._phase(c, mc, *rest, sc, None, beta, *(
+                () if gibbs else (None,)))
+            got = phase(*args)
+            if not self.same(s.cpu(), sc):
+                raise CheckFailed(f"phase {tally['phases']}: LFSR states "
+                                  f"differ from the CPU's")
+            diff = (m.cpu() != mc).reshape(R, -1)
+            if bool(diff.any()):
+                th = t.tanh(quantize(beta * field, eng.fmt))
+                a = th.abs()
+                ulp = t.nextafter(a, t.full_like(a, float("inf"))) - a
+                ulps = t.full(diff.shape, float("inf"))
+                ulps.index_copy_(1, nodes, ((th + r).abs() / ulp).reshape(
+                    R, -1))
+                far = int((diff & (ulps > TANH_ULPS)).sum())
+                if far:
+                    raise CheckFailed(
+                        f"phase {tally['phases']}: {int(diff.sum())} spins "
+                        f"differ from the CPU's, {far} beyond {TANH_ULPS} "
+                        f"ulp of the boundary")
+                tally["differ"] += int(diff.sum())
+                m.copy_(mc)
+            tally["phases"] += 1
+            if gibbs:
+                return tuple(x.to(got[0].device) for x in want)
+            return want.to(got.device)
+        eng._phase = held
+        return tally
+
+    def phase_bytes(self, hh) -> float:
+        """Bytes one colour phase must move, averaged over the colours:
+        the colour's ELL rows (int32 neighbours, f32 couplings, its
+        biases) read once, every replica's spins (and on dsim its ghosts,
+        f32) read once, the colour's LFSR states read and written, its
+        spins written."""
+        R, eng = hh.replicas, hh.eng
+        if hh.name == "gibbs":
+            sites = [int(x.numel()) for x in eng._nodes]
+            D, spins = eng.g.max_degree, eng.n
+        else:
+            sites = [int(c.slots.numel()) for c in eng._colors]
+            D = int(eng.p.local_idx.shape[-1])
+            spins = eng.p.K * (eng.p.n_max + 4 * eng.p.g_max)
+        nc = sum(sites) / len(sites)
+        return nc * (8 * D + 4) + R * spins + R * nc * (4 + 4 + 1)
+
+    def profile_graph(self, label: str, card: str):
+        """One profiled run of a GRAPH_RUNS configuration: the device's
+        busy share of the wall time, device operations per colour phase,
+        the costliest operations."""
+        t = self.torch
+        from torch.autograd import DeviceType
+        from torch.profiler import ProfilerActivity, profile
+        from repro_torch.core.annealing import ea_schedule
+        hh, sync = self.graph_engine(GRAPH_RUNS[label])
+        st0 = hh.init_state(seed=SEED)
+        t.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            hh.run_recorded(st0, ea_schedule(MAIN_SWEEPS), MAIN_POINTS,
+                            sync_every=sync)
+            t.cuda.synchronize()
+            wall = time.perf_counter() - t0
+        rows = [(e.key, e.count, e.self_device_time_total)
+                for e in prof.key_averages()
+                if e.device_type == DeviceType.CUDA
+                and e.self_device_time_total > 0]
+        if not rows:
+            print(f"  profile {label}: the profiler saw no device time; "
+                  f"device busy share not measured", flush=True)
+            return
+        busy = sum(us for _, _, us in rows) / 1e6
+        ops = sum(c for _, c, _ in rows)
+        phases = MAIN_SWEEPS * self.col.n_colors
+        bound = self.phase_bytes(hh) / HBM_BYTES_PER_S
+        print(f"  profile {label}: wall {wall:.4f} s under the profiler, "
+              f"device busy {busy:.4f} s ({100 * busy / wall:.1f}%), "
+              f"{ops} device operations = {ops / phases:.1f} per colour "
+              f"phase ({phases} phases, record points included); device "
+              f"time per phase {busy / phases * 1e3:.4f} ms against a "
+              f"byte floor of {bound * 1e3:.4f} ms on {card}", flush=True)
+        for key, count, us in sorted(rows, key=lambda r: -r[2])[:8]:
+            print(f"    {us / 1e3:10.3f} ms  {count:6d} x  {key[:90]}",
+                  flush=True)
 
     def _timed(self, name, source, replaces, kernel, plain, byts, int_ops,
                f32_ops, work):

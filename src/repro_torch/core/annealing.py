@@ -1,7 +1,8 @@
 """Inverse-temperature (beta) schedules and their LUT row indices.
 
 Port of ``repro.core.annealing`` (host numpy).  EA results anneal with
-beta = 0.5, 1.0, ..., 5.0 as a staircase in sweep index; on the integer
+beta = 0.5, 1.0, ..., 5.0 and Pegasus/Zephyr/3SAT with beta = 0.5, 0.625,
+..., 10 as staircases in sweep index; on the integer
 paths a staircase becomes int32 row indices into the threshold LUT.
 """
 
@@ -9,7 +10,8 @@ from __future__ import annotations
 
 import numpy as np
 
-__all__ = ["Schedule", "ArraySchedule", "ea_schedule", "replica_beta_arrays",
+__all__ = ["Schedule", "ArraySchedule", "ea_schedule", "sat_schedule",
+           "geometric_schedule", "constant_schedule", "replica_beta_arrays",
            "beta_table", "beta_row_indices"]
 
 
@@ -84,3 +86,16 @@ def replica_beta_arrays(schedule: Schedule, replicas: int,
 
 def ea_schedule(total_sweeps: int) -> Schedule:
     return Schedule(np.arange(0.5, 5.0 + 1e-6, 0.5), total_sweeps)
+
+
+def sat_schedule(total_sweeps: int) -> Schedule:
+    return Schedule(np.arange(0.5, 10.0 + 1e-6, 0.125), total_sweeps)
+
+
+def geometric_schedule(beta0: float, beta1: float, stages: int,
+                       total_sweeps: int) -> Schedule:
+    return Schedule(np.geomspace(beta0, beta1, stages), total_sweeps)
+
+
+def constant_schedule(beta: float, total_sweeps: int) -> Schedule:
+    return Schedule(np.array([beta]), total_sweeps)

@@ -2,9 +2,10 @@
 
 from __future__ import annotations
 
+import numpy as np
 import torch
 
-__all__ = ["resolve_device"]
+__all__ = ["resolve_device", "as_numpy"]
 
 
 def resolve_device(device=None) -> torch.device:
@@ -23,3 +24,11 @@ def resolve_device(device=None) -> torch.device:
     if device.type == "cuda" and device.index is None:
         return torch.device("cuda", torch.cuda.current_device())
     return device
+
+
+def as_numpy(x) -> np.ndarray:
+    """A tensor on any device, or anything numpy takes, as a numpy array
+    (the host builders take either)."""
+    if isinstance(x, torch.Tensor):
+        return x.detach().cpu().numpy()
+    return np.asarray(x)

@@ -31,7 +31,8 @@ __all__ = ["FixedPoint", "S41", "S43", "S46", "LFSR_UNIFORM_BITS",
            "LUT_SELECT_MAX_WIDTH", "quantize", "pbit_update", "lfsr_init",
            "lfsr_next", "lfsr_uniform", "quantize_couplings",
            "field_bound", "threshold_lut", "threshold_lut_cached",
-           "bitplane_planes", "flips_publish"]
+           "lut_accept", "bitplane_planes", "flips_publish",
+           "philox_init", "philox_load", "philox_save", "philox_uniform"]
 
 
 def flips_publish(flips_i32: torch.Tensor, delta_u32: torch.Tensor):
@@ -90,10 +91,12 @@ def pbit_update(field: torch.Tensor, beta, rand_u: torch.Tensor,
     """One synchronous p-bit update of an independent (same-color) set.
 
     ``field`` is the f32 h + sum_j J_ij m_j (before beta); ``beta`` a
-    scalar or a tensor that broadcasts against it, taken as f32;
+    tensor that broadcasts against it or a scalar, taken as f32 (a Python
+    float, which must be one, multiplies with no copy to the device);
     ``rand_u`` uniform in (-1, 1).  Returns int8 spins in {-1, +1}, the
     tie going to +1."""
-    beta = torch.as_tensor(beta, dtype=torch.float32, device=field.device)
+    if not isinstance(beta, float):
+        beta = torch.as_tensor(beta, dtype=torch.float32, device=field.device)
     act = quantize(beta * field, fmt)
     return torch.where(torch.tanh(act) + rand_u >= 0, 1, -1).to(torch.int8)
 
@@ -108,6 +111,40 @@ def lfsr_init(n: int, seed: int) -> np.ndarray:
     """Nonzero uint32 states, seeded reproducibly (host-side numpy)."""
     rng = np.random.default_rng(np.uint64(seed) ^ np.uint64(0x9E3779B97F4A7C15))
     return rng.integers(1, 2 ** 32, size=n, dtype=np.uint32)
+
+
+def philox_init(seed: int, device) -> torch.Tensor:
+    """A fresh ``rng="philox"`` stream: a ``torch.Generator`` on ``device``
+    (Philox on CUDA; the CPU's generator is MT19937) seeded with ``seed``,
+    returned as its state bytes (a CPU uint8 tensor).  The stream's
+    position lives in the sampler state, so a snapshot and restore resume
+    it exactly on the same device type.  ``jax.random`` draws cannot be
+    reproduced, so this path is held to the reference only
+    statistically."""
+    g = torch.Generator(device=torch.device(device))
+    g.manual_seed(int(seed))
+    return g.get_state()
+
+
+def philox_load(states: torch.Tensor, device) -> list:
+    """(R, G) generator state bytes -> R generators on ``device``."""
+    gens = []
+    for b in states.cpu():
+        g = torch.Generator(device=torch.device(device))
+        g.set_state(b.clone())    # an owned copy: set_state ignores views
+        gens.append(g)
+    return gens
+
+
+def philox_save(gens) -> torch.Tensor:
+    """R generators -> (R, G) state bytes (CPU uint8)."""
+    return torch.stack([g.get_state() for g in gens])
+
+
+def philox_uniform(gens, shape, device) -> torch.Tensor:
+    """(R, *shape) f32 uniform in [-1, 1), replica r from ``gens[r]``."""
+    return torch.stack([torch.rand(shape, generator=g, device=device)
+                        for g in gens]) * 2.0 - 1.0
 
 
 def lfsr_next(state: torch.Tensor) -> torch.Tensor:
@@ -156,6 +193,19 @@ def field_bound(h_q, w6_q) -> int:
     for w in w6_q:
         b = b + np.abs(_host(w).astype(np.int64))
     return int(b.max())
+
+
+def lut_accept(thr: torch.Tensor, field: torch.Tensor, f_off: int,
+               u: torch.Tensor) -> torch.Tensor:
+    """The LUT accept test ``u >= thr[clip(field + f_off, 0, lw - 1)]``
+    (``thr`` one LUT row, as integers).  The reference counts the row
+    entries ``u`` satisfies instead of gathering (Mosaic cannot gather);
+    each row is monotone non-increasing in the field, so the direct
+    lookup gives the same bits, the clip included: a field below or above
+    the row's ends reads its first or last entry."""
+    lw = int(thr.shape[0])
+    idx = torch.clamp(field + f_off, 0, lw - 1).long()
+    return u >= thr[idx]
 
 
 def bitplane_planes(h_q, w6_q):

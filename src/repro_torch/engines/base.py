@@ -11,17 +11,19 @@ from __future__ import annotations
 
 import dataclasses
 import time
-from typing import Any, Callable, List, Optional, Sequence, Union
+from typing import (Any, Callable, List, Optional, Protocol, Sequence, Union,
+                    runtime_checkable)
 
 import numpy as np
 import torch
 
 from repro_torch.core.packing import LANE_WIDTH, MAX_LANE_WORDS
 
-__all__ = ["RunRecord", "SyncSpec", "chunk_plan", "run_recorded_driver",
-           "RecordedCursor", "spawn_seeds", "flips_chunk_cap",
-           "quantize_record_points", "PRECISIONS", "ENGINE_PRECISIONS",
-           "check_precision", "check_lanes"]
+__all__ = ["Engine", "RunRecord", "SyncSpec", "chunk_plan",
+           "run_recorded_driver", "RecordedCursor", "spawn_seeds",
+           "stack_states", "flips_chunk_cap", "quantize_record_points",
+           "PRECISIONS", "ENGINE_PRECISIONS", "lanes_of", "check_precision",
+           "check_lanes"]
 
 SyncSpec = Union[int, str, None]
 
@@ -34,6 +36,12 @@ ENGINE_PRECISIONS = {
     "dsim_dist": ("f32", "int8", "bitplane"),
     "lattice": ("f32", "int8", "bitplane"),
 }
+
+
+def lanes_of(precision: str) -> int:
+    """Replica lanes one engine call packs per word (1 off the bitplane
+    path)."""
+    return LANE_WIDTH if precision == "bitplane" else 1
 
 
 def check_lanes(precision: str, replicas: int,
@@ -68,6 +76,28 @@ def check_precision(engine: str, precision: str):
             f"{engine!r} (supported: {', '.join(ok)})"
             + ("; bit-plane multi-spin coding is a lattice/dsim_dist path"
                if precision == "bitplane" else ""))
+
+
+@runtime_checkable
+class Engine(Protocol):
+    """What every sampling handle exposes to callers.  ``replicas`` (R) is
+    fixed at construction; traces are per replica."""
+
+    replicas: int
+    n_sites: int
+
+    def init_state(self, seed: int = 0) -> Any:
+        """Fresh replicated sampler state (R independent RNG streams)."""
+
+    def run_recorded(self, state, schedule, record_points: Sequence[int],
+                     sync_every: SyncSpec = 1):
+        """Run to each record point; returns (state, RunRecord)."""
+
+    def energy(self, state) -> torch.Tensor:
+        """(R,) true global energies of the current configurations."""
+
+    def global_spins(self, state) -> torch.Tensor:
+        """(R, N) spins in the original problem's node order."""
 
 
 @dataclasses.dataclass
@@ -384,3 +414,15 @@ def spawn_seeds(seed: int, replicas: int) -> List[int]:
     ss = np.random.SeedSequence(seed)
     return [int(child.generate_state(1)[0] & 0x7FFFFFFF)
             for child in ss.spawn(replicas)]
+
+
+def stack_states(states: Sequence[Any]):
+    """Stack per-replica dataclass states along a new leading replica axis
+    (every tensor field; the others must agree and are kept)."""
+    first = states[0]
+    out = {}
+    for f in dataclasses.fields(first):
+        vals = [getattr(st, f.name) for st in states]
+        out[f.name] = torch.stack(vals) if isinstance(vals[0], torch.Tensor) \
+            else vals[0]
+    return type(first)(**out)

@@ -2,9 +2,12 @@
 
 The port builds the lattice engine at ``precision="f32"`` (the default),
 ``"int8"`` and ``"bitplane"``, fused or per phase, as one brick or, with
-a mesh, as bricks in one process or one per rank of a process group.  Everything
-else the reference's factory offers raises ``NotImplementedError`` naming
-the ROADMAP.md item that brings it; nothing is substituted.
+a mesh, as bricks in one process or one per rank of a process group; the
+monolithic Gibbs engine (``"gibbs"``, f32); and the partitioned
+DSIM/CMFT engine (``"dsim"``, f32 and int8).  Everything else the
+reference's factory offers (``"dsim_dist"``, ``degrade=``) raises
+``NotImplementedError`` naming the ROADMAP.md item that brings it;
+nothing is substituted.
 """
 
 from __future__ import annotations
@@ -14,9 +17,14 @@ from typing import Optional, Sequence
 import numpy as np
 import torch
 
-from repro_torch.core.coloring import Coloring
+from repro_torch.core.coloring import Coloring, greedy_coloring
+from repro_torch.core.dsim import (DSIMEngine, PartitionedProblem,
+                                   build_partitioned)
+from repro_torch.core.gibbs import GibbsEngine
+from repro_torch.core.graph import IsingGraph
 from repro_torch.core.lattice import LatticeProblem, build_ea3d_lattice
 from repro_torch.core.lattice_dsim import LatticeDSIM
+from repro_torch.core.partition import greedy_partition
 from repro_torch.core.snapshot import restore_state, snapshot_state
 from .base import RunRecord, SyncSpec, check_lanes, check_precision
 
@@ -115,32 +123,25 @@ class HandleCursor:
         return self
 
 
-class _LatticeHandle:
-    """The uniform engine surface over :class:`LatticeDSIM`."""
+class _Handle:
+    """The uniform engine surface over one engine instance."""
 
-    name = "lattice"
+    name: str = ""
 
-    def __init__(self, eng: LatticeDSIM, replicas: int, n_sites: int):
+    def __init__(self, eng, replicas: int, n_sites: int):
         self.eng = eng
         self.replicas = int(replicas)
         self.n_sites = int(n_sites)
 
     @property
     def precision(self) -> str:
-        return self.eng.precision
+        return getattr(self.eng, "precision", "f32")
 
     @property
-    def kernel_path(self) -> str:
-        return self.eng.kernel_path
-
-    @property
-    def fused_requested(self) -> bool:
-        return self.eng.fused_requested
-
-    @property
-    def fallback_reason(self) -> Optional[str]:
-        """Why a fused request runs per phase ("kernel_bx"), or None."""
-        return self.eng.fallback_reason
+    def kernel_path(self) -> Optional[str]:
+        """Which lattice dispatch runs ("fused"/"per_phase"); None for
+        engines without that split."""
+        return getattr(self.eng, "kernel_path", None)
 
     @property
     def device(self) -> torch.device:
@@ -157,18 +158,73 @@ class _LatticeHandle:
                 f"need exactly R={self.replicas} seeds, got {len(seeds)}")
         return self.eng.init_state(seeds=seeds)
 
+    def _recorded(self, state, schedule, record_points, sync_every, cursor):
+        return self.eng.run_recorded_full(state, schedule, record_points,
+                                          sync_every=sync_every,
+                                          cursor=cursor)
+
     def run_recorded(self, state, schedule, record_points: Sequence[int],
                      sync_every: SyncSpec = 1):
-        state, rec = self.eng.run_recorded_full(
-            state, schedule, record_points, sync_every=sync_every)
+        state, rec = self._recorded(state, schedule, record_points,
+                                    sync_every, cursor=False)
         return state, RunRecord(rec.times, _as_2d(rec.energies), rec.flips)
 
     def start_recorded(self, state, schedule, record_points: Sequence[int],
                        sync_every: SyncSpec = 1) -> HandleCursor:
         """Begin (not run) a recorded anneal; returns a resumable cursor."""
-        cur = self.eng.run_recorded_full(state, schedule, record_points,
-                                         sync_every=sync_every, cursor=True)
+        cur = self._recorded(state, schedule, record_points, sync_every,
+                             cursor=True)
         return HandleCursor(cur, self.replicas, handle=self)
+
+    def snapshot(self, state):
+        """Host-side owned copy of a state (see core.snapshot)."""
+        return snapshot_state(state)
+
+    def restore(self, snap):
+        """Snapshot -> live state on the engine's device."""
+        return restore_state(snap, self.eng.device)
+
+    def energy(self, state) -> torch.Tensor:
+        return torch.atleast_1d(self.eng.energy(state))
+
+    def global_spins(self, state) -> torch.Tensor:
+        return torch.atleast_2d(self.eng.global_spins(state))
+
+    def __repr__(self):
+        return (f"<engine {self.name!r} n={self.n_sites} "
+                f"R={self.replicas} {self.precision} on {self.device}>")
+
+
+class _BatchedStateHandle(_Handle):
+    """gibbs/dsim: the replica axis lives on the state, not the engine;
+    R=1 keeps the unbatched state."""
+
+    def init_state(self, seed: int = 0):
+        return self.eng.init_state(
+            seed, replicas=None if self.replicas == 1 else self.replicas)
+
+
+class _GibbsHandle(_BatchedStateHandle):
+    name = "gibbs"
+
+
+class _DSIMHandle(_BatchedStateHandle):
+    name = "dsim"
+
+
+class _LatticeHandle(_Handle):
+    """The uniform engine surface over :class:`LatticeDSIM`."""
+
+    name = "lattice"
+
+    @property
+    def fused_requested(self) -> bool:
+        return self.eng.fused_requested
+
+    @property
+    def fallback_reason(self) -> Optional[str]:
+        """Why a fused request runs per phase ("kernel_bx"), or None."""
+        return self.eng.fallback_reason
 
     def snapshot(self, state):
         """Host-side owned copy of a state in the reference's global
@@ -180,15 +236,24 @@ class _LatticeHandle:
         on a mesh)."""
         return self.eng.shard_state(restore_state(snap, self.eng.device))
 
-    def energy(self, state) -> torch.Tensor:
-        return torch.atleast_1d(self.eng.energy(state))
 
-    def global_spins(self, state) -> torch.Tensor:
-        return torch.atleast_2d(self.eng.global_spins(state))
+def _default_coloring(g: IsingGraph, coloring: Optional[Coloring]) -> Coloring:
+    if coloring is not None:
+        return coloring
+    return greedy_coloring(g.idx, g.w)
 
-    def __repr__(self):
-        return (f"<engine {self.name!r} n={self.n_sites} "
-                f"R={self.replicas} {self.precision} on {self.device}>")
+
+def _default_partitioned(graph, coloring, K, labels) -> PartitionedProblem:
+    if isinstance(graph, PartitionedProblem):
+        return graph
+    if not isinstance(graph, IsingGraph):
+        raise ValueError("dsim engine needs an IsingGraph or a "
+                         "PartitionedProblem")
+    col = _default_coloring(graph, coloring)
+    K = 4 if K is None else int(K)
+    if labels is None:
+        labels = greedy_partition(graph.idx, graph.w, K, seed=0)
+    return build_partitioned(graph, col, np.asarray(labels, np.int32), K)
 
 
 def make_engine(name: str, graph=None, *, coloring: Optional[Coloring] = None,
@@ -205,31 +270,59 @@ def make_engine(name: str, graph=None, *, coloring: Optional[Coloring] = None,
     """Build a sampling engine by name (the reference's signature plus
     ``device``; CUDA unless ``device="cpu"``, raising without CUDA).
 
+    "gibbs" — monolithic chromatic Gibbs over ``graph`` (an
+    :class:`IsingGraph`; ``coloring`` defaults to the greedy one), f32,
+    ``rng`` "philox" or "lfsr", ``fmt`` the activation format.
+    "dsim" — the partitioned sampler over ``graph`` (or a prebuilt
+    :class:`PartitionedProblem`): ``K`` partitions (default 4) cut by
+    ``labels`` (default ``greedy_partition(..., seed=0)``), ``mode``
+    "dsim" or "cmft", ``precision`` "f32" or "int8" (lfsr, dsim mode);
+    ``run_recorded``'s ``sync_every`` sets the staleness.
     "lattice" — the brick-partitioned EA3D lattice: pass ``lattice=`` a
     LatticeProblem or ``L=`` to build one from ``seed``; ``precision``
-    "f32", "int8" or "bitplane"; ``replicas=R`` chains per call (bit lanes
-    on the bitplane path); ``fused=False`` or ``kernel_bx`` for the
+    "f32", "int8" or "bitplane"; ``fused=False`` or ``kernel_bx`` for the
     per-phase kernels.  With no ``mesh`` it is one brick on one GPU; a
     ``mesh`` from ``repro_torch.core.mesh.make_mesh`` with ``dim_axes``
     (the mesh axis, or None, of x, y and z) cuts it into bricks, all on
     one device or one per rank of the mesh's process group, with
     ``bitpack_halos`` the reference's 1-bit halo wire.  ``impl`` "auto" |
-    "cuda" | "ref".  ``rng`` and ``axis`` do not change a lattice run;
-    ``graph``, ``coloring``, ``K``, ``labels``, ``mode`` and ``bitpack``
-    belong to the other engines.
+    "cuda" | "ref".
+
+    ``replicas=R`` makes every handle run R independent chains per call.
     """
     if name not in ENGINE_NAMES:
         raise ValueError(f"unknown engine {name!r}; choose from {ENGINE_NAMES}")
-    if name != "lattice":
+    if name == "dsim_dist":
         raise NotImplementedError(
-            f"engine {name!r} is not ported yet: ROADMAP.md queue A item 7 "
-            f"(off-main-path engines)")
+            "engine 'dsim_dist' is not ported yet: ROADMAP.md queue A item "
+            "7 (its remainder: dsim_dist with queue B item 7)")
+    if replicas < 1:
+        raise ValueError("replicas must be >= 1")
     check_precision(name, precision)
     check_lanes(precision, replicas)
     if degrade is not None:
+        if name != "lattice":
+            raise ValueError(
+                f"degrade policies apply to the mesh engines "
+                f"(dsim_dist, lattice), not {name!r}")
         raise NotImplementedError(
             "degrade policies come with the degraded mesh: ROADMAP.md "
             "queue A item 9")
+
+    if name == "gibbs":
+        if not isinstance(graph, IsingGraph):
+            raise ValueError("gibbs engine needs an IsingGraph")
+        eng = GibbsEngine(graph, _default_coloring(graph, coloring),
+                          rng=rng, fmt=fmt, device=device)
+        return _GibbsHandle(eng, replicas, graph.n)
+
+    if name == "dsim":
+        prob = _default_partitioned(graph, coloring, K, labels)
+        eng = DSIMEngine(prob, rng=rng, fmt=fmt, mode=mode,
+                         precision=precision, device=device)
+        return _DSIMHandle(eng, replicas, prob.n)
+
+    # name == "lattice"
     if vmem_budget_bytes is not None:
         raise ValueError(
             "vmem_budget_bytes sizes the TPU kernel's VMEM working set; the "

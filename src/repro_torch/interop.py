@@ -1,9 +1,11 @@
 """Parameters across packages: numpy arrays in, the port's objects out.
 
-The reference's ``LatticeProblem`` / ``LatticeState`` /
-``BitplaneLatticeState`` fields, given as numpy arrays, become the port's
-problem and states (and back), so both packages can compute the same thing
-from the same data.  States cross in the reference's global shapes: a
+The reference's ``IsingGraph``, ``LatticeProblem``, and its ``LatticeState``
+/ ``BitplaneLatticeState`` / ``GibbsState`` / ``DSIMState`` fields, given
+as numpy arrays, become the port's graph, problem and states (and back),
+so both packages can compute the same thing from the same data.  A
+``rng="philox"`` state cannot cross: a ``jax.random`` key and a
+``torch.Generator`` are different streams.  States cross in the reference's global shapes: a
 mesh engine's ``shard_state`` cuts one into its bricks, and a
 ``BrickState`` of a one-process mesh is joined back.  The dtypes are the reference's: int8 spins, uint32
 LFSR states and words, f32 couplings, int32 counters.
@@ -17,12 +19,29 @@ import numpy as np
 import torch
 
 from repro_torch.core.device import resolve_device
+from repro_torch.core.dsim import DSIMState
+from repro_torch.core.gibbs import GibbsState
+from repro_torch.core.graph import IsingGraph
 from repro_torch.core.lattice import LatticeProblem
 from repro_torch.core.lattice_dsim import (BitplaneLatticeState, BrickState,
                                            LatticeState, join_bricks)
 from repro_torch.core.snapshot import restore_state, snapshot_state
 
-__all__ = ["problem_from_numpy", "state_from_numpy", "state_to_numpy"]
+__all__ = ["graph_from_numpy", "problem_from_numpy", "state_from_numpy",
+           "state_to_numpy"]
+
+_PHILOX = ("a rng='philox' state cannot cross between the packages: a "
+           "jax.random key and a torch.Generator are different streams; "
+           "use rng='lfsr'")
+
+
+def graph_from_numpy(idx, w, h, meta=None, device=None) -> IsingGraph:
+    """The reference ``IsingGraph``'s ELL arrays (numpy) -> the port's
+    graph on ``device`` (CUDA unless ``device="cpu"``)."""
+    dev = resolve_device(device)
+    as_t = lambda a, dt: torch.from_numpy(np.array(a, dt)).to(dev)  # noqa: E731
+    return IsingGraph(idx=as_t(idx, np.int32), w=as_t(w, np.float32),
+                      h=as_t(h, np.float32), meta=dict(meta or {}))
 
 
 def problem_from_numpy(*, L, dims, seed, n_colors, h, w6, masks, active,
@@ -38,27 +57,53 @@ def problem_from_numpy(*, L, dims, seed, n_colors, h, w6, masks, active,
         masks=as_t(masks, np.int8), active=as_t(active, np.int8))
 
 
-def state_from_numpy(*, m, s, halos, sweep, flips, device=None):
+def state_from_numpy(*, device=None, **fields):
     """A reference state's fields (numpy) -> the port's state on
-    ``device``: uint32 words in ``m`` give a ``BitplaneLatticeState``,
-    int8 spins a ``LatticeState``."""
-    m = np.asarray(m)
-    if m.dtype == np.uint32:
-        cls = BitplaneLatticeState
-    elif m.dtype == np.int8:
-        cls = LatticeState
+    ``device``.  The field names pick the state: ``m, s, halos, sweep,
+    flips`` a lattice state (uint32 words in ``m`` a
+    ``BitplaneLatticeState``, int8 spins a ``LatticeState``); ``m, rng, E,
+    sweep, flips`` a ``GibbsState``; ``m, ghosts, macc, rng, sweep,
+    flips`` a ``DSIMState``.  An ``rng`` that is not one uint32 LFSR
+    state per spin (a philox key) raises."""
+    keys = set(fields)
+    m = np.asarray(fields["m"])
+    if keys == {"m", "s", "halos", "sweep", "flips"}:
+        if m.dtype == np.uint32:
+            cls = BitplaneLatticeState
+        elif m.dtype == np.int8:
+            cls = LatticeState
+        else:
+            raise TypeError(
+                f"m must be int8 spins or uint32 words, got {m.dtype}")
+        snap = cls(m=m, s=np.asarray(fields["s"], np.uint32),
+                   halos=tuple(np.asarray(h, m.dtype)
+                               for h in fields["halos"]),
+                   sweep=np.asarray(fields["sweep"], np.int32),
+                   flips=np.asarray(fields["flips"], np.int32))
+        return restore_state(snap, resolve_device(device))
+    if keys == {"m", "rng", "E", "sweep", "flips"}:
+        cls, extra = GibbsState, {"E": np.asarray(fields["E"], np.float32)}
+    elif keys == {"m", "ghosts", "macc", "rng", "sweep", "flips"}:
+        cls, extra = DSIMState, {
+            "ghosts": np.asarray(fields["ghosts"], np.float32),
+            "macc": np.asarray(fields["macc"], np.float32)}
     else:
-        raise TypeError(f"m must be int8 spins or uint32 words, got {m.dtype}")
-    snap = cls(m=m, s=np.asarray(s, np.uint32),
-               halos=tuple(np.asarray(h, m.dtype) for h in halos),
-               sweep=np.asarray(sweep, np.int32),
-               flips=np.asarray(flips, np.int32))
+        raise TypeError(f"no state of the port has the fields {sorted(keys)}")
+    rng = np.asarray(fields["rng"])
+    if rng.dtype != np.uint32 or rng.shape != m.shape:
+        raise ValueError(_PHILOX)
+    snap = cls(m=np.asarray(m, np.int8), rng=rng,
+               sweep=np.asarray(fields["sweep"], np.int32),
+               flips=np.asarray(fields["flips"], np.int32), **extra)
     return restore_state(snap, resolve_device(device))
 
 
 def state_to_numpy(state) -> dict:
     """The port's state -> a dict of the reference field names with owned
     numpy arrays (``halos`` a tuple), in the reference's global shapes."""
+    if isinstance(state, (GibbsState, DSIMState)) and \
+            state.rng.dtype == torch.uint8:
+        raise ValueError(_PHILOX)
     if isinstance(state, BrickState):
         state = join_bricks(state)
     snap = snapshot_state(state)

@@ -803,3 +803,104 @@ def test_cuda_mesh_equals_plain(cuda, monkeypatch, prec, R, shape, fused):
         for x, y in zip((sa.m, sa.s, sa.flips) + sa.halos,
                         (sb.m, sb.s, sb.flips) + sb.halos):
             assert_bitwise((x,), (y,))
+
+
+# -- the general-graph engines on the card against device="cpu" -----------------
+#
+# gibbs and dsim are PyTorch operations (no hand kernel): on the card they
+# must equal the same engine on the CPU.  int8 dsim bitwise; f32 with LFSR
+# the LFSR states bitwise and the spins equal except where CUDA's tanhf
+# and the CPU's tanh decide a site within a few ulp of its boundary (at
+# most 1% of the spins; with none differing, everything bitwise).
+
+def graph_problem(kind):
+    from repro_torch.core.coloring import greedy_coloring, lattice3d_coloring
+    from repro_torch.core.dsim import build_partitioned
+    from repro_torch.core.graph import ea3d, random_regular
+    from repro_torch.core.partition import brick_partition, greedy_partition
+    if kind == "ea3d":
+        g, col = ea3d(6, seed=1, device="cpu"), lattice3d_coloring(6)
+        labels, K = brick_partition((6, 6, 6), (2, 2, 1)), 4
+    else:
+        g = random_regular(60, 4, seed=3, device="cpu")
+        col = greedy_coloring(g.idx, g.w)
+        labels, K = greedy_partition(g.idx, g.w, 3, seed=0), 3
+    return g, col, build_partitioned(g, col, labels, K)
+
+
+def graph_runs(name, kind, sync, devices, **kw):
+    from repro_torch import make_engine
+    from repro_torch.core.annealing import ea_schedule
+    g, col, prob = graph_problem(kind)
+    out = {}
+    for dev in devices:
+        h = make_engine(name, g if name == "gibbs" else prob,
+                        coloring=col if name == "gibbs" else None,
+                        replicas=3, device=dev, **kw)
+        assert h.device.type == torch.device(dev).type
+        st, rec = h.run_recorded(h.init_state(seed=2), ea_schedule(24),
+                                 [8, 24], sync_every=sync)
+        out[torch.device(dev).type] = (st, rec)
+    return out
+
+
+def assert_graph_runs_agree(out, fields, f32):
+    (sc, rc), (sg, rg) = out["cpu"], out["cuda"]
+    if f32:
+        assert_bitwise((sg.rng,), (sc.rng,))
+        differ = N(sg.m) != N(sc.m)
+        assert differ.mean() <= 0.01
+        if differ.any():
+            return
+    for f in fields:
+        assert_bitwise((getattr(sg, f),), (getattr(sc, f),))
+    assert torch.equal(rg.energies.cpu(), rc.energies) and \
+        rg.flips == rc.flips
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("fmt", [None, t_pbit.S41])
+@pytest.mark.parametrize("kind", ["ea3d", "regular"])
+def test_cuda_gibbs_matches_cpu(cuda, kind, fmt):
+    out = graph_runs("gibbs", kind, 1, ("cpu", cuda), rng="lfsr", fmt=fmt)
+    assert_graph_runs_agree(out, ("m", "rng", "E", "sweep", "flips"), True)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("sync", ["phase", 1, 4, None])
+@pytest.mark.parametrize("kind", ["ea3d", "regular"])
+def test_cuda_dsim_int8_matches_cpu_bitwise(cuda, kind, sync):
+    out = graph_runs("dsim", kind, sync, ("cpu", cuda), rng="lfsr",
+                     precision="int8")
+    assert_graph_runs_agree(
+        out, ("m", "ghosts", "macc", "rng", "sweep", "flips"), False)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("mode,sync", [("dsim", 4), ("cmft", 4),
+                                       ("cmft", 8)])
+def test_cuda_dsim_f32_matches_cpu(cuda, mode, sync):
+    out = graph_runs("dsim", "regular", sync, ("cpu", cuda), rng="lfsr",
+                     mode=mode)
+    assert_graph_runs_agree(
+        out, ("m", "ghosts", "macc", "rng", "sweep", "flips"), True)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", ["gibbs", "dsim"])
+def test_cuda_graph_engines_philox_resume_bitwise(cuda, name):
+    """philox on the card: a snapshot restored, and the same start run
+    twice, continue bitwise (the stream's position is in the state)."""
+    from repro_torch import make_engine
+    from repro_torch.core.annealing import ea_schedule
+    g, col, prob = graph_problem("ea3d")
+    h = make_engine(name, g if name == "gibbs" else prob,
+                    coloring=col if name == "gibbs" else None,
+                    rng="philox", replicas=2)
+    assert h.device.type == "cuda"
+    st0 = h.init_state(seed=4)
+    a, ra = h.run_recorded(st0, ea_schedule(16), [8, 16], sync_every=4)
+    b, rb = h.run_recorded(h.restore(h.snapshot(st0)), ea_schedule(16),
+                           [8, 16], sync_every=4)
+    assert torch.equal(a.m, b.m) and torch.equal(ra.energies, rb.energies)
+    assert torch.equal(h.energy(a), ra.energies[-1])

@@ -3,7 +3,10 @@
 ``chip_smoke.py`` holds the card to the JAX reference at full width through
 constants: energies, per-replica flips and sha256 digests of the spins and
 LFSR states after 16 sweeps (int8), and energies and flips at the f32
-default, whose LFSR digest is the int8 one.  This test recomputes them with the JAX
+default, whose LFSR digest is the int8 one; the same for the reference's
+(2,2,2) mesh; and for its general-graph engines on the same instance
+(f32 ``GibbsEngine``, int8 ``DSIMEngine`` on K=8 bricks), started from the
+script's ``graph_m0`` spins.  This test recomputes them with the JAX
 package on the CPU, so they cannot drift from the reference.
 """
 
@@ -117,3 +120,51 @@ def test_mesh_golden_values_match_jax_on_8_devices():
         assert out[prec]["energies"] == golden["energies"]
         assert out[prec]["flips"] == golden["flips"]
         assert out[prec]["s_sha256"] == golden["s_sha256"]
+
+
+def graph_engines_jax():
+    from repro.core.coloring import lattice3d_coloring
+    from repro.core.graph import ea3d
+    smoke = chip_smoke()
+    return smoke, ea3d(smoke.L, seed=smoke.SEED), \
+        lattice3d_coloring(smoke.L), smoke.graph_m0(smoke.L ** 3)
+
+
+def test_gibbs_golden_values_match_jax():
+    """``GIBBS_GOLDEN``: the reference's f32 Gibbs engine at L=100 (R=2,
+    lfsr, every replica from graph_m0); the card holds its LFSR digest
+    exactly and its energies and flips to 0.5%."""
+    from repro.core.gibbs import GibbsEngine
+    smoke, g, col, m0 = graph_engines_jax()
+    eng = GibbsEngine(g, col, rng="lfsr")
+    st = eng.init_state(seed=smoke.SEED, m0=m0, replicas=2)
+    st, rec = eng.run_recorded_full(st, ea_schedule(16), [8, 16])
+    golden = smoke.GIBBS_GOLDEN
+    assert np.asarray(rec.energies).tolist() == golden["energies"]
+    assert np.asarray(st.flips).tolist() == golden["flips"]
+    s = np.asarray(st.rng)
+    assert s.shape == (2, smoke.L ** 3) and s.dtype == np.uint32
+    assert hashlib.sha256(s.tobytes()).hexdigest() == golden["s_sha256"]
+
+
+def test_dsim_golden_values_match_jax():
+    """``DSIM_GOLDEN``: the reference's int8 DSIM engine at L=100 on the
+    (2,2,2) brick partition (K=8, sync_every=SYNC, R=2, lfsr, every
+    replica from graph_m0), held bitwise on the card."""
+    from repro.core.dsim import DSIMEngine, build_partitioned
+    from repro.core.partition import brick_partition
+    smoke, g, col, m0 = graph_engines_jax()
+    L = smoke.L
+    prob = build_partitioned(g, col, brick_partition((L, L, L),
+                                                     smoke.BRICKS), 8)
+    eng = DSIMEngine(prob, rng="lfsr", precision="int8")
+    st = eng.init_state(seed=smoke.SEED, m0=m0, replicas=2)
+    st, rec = eng.run_recorded(st, ea_schedule(16), [8, 16],
+                               sync_every=smoke.SYNC)
+    golden = smoke.DSIM_GOLDEN
+    assert np.asarray(rec.energies).tolist() == golden["energies"]
+    assert np.asarray(st.flips).tolist() == golden["flips"]
+    m, s = np.asarray(st.m), np.asarray(st.rng)
+    assert m.shape == s.shape == (2, 8, L ** 3 // 8)
+    assert hashlib.sha256(m.tobytes()).hexdigest() == golden["m_sha256"]
+    assert hashlib.sha256(s.tobytes()).hexdigest() == golden["s_sha256"]

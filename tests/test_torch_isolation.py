@@ -74,9 +74,13 @@ def test_entry_points_raise_without_cuda():
         "import torch\n"
         "assert not torch.cuda.is_available()\n"
         "from repro_torch import make_engine\n"
+        "from repro_torch.core.graph import ea3d\n"
         "from repro_torch.core.lattice import build_ea3d_lattice\n"
+        "g = ea3d(3, device='cpu')\n"
         "for fn in (lambda: make_engine('lattice', L=4, precision='int8'),\n"
-        "           lambda: build_ea3d_lattice(4)):\n"
+        "           lambda: build_ea3d_lattice(4), lambda: ea3d(3),\n"
+        "           lambda: make_engine('gibbs', g),\n"
+        "           lambda: make_engine('dsim', g, K=2)):\n"
         "    try:\n"
         "        fn()\n"
         "    except RuntimeError as e:\n"
@@ -84,6 +88,8 @@ def test_entry_points_raise_without_cuda():
         "    else:\n"
         "        raise SystemExit('ran without CUDA')\n"
         "h = make_engine('lattice', L=4, precision='int8', device='cpu')\n"
+        "for name in ('gibbs', 'dsim'):\n"
+        "    assert make_engine(name, g, device='cpu').device.type == 'cpu'\n"
         "print('CPU', h.device)\n")
     out = run_python(code)
     assert out.returncode == 0, out.stderr
