@@ -69,9 +69,25 @@ Phases; every check raises on failure and the script then exits non-zero:
    PyTorch operations), and one profiled run of each engine (device
    busy share, device operations and time per colour phase beside the
    phase's byte floor);
-7. print one JSON line of kernels (``launches`` over the main and mesh
-   paths, ``mesh_launches`` the mesh path's), the card's name and power
-   limit, and last ``{"ok": true, "device": {...}}``.
+7. drive the distributed DSIM, ``make_engine("dsim_dist", partitioned)``
+   with every one of the K=8 partitions on the card: the ELL word
+   gather-count kernel against its plain version bitwise (at the L=100
+   operands of each colour, and at D = 3, 4 and 12 on random rows), the
+   JAX reference's golden values (int8 R=2 and bit-plane R=32 lanes 0-1
+   reproduce ``DSIM_GOLDEN``, f32 R=2 ``DIST_GOLDEN`` within 0.5% with its
+   LFSR digest), every ``DIST_RUNS`` configuration against its
+   ``device="cpu"`` twin over 16 sweeps (int8 and bit-plane bitwise, f32
+   phase by phase as in phase 6), then timed (two runs each; the
+   bit-plane run launches the gather-count once per colour phase, no run
+   launches a lattice kernel), the exchange's time per call and the
+   measured eta (``dist_eta_meter``) at ``sync_every`` 1 and 8, one
+   profiled bit-plane run (device busy share, the gather-count's share of
+   the device time) and the gather-count timed against its plain version
+   and its bound;
+8. print one JSON line of kernels (``launches`` over the main and mesh
+   paths, and the bit-plane dist run's for the gather-count;
+   ``mesh_launches`` the mesh path's), the card's name and power limit,
+   and last ``{"ok": true, "device": {...}}``.
 
 It exits non-zero, printing no result, where CUDA is absent or the
 script stands outside a checkout of the repository.
@@ -107,8 +123,12 @@ MAIN_RUNS = {
 }
 PROFILED = ("int8 R=4", "bitplane R=64", "f32 R=4", "f32 s41 R=4",
             "int8 per-phase R=4", "f32 per-phase bx R=4")
-KERNELS = ("pbit_brick_sweep_int", "pbit_bitplane_sweep", "brick_energy",
-           "pbit_brick_sweep", "pbit_brick_update_int", "pbit_brick_update")
+LATTICE_KERNELS = ("pbit_brick_sweep_int", "pbit_bitplane_sweep",
+                   "brick_energy", "pbit_brick_sweep", "pbit_brick_update_int",
+                   "pbit_brick_update")
+# the kernels line: the six lattice kernels and the ELL word gather-count
+# of the distributed DSIM's bit-plane path (phase 7)
+KERNELS = LATTICE_KERNELS + ("bitplane_gather_count",)
 # an f32 site may be decided differently from the plain version only
 # within this many ulp of tanh(act) of its boundary
 TANH_ULPS = 8
@@ -206,6 +226,36 @@ DSIM_GOLDEN = {
                 "d911c468f9690220aa38ffbfbb24657a",
     "s_sha256": "fb1e5f4bbba32792de4c54c18737f3ea"
                 "b46dce4046fd6572679d8124a6e8f48a",
+}
+
+# The distributed DSIM on the same K=8 brick partition, every partition on
+# the card (make_engine("dsim_dist") with no mesh), rng="lfsr", each at
+# full width over ea_schedule(MAIN_SWEEPS) from init_state(seed=SEED),
+# record points MAIN_POINTS; "sync" is run_recorded's sync_every.
+DIST_RUNS = {
+    "dsim_dist int8 R=4 K=8": dict(replicas=4, precision="int8", sync=SYNC),
+    "dsim_dist int8 R=4 K=8 phase": dict(replicas=4, precision="int8",
+                                         sync="phase"),
+    "dsim_dist bitplane R=64 K=8": dict(replicas=64, precision="bitplane",
+                                        sync=SYNC),
+    "dsim_dist f32 R=4 K=8": dict(replicas=4, sync=SYNC),
+    "dsim_dist cmft f32 R=4 K=8": dict(replicas=4, mode="cmft", sync=SYNC),
+}
+DIST_ETA_RUN = "dsim_dist int8 R=4 K=8"
+DIST_PROFILED = "dsim_dist bitplane R=64 K=8"
+# the gather-count is also held to its plain version at these degrees
+GATHER_DEGREES = (3, 4, 12)
+# The JAX reference's DistDSIMEngine on 8 forced host devices, f32
+# (bitpack), rng="lfsr", R=2, sync_every=SYNC, every replica started from
+# graph_m0(L^3), ea_schedule(16), record points [8, 16]; s_sha256 digests
+# its (K, R, n_max) LFSR states, the stream lfsr_init(K*R*n_max, SEED).
+# Its int8 run reproduces DSIM_GOLDEN.  tests/test_torch_golden.py
+# recomputes these from the JAX package.
+DIST_GOLDEN = {
+    "energies": [[-1572182.0, -1571498.0], [-1631570.0, -1631110.0]],
+    "flips": [1391410, 1393303],
+    "s_sha256": "55d48bd5a64cf87bcc8904e204c4f4b7"
+                "207778984a7f44badfdb469252d3ac3f",
 }
 
 
@@ -342,6 +392,7 @@ class Smoke:
         self.phase_mesh(card)
         self.phase_timing(card)
         self.phase_graph(card)
+        self.phase_dist(card)
         for k in KERNELS:
             self.results[k]["mesh_launches"] = self.mesh_launches[k]
         print(json.dumps({"kernels": [self.results[k] for k in KERNELS]}))
@@ -1046,7 +1097,7 @@ class Smoke:
                 check(counts.get("brick_energy:bitplane", 0) == n_energy and
                       unpacked[0] == 0, f"{label}: every energy read from "
                       f"the word planes; lanes unpacked {unpacked[0]} times")
-        for name in KERNELS:
+        for name in LATTICE_KERNELS:
             check(self.launches[name] > 0,
                   f"main path launched {name} {self.launches[name]} times")
         self.handles, self.inits = handles, inits
@@ -1776,35 +1827,34 @@ class Smoke:
         def held(*args):
             if gibbs:
                 c, m, s, gens, beta = args
-                nodes = twin._nodes[c]
+                sites = twin._nodes[c]
                 field = color_fields(host(m), twin._idx[c], twin._w[c],
                                      twin._h[c])
                 rest = ()
             else:
                 col, m, ghosts, s, gens, beta, thr = args
                 k = next(i for i, x in enumerate(eng._colors) if x is col)
-                c, nodes = twin._colors[k], twin._colors[k].slots
+                c = twin._colors[k]
+                sites = c.slots
                 field = twin._field(c, host(m), host(ghosts))
                 rest = (host(ghosts),)
-            R = m.shape[0]
+            # the colour's sites in the state's layout, on its last axis
+            sites = sites.expand(field.shape)
             mc, sc = host(m), host(s)
-            r = lfsr_uniform(lfsr_next(
-                sc.reshape(R, -1).index_select(1, nodes))).reshape(
-                    field.shape)
+            r = lfsr_uniform(lfsr_next(t.gather(sc, -1, sites)))
             want = twin._phase(c, mc, *rest, sc, None, beta, *(
                 () if gibbs else (None,)))
             got = phase(*args)
             if not self.same(s.cpu(), sc):
                 raise CheckFailed(f"phase {tally['phases']}: LFSR states "
                                   f"differ from the CPU's")
-            diff = (m.cpu() != mc).reshape(R, -1)
+            diff = m.cpu() != mc
             if bool(diff.any()):
                 th = t.tanh(quantize(beta * field, eng.fmt))
                 a = th.abs()
                 ulp = t.nextafter(a, t.full_like(a, float("inf"))) - a
                 ulps = t.full(diff.shape, float("inf"))
-                ulps.index_copy_(1, nodes, ((th + r).abs() / ulp).reshape(
-                    R, -1))
+                ulps.scatter_(-1, sites, (th + r).abs() / ulp)
                 far = int((diff & (ulps > TANH_ULPS)).sum())
                 if far:
                     raise CheckFailed(
@@ -1876,6 +1926,337 @@ class Smoke:
         for key, count, us in sorted(rows, key=lambda r: -r[2])[:8]:
             print(f"    {us / 1e3:10.3f} ms  {count:6d} x  {key[:90]}",
                   flush=True)
+
+    # -- the distributed DSIM -----------------------------------------------
+
+    def phase_dist(self, card: str):
+        """The distributed DSIM at L=100 through make_engine("dsim_dist"),
+        all K partitions on the card: the gather-count kernel against its
+        plain version, the JAX golden values, every DIST_RUNS
+        configuration against its device="cpu" twin over the first 16
+        sweeps, then timed over MAIN_SWEEPS with the launches counted, the
+        exchange and eta at two cadences, and a profiled bit-plane run."""
+        t = self.torch
+        from repro_torch.core.annealing import ea_schedule
+        from repro_torch.kernels import _build
+        print(f"== 7. distributed DSIM: make_engine('dsim_dist') at L={L}, "
+              f"K={self.prob.K} partitions on one card", flush=True)
+        self.dist_kernel()
+        self.dist_golden()
+        for label, kw in DIST_RUNS.items():
+            self.dist_vs_cpu(label, kw)
+        self.dist_rates = {}
+        phases = MAIN_SWEEPS * self.col.n_colors
+        for label, kw in DIST_RUNS.items():
+            hh, sync = self.dist_engine(kw)
+            n, R = hh.n_sites, hh.replicas
+            st0 = hh.init_state(seed=SEED)
+            walls = []
+            for _ in range(2):      # the engine's first run, then a second
+                t.cuda.synchronize()
+                _build.reset_launch_counts()
+                t0 = time.perf_counter()
+                st, rec = hh.run_recorded(st0, ea_schedule(MAIN_SWEEPS),
+                                          MAIN_POINTS, sync_every=sync)
+                t.cuda.synchronize()
+                walls.append(time.perf_counter() - t0)
+            counts = {k: v for k, v in _build.launch_counts.items() if v}
+            gathers = counts.pop("bitplane_gather_count", 0)
+            if hh.precision == "bitplane":
+                self.launches["bitplane_gather_count"] = gathers
+                check(gathers == phases and not counts,
+                      f"{label}: the gather-count kernel launched {gathers} "
+                      f"times, once per colour phase ({phases}); no lattice "
+                      f"kernel ({counts})")
+            else:
+                check(gathers == 0 and not counts,
+                      f"{label}: plain PyTorch operations, no kernel "
+                      f"launched ({counts}, gather-count {gathers})")
+            e = rec.energies
+            per_spin = (e[-1] / n).cpu()
+            check(tuple(e.shape) == (len(MAIN_POINTS), R) and
+                  bool(t.isfinite(e).all()) and bool((e[-1] < e[0]).all())
+                  and bool(((per_spin > -1.75) & (per_spin < -1.55)).all()),
+                  f"{label}: energies finite, shape {tuple(e.shape)}, "
+                  f"annealed, E/N at {MAIN_SWEEPS} sweeps in "
+                  f"[{float(per_spin.min()):.4f}, {float(per_spin.max()):.4f}]")
+            dt = walls[1]
+            unit = "lane-flips/s" if hh.precision == "bitplane" \
+                else "flips/s"
+            self.dist_rates[label] = (n * R * MAIN_SWEEPS / dt, dt, rec.flips)
+            print(f"  {label}: {MAIN_SWEEPS} sweeps of {n} p-bits x R={R} in "
+                  f"{dt:.4f} s = {n * R * MAIN_SWEEPS / dt:.4e} {unit} "
+                  f"(first run {walls[0]:.4f} s; {rec.flips} accepted "
+                  f"flips; payload {hh.eng.boundary_payload()['bytes']} B "
+                  f"per partition and exchange) on {card}", flush=True)
+        self.dist_eta(card)
+        self.profile_dist(card)
+        self.time_gather_count(card)
+
+    def dist_engine(self, kw, device=None):
+        """(handle, sync_every) of a DIST_RUNS configuration on the K=8
+        brick partition, on the card or on ``device``."""
+        from repro_torch import make_engine
+        kw = dict(kw)
+        sync = kw.pop("sync")
+        return make_engine("dsim_dist", self.prob, rng="lfsr", device=device,
+                           **kw), sync
+
+    def dist_start(self, hh, m0):
+        """hh's init_state(SEED) with every replica's (lane's) spins taken
+        from m0 and the ghosts they give, built on the host and brought in
+        through interop (the engines take no m0, as the reference's)."""
+        t = self.torch
+        from repro_torch.core.bits import u32_to_numpy
+        from repro_torch.core.packing import pack_lanes
+        from repro_torch.interop import state_from_numpy, state_to_numpy
+        p, R = hh.eng.p, hh.replicas
+        d = state_to_numpy(hh.init_state(seed=SEED))
+        gid = p.global_ids.cpu().numpy()
+        m = np.where(gid < p.n, m0[np.minimum(gid, p.n - 1)], 1) \
+            .astype(np.int8)                                  # (K, n_max)
+        lanes = np.repeat(m[:, None], R, axis=1)              # (K, R, n_max)
+        if hh.precision == "bitplane":
+            lanes = u32_to_numpy(pack_lanes(t.from_numpy(
+                lanes.transpose(1, 0, 2).copy()))).transpose(1, 0, 2)
+        lead = lanes.shape[1]
+        pool = lanes.transpose(1, 0, 2).reshape(lead, -1)
+        ghosts = pool[:, p.ghost_src.cpu().numpy()].transpose(1, 0, 2)
+        d.update(m=np.ascontiguousarray(lanes),
+                 ghosts=np.ascontiguousarray(ghosts))
+        return hh.eng.shard_state(state_from_numpy(**d, device=self.dev))
+
+    def dist_kernel(self):
+        """The gather-count kernel against its plain version on the card,
+        bitwise: on the bit-plane run's L=100 operands (each colour, from
+        its initial state), and at D in GATHER_DEGREES on random rows of
+        the same K, W, nc and word pool."""
+        t = self.torch
+        from repro_torch.core.bits import u32_from_numpy
+        from repro_torch.kernels import ref
+        from repro_torch.kernels.bitplane_gather import bitplane_gather_count
+        hh, _ = self.dist_engine(DIST_RUNS[DIST_PROFILED])
+        st = hh.init_state(seed=SEED)
+        mext = t.cat([st.m.view(t.int32), st.ghosts.view(t.int32)],
+                     dim=2).view(t.uint32)
+        K, W, n_ext = (int(d) for d in mext.shape)
+        cases = [(f"colour {c}", (mext, col.idx, col.signs, col.nz))
+                 for c, col in enumerate(hh.eng._colors)]
+        nc = int(cases[0][1][1].shape[1])
+        rng = np.random.default_rng(7)
+        ones = np.uint32(0xFFFFFFFF)
+        for D in GATHER_DEGREES:
+            planes = [u32_from_numpy(np.where(
+                rng.random((K, nc, D)) < q, ones, 0).astype(np.uint32),
+                self.dev) for q in (0.5, 0.8)]
+            idx = t.from_numpy(rng.integers(0, n_ext, (K, nc, D),
+                                            dtype=np.int32)).to(self.dev)
+            cases.append((f"random rows, D={D}", (mext, idx, *planes)))
+        errs = []
+        for what, args in cases:
+            got = bitplane_gather_count(*args)
+            want = ref.bitplane_gather_count_ref(*args)
+            t.cuda.synchronize()
+            errs += [self.max_abs(a, b) for a, b in zip(got, want)]
+            D = int(args[1].shape[2])
+            check(len(got) == len(want) == D.bit_length() and
+                  all(self.same(a, b) for a, b in zip(got, want)),
+                  f"bitplane_gather_count at L={L}, {what}: K={K}, W={W}, "
+                  f"nc={nc}, n_ext={n_ext}, D={D}: its {len(got)} planes "
+                  f"== the plain version's, bitwise")
+        self.results["bitplane_gather_count"] = {"max_abs_err": max(errs)}
+        self.gather_inputs = cases[0][1]
+
+    def dist_golden(self):
+        """The JAX reference's L=100 dist runs from graph_m0: int8 R=2 and
+        bit-plane R=32 lanes 0-1 reproduce DSIM_GOLDEN (int8 with its
+        spin and LFSR digests in the stacked engine's (R, K, n_max)
+        layout), f32 R=2 (bitpack) DIST_GOLDEN (LFSR digest exactly,
+        energies and flips within 0.5%)."""
+        from repro_torch.core.annealing import ea_schedule
+        from repro_torch.core.bits import u32_to_numpy
+        sha = lambda a: hashlib.sha256(a.tobytes()).hexdigest()  # noqa: E731
+        m0 = graph_m0(L ** 3)
+        for label, kw in (("int8 R=2", dict(precision="int8", replicas=2)),
+                          ("bitplane R=32", dict(precision="bitplane",
+                                                 replicas=32)),
+                          ("f32 R=2", dict(replicas=2))):
+            hh, _ = self.dist_engine(dict(kw, sync=SYNC))
+            st, rec = hh.run_recorded(self.dist_start(hh, m0),
+                                      ea_schedule(16), [8, 16],
+                                      sync_every=SYNC)
+            e = rec.energies[:, :2].cpu().numpy()
+            fl = st.flips[:2].cpu().numpy()
+            what = f"dsim_dist {label} K={hh.eng.p.K}"
+            if label.startswith("f32"):
+                s_sha = sha(u32_to_numpy(st.rng))
+                check(s_sha == DIST_GOLDEN["s_sha256"],
+                      f"{what} golden sha256(LFSR) {s_sha[:16]}")
+                e_rel = float(np.max(np.abs(
+                    e / np.array(DIST_GOLDEN["energies"]) - 1)))
+                f_rel = float(np.max(np.abs(
+                    fl / np.array(DIST_GOLDEN["flips"]) - 1)))
+                check(e_rel < 0.005 and f_rel < 0.005,
+                      f"{what} energies {e.tolist()} and flips "
+                      f"{fl.tolist()} within 0.5% of JAX (max relative "
+                      f"differences {e_rel:.3e}, {f_rel:.3e})")
+                continue
+            check(e.tolist() == DSIM_GOLDEN["energies"] and
+                  fl.tolist() == DSIM_GOLDEN["flips"],
+                  f"{what} golden energies {e.tolist()} and flips "
+                  f"{fl.tolist()} (lanes 0-1)")
+            if label.startswith("int8"):
+                m_sha = sha(np.ascontiguousarray(
+                    st.m.cpu().numpy().transpose(1, 0, 2)))
+                s_sha = sha(np.ascontiguousarray(
+                    u32_to_numpy(st.rng).transpose(1, 0, 2)))
+                check(m_sha == DSIM_GOLDEN["m_sha256"] and
+                      s_sha == DSIM_GOLDEN["s_sha256"],
+                      f"{what} golden sha256(m) {m_sha[:16]}, "
+                      f"sha256(LFSR) {s_sha[:16]}")
+
+    def dist_vs_cpu(self, label: str, kw):
+        """The first 16 sweeps of a DIST_RUNS configuration on the card
+        against its device="cpu" twin: int8 and bit-plane bitwise; f32
+        with every colour phase held to the twin's (hold_phases)."""
+        hg, sync = self.dist_engine(kw)
+        hc, _ = self.dist_engine(kw, device="cpu")
+        held = None
+        if hg.precision == "f32":
+            held = self.hold_phases(hg.eng, hc.eng)
+        try:
+            got = self.first16(hg, sync)
+        finally:
+            if held is not None:
+                del hg.eng._phase
+        want = self.first16(hc, sync)
+        (a, ea, fa), (b, eb, fb) = got, want
+        same = all(self.same(getattr(a, f).cpu(), getattr(b, f)) for f in (
+            "m", "ghosts", "macc", "rng", "sweep", "flips")) and \
+            self.same(ea.cpu(), eb) and bool((fa == fb).all())
+        what = "bitwise" if held is None else (
+            f"bitwise, each of its {held['phases']} phases held to the CPU's "
+            f"({held['differ']} decisions differed, all within {TANH_ULPS} "
+            f"ulp of the boundary)")
+        check(same, f"{label}: 16 sweeps on the card == device='cpu', "
+              f"{what} (spins, ghosts, LFSR, flips, energies; E[0]="
+              f"{float(ea[0, 0])})")
+
+    def dist_eta(self, card: str):
+        """The exchange alone (boundary_exchange_fn, CUDA events) and
+        dist_eta_meter's measured eta of DIST_ETA_RUN at sync_every 1 and
+        SYNC."""
+        from repro_torch.core.annealing import ea_schedule
+        from repro_torch.obs.timing import dist_eta_meter
+        hh, _ = self.dist_engine(DIST_RUNS[DIST_ETA_RUN])
+        st = hh.init_state(seed=SEED)
+        fn = hh.eng.boundary_exchange_fn()
+        ms = self.time_ms(lambda: fn(st), reps=200, warm=5)
+        pay = hh.eng.boundary_payload()
+        print(f"  dist exchange ({DIST_ETA_RUN}): {ms * 1e3:.1f} us per call "
+              f"(CUDA events; {pay['bytes']} B of {pay['dtype']} payload per "
+              f"partition); an in-process gather on one card, not a network "
+              f"link; on {card}", flush=True)
+        for sync in (1, SYNC):
+            hh.run_recorded(st, ea_schedule(MAIN_SWEEPS), MAIN_POINTS,
+                            sync_every=sync)                    # warm
+            cur = hh.start_recorded(st, ea_schedule(MAIN_SWEEPS),
+                                    MAIN_POINTS, sync_every=sync)
+            meter = dist_eta_meter(hh.eng, sync_every=sync).attach(cur)
+            while not cur.done:
+                cur.advance(1)
+            meter.measure_exchange(lambda: fn(cur.state), reps=100,
+                                   warmup=5)
+            r = meter.report()
+            check(all(np.isfinite(r[k]) and r[k] > 0 for k in (
+                "measured_eta", "eta_threshold", "f_comm_hz", "f_pbit_hz")),
+                f"dist eta at sync_every={sync}: finite")
+            print(f"  dist eta {DIST_ETA_RUN}, sync_every={sync}: measured "
+                  f"eta {r['measured_eta']:.4e} against the threshold "
+                  f"{r['eta_threshold']:.4e} (n_color {r['n_color']}, C_max "
+                  f"{r['c_max']:.0f}; margin {r['margin']:.4e}), f_comm "
+                  f"{r['f_comm_hz']:.4e} Hz (exchange "
+                  f"{r['t_exchange_s'] * 1e6:.1f} us), f_pbit "
+                  f"{r['f_pbit_hz']:.4e} Hz (sweep "
+                  f"{r['t_pbit_sweep_s'] * 1e6:.1f} us), "
+                  f"{r['chunks_recorded']} chunks; the exchange is an "
+                  f"in-process gather on one card; on {card}", flush=True)
+
+    def profile_dist(self, card: str):
+        """One profiled run of DIST_PROFILED: the device's busy share of
+        the wall time and the gather-count kernel's launches, time per
+        launch and share of the device time."""
+        t = self.torch
+        from torch.autograd import DeviceType
+        from torch.profiler import ProfilerActivity, profile
+        from repro_torch.core.annealing import ea_schedule
+        hh, sync = self.dist_engine(DIST_RUNS[DIST_PROFILED])
+        st0 = hh.init_state(seed=SEED)
+        t.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            hh.run_recorded(st0, ea_schedule(MAIN_SWEEPS), MAIN_POINTS,
+                            sync_every=sync)
+            t.cuda.synchronize()
+            wall = time.perf_counter() - t0
+        rows = [(e.key, e.count, e.self_device_time_total)
+                for e in prof.key_averages()
+                if e.device_type == DeviceType.CUDA
+                and e.self_device_time_total > 0]
+        if not rows:
+            print(f"  profile {DIST_PROFILED}: the profiler saw no device "
+                  f"time; device busy share not measured", flush=True)
+            return
+        busy = sum(us for _, _, us in rows) / 1e6
+        hits = [(c, us) for key, c, us in rows
+                if "bitplane_gather_count" in key]
+        count, us = sum(c for c, _ in hits), sum(u for _, u in hits)
+        phases = MAIN_SWEEPS * self.col.n_colors
+        print(f"  profile {DIST_PROFILED}: wall {wall:.4f} s under the "
+              f"profiler, device busy {busy:.4f} s ({100 * busy / wall:.1f}"
+              f"%), device time per colour phase "
+              f"{busy / phases * 1e3:.4f} ms; gather-count kernel {count} "
+              f"launches, {us / max(count, 1):.1f} us per launch, "
+              f"{100 * us / 1e6 / busy:.1f}% of the device time; on {card}",
+              flush=True)
+        for key, count, us in sorted(rows, key=lambda r: -r[2])[:8]:
+            print(f"    {us / 1e3:10.3f} ms  {count:6d} x  {key[:90]}",
+                  flush=True)
+
+    def time_gather_count(self, card: str):
+        """The gather-count wrapper against its plain version at one
+        colour of the bit-plane run; bound: every input read once (the
+        rows' D indices, signs and nonzero masks, and of the word pool
+        only the words the rows reach with a nonzero mask: the distinct
+        slots per partition), every output plane written once, and per
+        (partition, word, site) the XOR and AND of each neighbour plus 2
+        ops per slice it ripples through."""
+        from repro_torch.kernels import ref
+        from repro_torch.kernels.bitplane_gather import bitplane_gather_count
+        args = self.gather_inputs
+        mext, idx, nz = args[0], args[1], args[3]
+        K, W, n_ext = (int(d) for d in mext.shape)
+        nc, D = int(idx.shape[1]), int(idx.shape[2])
+        live = nz.view(self.torch.int32) != 0
+        reached = sum(int(self.torch.unique(idx[k][live[k]]).numel())
+                      for k in range(K))
+        byts = 4 * W * reached + 3 * 4 * K * nc * D \
+            + 4 * D.bit_length() * K * W * nc
+        ops = sum(2 + 2 * (n - 1).bit_length() for n in range(1, D + 1))
+        self._timed("bitplane_gather_count", "src/repro_torch/kernels/csrc/"
+                    "bitplane_gather.cu", "src/repro/kernels/ops.py:120",
+                    lambda: bitplane_gather_count(*args),
+                    lambda: ref.bitplane_gather_count_ref(*args), byts,
+                    K * W * nc * ops, 0,
+                    f"one colour, K={K}, W={W}, nc={nc}, D={D}, {reached} of "
+                    f"{K * n_ext} pool slots reached, 1 launch")
+        r = self.results["bitplane_gather_count"]
+        print(f"  bitplane_gather_count: {r['ms']:.4f} ms ({r['work']}), "
+              f"plain {r['plain_ms']:.4f} ms, bound {r['bound_ms']:.4f} ms "
+              f"by {r['bound_by']} ({r['bounds']}); {r['launches']} "
+              f"launches on the bit-plane dist run; on {card}", flush=True)
+        del r["work"], r["bounds"]
 
     def _timed(self, name, source, replaces, kernel, plain, byts, int_ops,
                f32_ops, work):

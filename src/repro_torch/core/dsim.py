@@ -19,7 +19,7 @@ the monolithic chromatic dynamics), S >= 1 every S sweeps (eta ~ 1/S),
 All K partitions ride one device, stacked on a leading axis (and the
 replicas on one before it).  A colour phase is a handful of PyTorch
 operations: one gather of the partitions' local spins and ghosts at the
-colour's ELL rows, the LFSR step, the accept, one ``index_copy_``.
+colour's ELL rows, the LFSR step, the accept, one ``scatter_``.
 """
 
 from __future__ import annotations
@@ -37,15 +37,15 @@ from .device import as_numpy, resolve_device
 from .energy import energy as direct_energy
 from .gibbs import init_spins
 from .graph import IsingGraph
-from .pbit import (FixedPoint, field_bound, flips_publish, lfsr_init,
-                   lfsr_next, lfsr_uniform, lut_accept, philox_init,
-                   philox_load, philox_save, philox_uniform, quantize,
-                   quantize_couplings, threshold_lut_cached)
+from .pbit import (FixedPoint, bitplane_planes, field_bound, flips_publish,
+                   lfsr_init, lfsr_next, lfsr_uniform, lut_accept,
+                   philox_init, philox_load, philox_save, philox_uniform,
+                   quantize, quantize_couplings, threshold_lut_cached)
 from repro_torch.engines.base import (RecordedCursor, run_recorded_driver,
                                       spawn_seeds, stack_states)
 
-__all__ = ["PartitionedProblem", "build_partitioned", "DSIMEngine",
-           "DSIMState"]
+__all__ = ["PartitionedProblem", "build_partitioned", "ColorPhases",
+           "DSIMEngine", "DSIMState"]
 
 SyncSpec = Union[int, str, None]
 
@@ -213,27 +213,33 @@ class DSIMState:
 
 @dataclasses.dataclass
 class _Color:
-    """One colour's static gathers, flattened over the K partitions."""
+    """One colour's constants for the partitions an engine holds, shaped to
+    broadcast over the replica (or word-plane) axis of its layout: (1, K,
+    nc) for the stacked engine's (R, K, n_max), (Kl, 1, nc) for the
+    distributed one's (Kl, R, n_max)."""
 
-    slots: torch.Tensor    # (K * nc,) int64 into K * n_max
-    mask: torch.Tensor     # (K, nc) bool
-    lost: Optional[torch.Tensor]  # (K, nc) bool: updates padding undoes
-    nbr: torch.Tensor      # (K * nc * D,) int64 into K * (n_max + g_max)
-    h: torch.Tensor        # (K, nc) f32, or int32 on the int8 path
-    w: torch.Tensor        # (K, nc, D) f32, or int32 on the int8 path
+    slots: torch.Tensor    # int64 local slots
+    mask: torch.Tensor     # bool
+    lost: Optional[torch.Tensor]  # bool: updates padding undoes
+    nbr: Optional[torch.Tensor] = None  # (.., nc * D) int64 into n_max + g_max
+    h: Optional[torch.Tensor] = None    # f32, or int32 on the int8 path
+    w: Optional[torch.Tensor] = None    # (.., nc, D) f32 | int32
+    # the bit-plane path: the gather-count kernel's operands and the base
+    idx: Optional[torch.Tensor] = None    # (Kl, nc, D) int32
+    signs: Optional[torch.Tensor] = None  # (Kl, nc, D) uint32
+    nz: Optional[torch.Tensor] = None     # (Kl, nc, D) uint32
+    base: Optional[torch.Tensor] = None   # int64
 
 
-class DSIMEngine:
-    """Partitioned chromatic Gibbs sampler, every partition on one device
-    (CUDA unless ``device="cpu"``).
-
-    ``precision="int8"`` runs the hardware's fixed-point pipeline: local
-    couplings and biases quantized to int8 at init (one per-problem
-    scale), int32 fields, and the accept one compare of the raw 24-bit
-    LFSR draw against a per-(beta, field) threshold LUT
-    (:func:`repro_torch.core.pbit.lut_accept`); staircases become LUT
-    row indices.  Requires ``rng='lfsr'`` and ``mode='dsim'``; ``fmt``
-    folds into the LUT.
+class ColorPhases:
+    """The colour phases both partitioned engines run: :class:`DSIMEngine`
+    (every partition in one (R, K, n_max) stack) and :class:`repro_torch.
+    core.dsim_dist.DistDSIMEngine` ((K, R, n_max), or one partition per
+    rank).  ``_LANE_AXIS`` names the replica axis of the layout; an
+    engine sets ``p``, ``device``, ``precision``, ``mode``, ``rng_kind``,
+    ``fmt`` and ``_held`` (the partitions it holds), and gives
+    ``_exchange`` (boundary values -> ghosts in their dtype), ``_chunk``,
+    ``global_spins`` and ``_lanes`` (the replica count of a state).
 
     A colour's padded slot entries point at slot 0 of their partition.
     The reference writes its phase's new spins with one scatter whose
@@ -241,7 +247,221 @@ class DSIMEngine:
     partition has fewer sites of a colour than the widest, its slot 0
     keeps its spin in that colour's phase (its flip still counted), and
     its LFSR state steps once more in the phases of the colours it is not
-    in.  The port writes the same values (ROADMAP.md §C)."""
+    in.  The port writes the same values, one value per duplicate index
+    (ROADMAP.md §C)."""
+
+    _LANE_AXIS = 0
+
+    def _init_colors(self):
+        """The colours' constants; on the fixed-point paths first the int8
+        couplings (one per-problem scale), the field bound, and on the
+        bit-plane path the sign / nonzero word planes per direction and
+        the lane-independent LUT-column base."""
+        p, dev = self.p, self.device
+        h_src, w_src = p.local_h, p.local_w
+        if self.precision != "f32":
+            h_q, (w_q,), self.q_scale = quantize_couplings(p.local_h,
+                                                           (p.local_w,))
+            w_dirs = tuple(w_q[..., d] for d in range(w_q.shape[-1]))
+            self.f_max = field_bound(h_q, w_dirs)
+            self._lut_cache = {}
+            h_src = torch.from_numpy(h_q.astype(np.int32)).to(dev)
+            w_src = torch.from_numpy(w_q.astype(np.int32)).to(dev)
+            if self.precision == "bitplane":
+                # validates |w_q| <= 1
+                signs, nz, base, _ = bitplane_planes(h_q, w_dirs)
+                self._bp = (u32_from_numpy(np.stack(signs, -1), dev),
+                            u32_from_numpy(np.stack(nz, -1), dev),
+                            torch.from_numpy(base.astype(np.int64)).to(dev))
+        self._colors = [self._color(c, h_src, w_src)
+                        for c in range(len(p.color_slots))]
+
+    def _color(self, c: int, h_src, w_src) -> _Color:
+        p, held = self.p, self._held
+        slots = p.color_slots[c].long()                       # (K, nc)
+        mask = p.color_mask[c]
+        K, nc = slots.shape
+        rows = torch.arange(K, device=self.device)[:, None]
+        local = p.local_idx[rows, slots]                      # (K, nc, D)
+        padded = ~mask.all(1, keepdim=True)
+        lost = ((slots == 0) & mask & padded)[held]
+
+        def lane(t):
+            return t[held].unsqueeze(self._LANE_AXIS)
+        col = _Color(slots=lane(slots), mask=lane(mask),
+                     lost=lost.unsqueeze(self._LANE_AXIS)
+                     if bool(lost.any()) else None)
+        if self.precision == "bitplane":
+            signs, nz, base = self._bp
+
+            def at(w):      # uint32 has no indexing on CUDA: int32 views
+                return w.view(torch.int32)[rows, slots][held] \
+                    .contiguous().view(torch.uint32)
+            col.idx = local[held].contiguous()
+            col.signs, col.nz = at(signs), at(nz)
+            col.base = lane(base[rows, slots])
+        else:
+            col.nbr = lane(local.reshape(K, -1).long())
+            col.h = lane(h_src[rows, slots])
+            col.w = lane(w_src[rows, slots])
+        return col
+
+    def _lut_for(self, table: np.ndarray) -> torch.Tensor:
+        return threshold_lut_cached(self._lut_cache, table, self.q_scale,
+                                    self.f_max, fmt=self.fmt,
+                                    device=self.device)
+
+    def _refresh(self, m) -> torch.Tensor:
+        """Instantaneous boundary states -> ghosts: f32 +-1, or the words
+        on the bit-plane path."""
+        g = self._exchange(m)
+        return g if self.precision == "bitplane" else g.to(torch.float32)
+
+    # -- one colour phase ----------------------------------------------------------
+
+    def _field(self, col: _Color, m, ghosts) -> torch.Tensor:
+        """Fields of one colour, m's shape with nc sites: one gather over
+        [local spins | ghosts] of every held partition (int32 on the int8
+        path, where the ghosts are instantaneous +-1 states; f32
+        otherwise)."""
+        acc = col.w.dtype
+        mext = torch.cat([m.to(acc), ghosts.to(acc)], dim=2)
+        A, B = int(mext.shape[0]), int(mext.shape[1])
+        nbr = torch.gather(mext, 2, col.nbr.expand(A, B, -1))
+        return col.h + (col.w * nbr.reshape(
+            A, B, int(col.slots.shape[-1]), -1)).sum(-1)
+
+    def _phase(self, col: _Color, m, ghosts, s, gens, beta, thr):
+        """Update one colour of every held partition and replica in place:
+        m int8 spins, ghosts f32, s int64-carried LFSR states (or None, and
+        ``gens`` the philox streams in the layout's order), all in the
+        engine's layout.  ``beta`` a float (f32 path) or None with ``thr``
+        the LUT row (int8 path).  Returns the flips (R,)."""
+        field = self._field(col, m, ghosts)
+        idx = col.slots.expand(field.shape)
+        if gens is None:
+            sc = lfsr_next(torch.gather(s, 2, idx))
+            # padded entries step slot 0's state too, to the same value
+            s.scatter_(2, idx, sc)
+        else:
+            r = philox_uniform(gens, tuple(field.shape[self._LANE_AXIS + 1:]),
+                               self.device).reshape(field.shape)
+        old = torch.gather(m, 2, idx)
+        if thr is not None:
+            new = lut_accept(thr, field, self.f_max, sc >> 8)
+        else:
+            if gens is None:
+                r = lfsr_uniform(sc)
+            new = torch.tanh(quantize(beta * field, self.fmt)) + r >= 0
+        new = torch.where(new, 1, -1).to(torch.int8)
+        new = torch.where(col.mask, new, old)
+        flips = (new != old).sum((1 - self._LANE_AXIS, 2))
+        if col.lost is not None:
+            new = torch.where(col.lost, old, new)
+        m.scatter_(2, idx, new)
+        return flips
+
+    # -- runners -------------------------------------------------------------------
+
+    def _iteration(self, m, ghosts, macc, s, gens, sched_S, sync: SyncSpec,
+                   S_t, lut):
+        """S sweeps then one boundary exchange (or one per phase, or
+        none); ``sched_S`` the S betas or LUT rows.  Updates m, s and gens
+        in place; returns (ghosts, macc, flips)."""
+        word = self.precision == "bitplane"
+        cmft = self.mode == "cmft"
+        flips = None
+        for b in sched_S:
+            thr = None if lut is None else lut[int(b)]
+            beta = None if lut is not None else float(b)
+            for col in self._colors:
+                if sync == "phase":
+                    ghosts = self._refresh(m)
+                f = self._phase_w(col, m, ghosts, s, thr) if word else \
+                    self._phase(col, m, ghosts, s, gens, beta, thr)
+                flips = f if flips is None else flips + f
+            if cmft:
+                # dsim mode never reads the window accumulator
+                macc = macc + m.to(torch.float32)
+        if sync not in ("phase", None):
+            ghosts = self._exchange(macc / S_t) if cmft else self._refresh(m)
+        if cmft:
+            macc = torch.zeros_like(macc)
+        return ghosts, macc, flips
+
+    def _sweeps(self, m, ghosts, macc, rng, sched2d: np.ndarray,
+                sync: SyncSpec, lut):
+        """``iters`` iterations of S sweeps on the engine's layout (m
+        updated in place); sched2d (iters, S) f32 betas or int32 LUT rows
+        (with ``lut`` the threshold table).  Returns (m, ghosts, macc,
+        rng, flips (R,) int64)."""
+        lfsr = self.rng_kind == "lfsr"
+        s = u32_to_i64(rng) if lfsr else None
+        gens = None if lfsr else philox_load(rng.reshape(-1, rng.shape[-1]),
+                                             self.device)
+        thr = None if lut is None else u32_to_i64(lut)
+        iters, S = sched2d.shape
+        S_t = torch.full((), float(S), dtype=torch.float32,
+                         device=self.device)
+        flips = torch.zeros(int(rng.shape[self._LANE_AXIS]),
+                            dtype=torch.int64, device=self.device)
+        for it in range(iters):
+            ghosts, macc, f = self._iteration(m, ghosts, macc, s, gens,
+                                              sched2d[it], sync, S_t, thr)
+            flips = flips + f
+        rng = i64_to_u32(s) if lfsr else philox_save(gens).reshape(rng.shape)
+        return m, ghosts, macc, rng, flips
+
+    def run_recorded_full(self, state: DSIMState, schedule,
+                          record_points: Sequence[int],
+                          sync_every: SyncSpec = 1, cursor: bool = False):
+        """Shared-driver runner; returns (state, RunRecord), or the
+        resumable :class:`RecordedCursor` with ``cursor=True``.  Record
+        points are quantized to multiples of S."""
+        sync = sync_every if sync_every in ("phase", None) else int(sync_every)
+        lut = None
+        if self.precision != "f32":
+            # the staircase becomes LUT row indices (beta is in the table)
+            beta_arr = np.asarray(schedule.beta_array(), np.float32)
+            table = beta_table(beta_arr)
+            lut = self._lut_for(table)
+            schedule = ArraySchedule(beta_row_indices(beta_arr, table))
+
+        def chunk(st, sched2d, iters, S):
+            return self._chunk(st, np.asarray(sched2d), sync, lut)
+
+        kw = dict(
+            state=state, schedule=schedule, record_points=record_points,
+            chunk_fn=chunk, record_fn=self.energy, sync_every=sync_every,
+            flips_of=lambda st: st.flips,
+            flips_per_sweep=self.p.n * self._lanes(state))
+        if cursor:
+            return RecordedCursor(**kw)
+        return run_recorded_driver(**kw)
+
+    def run_recorded(self, state: DSIMState, schedule,
+                     record_points: Sequence[int],
+                     sync_every: SyncSpec = 1):
+        """Run to each record point; returns (state, RunRecord)."""
+        return self.run_recorded_full(state, schedule, record_points,
+                                      sync_every=sync_every)
+
+    def energy(self, state: DSIMState) -> torch.Tensor:
+        """True global energies of the current configuration, (R,) or ()."""
+        return direct_energy(self.p.graph, self.global_spins(state))
+
+
+class DSIMEngine(ColorPhases):
+    """Partitioned chromatic Gibbs sampler, every partition on one device
+    (CUDA unless ``device="cpu"``), the state stacked (R, K, n_max).
+
+    ``precision="int8"`` runs the hardware's fixed-point pipeline: local
+    couplings and biases quantized to int8 at init (one per-problem
+    scale), int32 fields, and the accept one compare of the raw 24-bit
+    LFSR draw against a per-(beta, field) threshold LUT
+    (:func:`repro_torch.core.pbit.lut_accept`); staircases become LUT
+    row indices.  Requires ``rng='lfsr'`` and ``mode='dsim'``; ``fmt``
+    folds into the LUT."""
 
     def __init__(self, prob: PartitionedProblem, rng: str = "philox",
                  fmt: Optional[FixedPoint] = None, mode: str = "dsim",
@@ -264,39 +484,10 @@ class DSIMEngine:
         self.mode = mode
         self.precision = precision
         self.n_sites = p.n
-        h_src, w_src = p.local_h, p.local_w
-        if precision == "int8":
-            h_q, (w_q,), self.q_scale = quantize_couplings(p.local_h,
-                                                           (p.local_w,))
-            self.f_max = field_bound(
-                h_q, tuple(w_q[..., d] for d in range(w_q.shape[-1])))
-            self._lut_cache = {}
-            h_src = torch.from_numpy(h_q.astype(np.int32)).to(self.device)
-            w_src = torch.from_numpy(w_q.astype(np.int32)).to(self.device)
-        self._colors = [self._color(c, h_src, w_src)
-                        for c in range(len(p.color_slots))]
+        self._held = slice(0, p.K)
+        self._init_colors()
         self._ghost_src = p.ghost_src.reshape(-1).long()
         self._global_ids = p.global_ids.reshape(-1).long()
-
-    def _color(self, c: int, h_src, w_src) -> _Color:
-        p = self.p
-        slots = p.color_slots[c].long()                    # (K, nc)
-        mask = p.color_mask[c]
-        K, nc = slots.shape
-        rows = torch.arange(K, device=self.device)[:, None]
-        local = p.local_idx[rows, slots].long()             # (K, nc, D)
-        padded = ~mask.all(1, keepdim=True)
-        lost = (slots == 0) & mask & padded
-        return _Color(
-            slots=(rows * p.n_max + slots).reshape(-1), mask=mask,
-            lost=lost if bool(lost.any()) else None,
-            nbr=(rows[..., None] * (p.n_max + p.g_max) + local).reshape(-1),
-            h=h_src[rows, slots], w=w_src[rows, slots])
-
-    def _lut_for(self, table: np.ndarray) -> torch.Tensor:
-        return threshold_lut_cached(self._lut_cache, table, self.q_scale,
-                                    self.f_max, fmt=self.fmt,
-                                    device=self.device)
 
     # -- state -----------------------------------------------------------------
 
@@ -326,7 +517,7 @@ class DSIMEngine:
             u32_from_numpy(lfsr_init(p.K * p.n_max, seed).reshape(
                 p.K, p.n_max), dev)
         zero = torch.zeros((), dtype=torch.int32, device=dev)
-        return DSIMState(m=m, ghosts=self._exchange_inst(m[None])[0],
+        return DSIMState(m=m, ghosts=self._refresh(m[None])[0],
                          macc=torch.zeros((p.K, p.n_max), dtype=torch.float32,
                                           device=dev),
                          rng=rng, sweep=zero, flips=zero.clone())
@@ -335,93 +526,15 @@ class DSIMEngine:
     def is_batched(state: DSIMState) -> bool:
         return state.m.dim() == 3
 
-    # -- exchange ----------------------------------------------------------------
+    def _lanes(self, state: DSIMState) -> int:
+        return int(state.m.shape[0]) if self.is_batched(state) else 1
 
-    def _exchange_inst(self, m) -> torch.Tensor:
-        """Instantaneous 1-bit boundary states -> ghost slots (DSIM); m
-        (R, K, n_max)."""
-        R = m.shape[0]
-        return m.reshape(R, -1).index_select(1, self._ghost_src).reshape(
-            R, self.p.K, self.p.g_max).to(torch.float32)
-
-    def _exchange_mean(self, macc, S: torch.Tensor) -> torch.Tensor:
-        """Window-mean boundary values -> ghost slots (CMFT); ``S`` an f32
-        scalar tensor (a true division, as the reference's)."""
-        R = macc.shape[0]
-        return (macc / S).reshape(R, -1).index_select(
-            1, self._ghost_src).reshape(R, self.p.K, self.p.g_max)
-
-    # -- one colour phase ----------------------------------------------------------
-
-    def _field(self, col: _Color, m, ghosts) -> torch.Tensor:
-        """(R, K, nc) fields of one colour: one gather over [local spins |
-        ghosts] of every partition (int32 on the int8 path, where the
-        ghosts are instantaneous +-1 states; f32 otherwise)."""
-        R = m.shape[0]
-        K, nc = col.mask.shape
-        acc = torch.float32 if col.w.dtype == torch.float32 else torch.int32
-        mext = torch.cat([m.to(acc), ghosts.to(acc)], dim=2).reshape(R, -1)
-        nbr = mext.index_select(1, col.nbr).reshape(R, K, nc, -1)
-        return col.h + (col.w * nbr).sum(-1)
-
-    def _phase(self, col: _Color, m, ghosts, s, gens, beta, thr):
-        """Update one colour of every replica and partition in place: m
-        (R, K, n_max) int8, ghosts (R, K, g_max) f32, s (R, K, n_max)
-        int64-carried LFSR states (or None, and ``gens`` the philox
-        streams).  ``beta`` is a float (f32 path) or None with ``thr`` the
-        LUT row (int8 path).  Returns the flips (R,)."""
-        R = m.shape[0]
-        K, nc = col.mask.shape
-        field = self._field(col, m, ghosts)
-        mf, sf = m.reshape(R, -1), None if s is None else s.reshape(R, -1)
-        if gens is None:
-            sc = lfsr_next(sf.index_select(1, col.slots))
-            # padded entries step slot 0's state too, to the same value
-            sf.index_copy_(1, col.slots, sc)
-            sc = sc.reshape(R, K, nc)
-        else:
-            r = philox_uniform(gens, (K, nc), self.device)
-        old = mf.index_select(1, col.slots).reshape(R, K, nc)
-        if thr is not None:
-            new = lut_accept(thr, field, self.f_max, sc >> 8)
-        else:
-            if gens is None:
-                r = lfsr_uniform(sc)
-            act = quantize(beta * field, self.fmt)
-            new = torch.tanh(act) + r >= 0
-        new = torch.where(new, 1, -1).to(torch.int8)
-        new = torch.where(col.mask, new, old)
-        flips = (new != old).sum((1, 2))
-        if col.lost is not None:
-            new = torch.where(col.lost, old, new)
-        mf.index_copy_(1, col.slots, new.reshape(R, -1))
-        return flips
-
-    def _iteration(self, m, ghosts, macc, s, gens, sched_S, sync: SyncSpec,
-                   S_t, lut):
-        """S sweeps then one boundary exchange (or per phase / none);
-        ``sched_S`` the S betas or LUT rows.  Updates m, s, gens in place;
-        returns (ghosts, macc, flips)."""
-        flips = None
-        cmft = self.mode == "cmft"
-        for b in sched_S:
-            thr = None if lut is None else lut[int(b)]
-            beta = None if lut is not None else float(b)
-            for col in self._colors:
-                if sync == "phase":
-                    ghosts = self._exchange_inst(m)
-                f = self._phase(col, m, ghosts, s, gens, beta, thr)
-                flips = f if flips is None else flips + f
-            if cmft:
-                # dsim mode never reads the window accumulator
-                macc = macc + m.to(torch.float32)
-        if sync == "phase" or sync is None:
-            pass  # ghosts already handled / never refreshed
-        elif cmft:
-            ghosts = self._exchange_mean(macc, S_t)
-        else:
-            ghosts = self._exchange_inst(m)
-        return ghosts, torch.zeros_like(macc), flips
+    def _exchange(self, x) -> torch.Tensor:
+        """Boundary values (R, K, n_max) -> ghost slots (R, K, g_max) in
+        x's dtype: instantaneous spins (DSIM) or window means (CMFT)."""
+        R = x.shape[0]
+        return x.reshape(R, -1).index_select(1, self._ghost_src).reshape(
+            R, self.p.K, self.p.g_max)
 
     def _chunk(self, state: DSIMState, sched2d: np.ndarray, sync: SyncSpec,
                lut=None) -> DSIMState:
@@ -429,62 +542,15 @@ class DSIMEngine:
         or int32 LUT rows (with ``lut`` the threshold table)."""
         batched = self.is_batched(state)
         lift = (lambda t: t) if batched else (lambda t: t[None])
-        m = lift(state.m).clone()
-        ghosts, macc = lift(state.ghosts), lift(state.macc)
-        lfsr = self.rng_kind == "lfsr"
-        s = u32_to_i64(lift(state.rng)) if lfsr else None
-        gens = None if lfsr else philox_load(lift(state.rng), self.device)
-        thr = None if lut is None else u32_to_i64(lut)
-        iters, S = sched2d.shape
-        S_t = torch.full((), float(S), dtype=torch.float32,
-                         device=self.device)
-        flips = torch.zeros(m.shape[0], dtype=torch.int64, device=self.device)
-        for it in range(iters):
-            ghosts, macc, f = self._iteration(m, ghosts, macc, s, gens,
-                                              sched2d[it], sync, S_t, thr)
-            flips = flips + f
         drop = (lambda t: t) if batched else (lambda t: t[0])
+        m, ghosts, macc, rng, flips = self._sweeps(
+            lift(state.m).clone(), lift(state.ghosts), lift(state.macc),
+            lift(state.rng), sched2d, sync, lut)
+        iters, S = sched2d.shape
         return DSIMState(
-            m=drop(m), ghosts=drop(ghosts), macc=drop(macc),
-            rng=drop(i64_to_u32(s) if lfsr else philox_save(gens)),
+            m=drop(m), ghosts=drop(ghosts), macc=drop(macc), rng=drop(rng),
             sweep=state.sweep + iters * S,
             flips=flips_publish(state.flips, drop(flips)))
-
-    # -- runners -----------------------------------------------------------------
-
-    def run_recorded_full(self, state: DSIMState, schedule,
-                          record_points: Sequence[int],
-                          sync_every: SyncSpec = 1, cursor: bool = False):
-        """Shared-driver runner; returns (state, RunRecord), or the
-        resumable :class:`RecordedCursor` with ``cursor=True``.  Record
-        points are quantized to multiples of S."""
-        sync = sync_every if sync_every in ("phase", None) else int(sync_every)
-        R = state.m.shape[0] if self.is_batched(state) else 1
-        lut = None
-        if self.precision == "int8":
-            # the staircase becomes LUT row indices (beta is in the table)
-            beta_arr = np.asarray(schedule.beta_array(), np.float32)
-            table = beta_table(beta_arr)
-            lut = self._lut_for(table)
-            schedule = ArraySchedule(beta_row_indices(beta_arr, table))
-
-        def chunk(st, sched2d, iters, S):
-            return self._chunk(st, np.asarray(sched2d), sync, lut)
-
-        kw = dict(
-            state=state, schedule=schedule, record_points=record_points,
-            chunk_fn=chunk, record_fn=self.energy, sync_every=sync_every,
-            flips_of=lambda st: st.flips, flips_per_sweep=self.p.n * R)
-        if cursor:
-            return RecordedCursor(**kw)
-        return run_recorded_driver(**kw)
-
-    def run_recorded(self, state: DSIMState, schedule,
-                     record_points: Sequence[int],
-                     sync_every: SyncSpec = 1):
-        """Run to each record point; returns (state, RunRecord)."""
-        return self.run_recorded_full(state, schedule, record_points,
-                                      sync_every=sync_every)
 
     # -- observables ----------------------------------------------------------------
 
@@ -501,10 +567,6 @@ class DSIMEngine:
     def global_spins(self, state: DSIMState) -> torch.Tensor:
         """(n,) spins in node order, or (R, n) for a batched state."""
         return self._scatter_global(state.m, 1)
-
-    def energy(self, state: DSIMState) -> torch.Tensor:
-        """True global energy of the current configuration (R,) or ()."""
-        return direct_energy(self.p.graph, self.global_spins(state))
 
     def local_fields_check(self, state: DSIMState) -> torch.Tensor:
         """Global-layout local fields as the partitions see them (tests)."""

@@ -18,7 +18,8 @@ import torch
 from .bits import i64_to_u32, u32_to_i64
 
 __all__ = ["pad_to_multiple", "pack_pm1", "unpack_pm1", "LANE_WIDTH",
-           "MAX_LANE_WORDS", "lane_words", "pack_lanes", "unpack_lanes"]
+           "MAX_LANE_WORDS", "lane_words", "lane_coords",
+           "pack_lanes", "unpack_lanes"]
 
 
 def _pow2(device) -> torch.Tensor:
@@ -60,6 +61,19 @@ def lane_words(n_lanes: int) -> int:
     return (n + LANE_WIDTH - 1) // LANE_WIDTH
 
 
+def lane_coords(n_lanes: int, ndim: int, device="cpu"):
+    """Per-lane (word index, bit shift) for extraction from stacked planes:
+    ``word_idx`` (L,) int64 and ``bit_shift`` (L, 1, ..., 1) int64
+    broadcasting against the ``ndim`` trailing dims of a (W, ...) word
+    array, so lane l's bit of every site is
+    ``(w[word_idx] >> bit_shift) & 1``, shape (L, ...)."""
+    L = int(n_lanes)
+    lane_words(L)      # validates the range
+    ids = torch.arange(L, device=device)
+    return ids // LANE_WIDTH, (ids % LANE_WIDTH).reshape(
+        (L,) + (1,) * ndim)
+
+
 def pack_lanes(x: torch.Tensor) -> torch.Tensor:
     """(R, ...) +-1 spins -> (W, ...) uint32 word planes, lanes >= R zero."""
     R = int(x.shape[0])
@@ -82,7 +96,6 @@ def unpack_lanes(w: torch.Tensor, n_lanes: int) -> torch.Tensor:
     if int(w.shape[0]) != W:
         raise ValueError(f"{L} lanes need {W} word planes, got "
                          f"leading axis {int(w.shape[0])}")
-    ids = torch.arange(L, device=w.device)
-    sh = (ids % LANE_WIDTH).reshape((L,) + (1,) * (w.ndim - 1))
-    bits = (u32_to_i64(w)[ids // LANE_WIDTH] >> sh) & 1
+    wl, sh = lane_coords(L, w.ndim - 1, w.device)
+    bits = (u32_to_i64(w)[wl] >> sh) & 1
     return torch.where(bits != 0, 1, -1).to(torch.int8)

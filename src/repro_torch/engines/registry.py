@@ -3,9 +3,11 @@
 The port builds the lattice engine at ``precision="f32"`` (the default),
 ``"int8"`` and ``"bitplane"``, fused or per phase, as one brick or, with
 a mesh, as bricks in one process or one per rank of a process group; the
-monolithic Gibbs engine (``"gibbs"``, f32); and the partitioned
-DSIM/CMFT engine (``"dsim"``, f32 and int8).  Everything else the
-reference's factory offers (``"dsim_dist"``, ``degrade=``) raises
+monolithic Gibbs engine (``"gibbs"``, f32); the partitioned DSIM/CMFT
+engine (``"dsim"``, f32 and int8); and the distributed DSIM
+(``"dsim_dist"``, f32, int8 and bitplane), one partition per member of a
+mesh, every partition in one process or one per rank.  What the
+reference's factory offers beyond that (``degrade=``) raises
 ``NotImplementedError`` naming the ROADMAP.md item that brings it;
 nothing is substituted.
 """
@@ -20,6 +22,7 @@ import torch
 from repro_torch.core.coloring import Coloring, greedy_coloring
 from repro_torch.core.dsim import (DSIMEngine, PartitionedProblem,
                                    build_partitioned)
+from repro_torch.core.dsim_dist import DistDSIMEngine
 from repro_torch.core.gibbs import GibbsEngine
 from repro_torch.core.graph import IsingGraph
 from repro_torch.core.lattice import LatticeProblem, build_ea3d_lattice
@@ -212,6 +215,28 @@ class _DSIMHandle(_BatchedStateHandle):
     name = "dsim"
 
 
+class _DistHandle(_Handle):
+    """The uniform engine surface over :class:`DistDSIMEngine`; states
+    cross snapshots in the reference's global shapes."""
+
+    name = "dsim_dist"
+    # the f32 path derives all replica streams jointly from one seed; the
+    # int8 and bit-plane paths spawn per-replica streams, but the handle
+    # runs one tenant per call, so per-job seed lists are not exposed
+    supports_packing = False
+
+    def init_state_packed(self, seeds: Sequence[int]):
+        raise NotImplementedError(
+            "dsim_dist runs one tenant per batched call (no replica "
+            "packing); submit with replicas=R and a single seed instead")
+
+    def snapshot(self, state):
+        return snapshot_state(self.eng.global_state(state))
+
+    def restore(self, snap):
+        return self.eng.shard_state(restore_state(snap, self.eng.device))
+
+
 class _LatticeHandle(_Handle):
     """The uniform engine surface over :class:`LatticeDSIM`."""
 
@@ -278,6 +303,13 @@ def make_engine(name: str, graph=None, *, coloring: Optional[Coloring] = None,
     ``labels`` (default ``greedy_partition(..., seed=0)``), ``mode``
     "dsim" or "cmft", ``precision`` "f32" or "int8" (lfsr, dsim mode);
     ``run_recorded``'s ``sync_every`` sets the staleness.
+    "dsim_dist" — the same problem and semantics, one partition per
+    member of ``mesh`` along ``axis`` (its size must be K): with no
+    ``mesh`` all K partitions in this process on one device (the
+    reference instead demands K JAX devices), or one per rank of the
+    process group of a ``make_mesh((K,), ("data",), group=...)`` mesh;
+    ``precision`` "f32", "int8" or "bitplane" (lfsr, dsim mode; 32 lanes
+    per word), ``bitpack`` the f32 boundary's 1-bit wire.
     "lattice" — the brick-partitioned EA3D lattice: pass ``lattice=`` a
     LatticeProblem or ``L=`` to build one from ``seed``; ``precision``
     "f32", "int8" or "bitplane"; ``fused=False`` or ``kernel_bx`` for the
@@ -292,22 +324,21 @@ def make_engine(name: str, graph=None, *, coloring: Optional[Coloring] = None,
     """
     if name not in ENGINE_NAMES:
         raise ValueError(f"unknown engine {name!r}; choose from {ENGINE_NAMES}")
-    if name == "dsim_dist":
-        raise NotImplementedError(
-            "engine 'dsim_dist' is not ported yet: ROADMAP.md queue A item "
-            "7 (its remainder: dsim_dist with queue B item 7)")
     if replicas < 1:
         raise ValueError("replicas must be >= 1")
     check_precision(name, precision)
     check_lanes(precision, replicas)
     if degrade is not None:
-        if name != "lattice":
+        if name not in ("dsim_dist", "lattice"):
             raise ValueError(
                 f"degrade policies apply to the mesh engines "
                 f"(dsim_dist, lattice), not {name!r}")
-        raise NotImplementedError(
-            "degrade policies come with the degraded mesh: ROADMAP.md "
-            "queue A item 9")
+        # dsim_dist's constructor raises the reference's own ValueErrors
+        # first, then this
+        if name == "lattice":
+            raise NotImplementedError(
+                "degrade policies come with the degraded mesh: ROADMAP.md "
+                "queue A item 9")
 
     if name == "gibbs":
         if not isinstance(graph, IsingGraph):
@@ -321,6 +352,14 @@ def make_engine(name: str, graph=None, *, coloring: Optional[Coloring] = None,
         eng = DSIMEngine(prob, rng=rng, fmt=fmt, mode=mode,
                          precision=precision, device=device)
         return _DSIMHandle(eng, replicas, prob.n)
+
+    if name == "dsim_dist":
+        prob = _default_partitioned(graph, coloring, K, labels)
+        eng = DistDSIMEngine(prob, mesh=mesh, axis=axis, rng=rng, fmt=fmt,
+                             mode=mode, bitpack=bitpack, replicas=replicas,
+                             precision=precision, degrade=degrade,
+                             device=device)
+        return _DistHandle(eng, replicas, prob.n)
 
     # name == "lattice"
     if vmem_budget_bytes is not None:

@@ -7,7 +7,8 @@ so both packages can compute the same thing from the same data.  A
 ``rng="philox"`` state cannot cross: a ``jax.random`` key and a
 ``torch.Generator`` are different streams.  States cross in the reference's global shapes: a
 mesh engine's ``shard_state`` cuts one into its bricks, and a
-``BrickState`` of a one-process mesh is joined back.  The dtypes are the reference's: int8 spins, uint32
+``BrickState`` of a one-process mesh is joined back (a distributed DSIM
+over a process group gives its global state through ``global_state``).  The dtypes are the reference's: int8 spins, uint32
 LFSR states and words, f32 couplings, int32 counters.
 """
 
@@ -63,8 +64,9 @@ def state_from_numpy(*, device=None, **fields):
     flips`` a lattice state (uint32 words in ``m`` a
     ``BitplaneLatticeState``, int8 spins a ``LatticeState``); ``m, rng, E,
     sweep, flips`` a ``GibbsState``; ``m, ghosts, macc, rng, sweep,
-    flips`` a ``DSIMState``.  An ``rng`` that is not one uint32 LFSR
-    state per spin (a philox key) raises."""
+    flips`` a ``DSIMState`` of the stacked or the distributed DSIM (uint32
+    words in ``m``: the distributed bit-plane state).  An ``rng`` that is
+    not one uint32 LFSR state per spin or lane (a philox key) raises."""
     keys = set(fields)
     m = np.asarray(fields["m"])
     if keys == {"m", "s", "halos", "sweep", "flips"}:
@@ -81,18 +83,25 @@ def state_from_numpy(*, device=None, **fields):
                    sweep=np.asarray(fields["sweep"], np.int32),
                    flips=np.asarray(fields["flips"], np.int32))
         return restore_state(snap, resolve_device(device))
+    # the distributed DSIM's bit-plane state: (K, W, n_max) uint32 words
+    # and word ghosts beside (K, R, n_max) LFSR states
+    words = m.dtype == np.uint32
     if keys == {"m", "rng", "E", "sweep", "flips"}:
         cls, extra = GibbsState, {"E": np.asarray(fields["E"], np.float32)}
     elif keys == {"m", "ghosts", "macc", "rng", "sweep", "flips"}:
         cls, extra = DSIMState, {
-            "ghosts": np.asarray(fields["ghosts"], np.float32),
+            "ghosts": np.asarray(fields["ghosts"],
+                                 np.uint32 if words else np.float32),
             "macc": np.asarray(fields["macc"], np.float32)}
     else:
         raise TypeError(f"no state of the port has the fields {sorted(keys)}")
     rng = np.asarray(fields["rng"])
-    if rng.dtype != np.uint32 or rng.shape != m.shape:
+    one_per_spin = rng.shape == m.shape or (
+        words and cls is DSIMState and rng.ndim == m.ndim == 3
+        and rng.shape[::2] == m.shape[::2])
+    if rng.dtype != np.uint32 or not one_per_spin:
         raise ValueError(_PHILOX)
-    snap = cls(m=np.asarray(m, np.int8), rng=rng,
+    snap = cls(m=m if words else np.asarray(m, np.int8), rng=rng,
                sweep=np.asarray(fields["sweep"], np.int32),
                flips=np.asarray(fields["flips"], np.int32), **extra)
     return restore_state(snap, resolve_device(device))

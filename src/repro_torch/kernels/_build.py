@@ -23,7 +23,8 @@ __all__ = ["SOURCES", "NVCC_FLAGS", "build", "library", "launch_counts",
            "stream_of", "check_bx", "check_sites", "require"]
 
 CSRC = Path(__file__).resolve().parent / "csrc"
-SOURCES = ("pbit_lattice.cu", "pbit_bitplane.cu", "lattice_energy.cu")
+SOURCES = ("pbit_lattice.cu", "pbit_bitplane.cu", "lattice_energy.cu",
+           "bitplane_gather.cu")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "--fmad=false", "-Xptxas=-v", "-Xcompiler", "-fPIC")
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "kernels"
@@ -48,7 +49,10 @@ launch_counts = {"pbit_brick_sweep_int": 0, "pbit_bitplane_sweep": 0,
                  "brick_energy:word": 0,
                  "brick_energy:site": 0,
                  # the energy's launches on bit-plane word planes
-                 "brick_energy:bitplane": 0}
+                 "brick_energy:bitplane": 0,
+                 # the ELL word gather-count of the general-graph
+                 # bit-plane path (no Pallas original)
+                 "bitplane_gather_count": 0}
 
 
 def reset_launch_counts():
@@ -153,6 +157,8 @@ _SIGNATURES = {
     # out, stream
     "brick_energy_words": (_P, _P, _P, _P6, _P6, _I, _I, _I, _I, _I, _I,
                            _I, _P, _P, _P),
+    # mext, idx, signs, nz, out, K, W, n_ext, nc, D, stream
+    "bitplane_gather_count": (_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P),
 }
 
 

@@ -1,4 +1,4 @@
-"""Dispatch wrappers for the lattice kernels; port of ``repro.kernels.ops``.
+"""Dispatch wrappers for the kernels; port of ``repro.kernels.ops``.
 
 ``impl`` selection:
   'cuda' — the hand-written CUDA kernel; raises on a CPU tensor.
@@ -13,13 +13,13 @@ from __future__ import annotations
 from typing import Optional
 
 from repro_torch.core.pbit import FixedPoint
-from . import _build, lattice_energy, pbit_bitplane, pbit_lattice, \
-    ref as _ref
+from . import _build, bitplane_gather, lattice_energy, pbit_bitplane, \
+    pbit_lattice, ref as _ref
 
 __all__ = ["IMPLS", "resolve_impl", "pbit_update_op", "pbit_sweep_op",
            "pbit_update_int_op", "pbit_sweep_int_op",
-           "pbit_bitplane_sweep_op", "brick_energy_op",
-           "brick_energy_words_op"]
+           "pbit_bitplane_sweep_op", "bitplane_gather_count_op",
+           "brick_energy_op", "brick_energy_words_op"]
 
 IMPLS = ("auto", "cuda", "ref")
 
@@ -103,6 +103,18 @@ def pbit_bitplane_sweep_op(mw, s, rows, masks_w, signs6, nz6, base, halos_w,
                                             nz6, base, halos_w, lut)
     return pbit_bitplane.pbit_bitplane_sweep(mw, s, rows, masks_w, signs6,
                                              nz6, base, halos_w, lut)
+
+
+def bitplane_gather_count_op(mext_w, idx_c, signs_c, nz_c,
+                             impl: str = "auto"):
+    """Per-lane +1-contribution bit-slice planes of a gather-graph (ELL)
+    site set, for K partitions: mext_w (K, W, n_ext), idx_c / signs_c /
+    nz_c (K, nc, D); returns ``ceil(log2(D+1))`` (K, W, nc) planes (at
+    K=1 the reference's op)."""
+    if resolve_impl(impl, mext_w.is_cuda) == "ref":
+        return _ref.bitplane_gather_count_ref(mext_w, idx_c, signs_c, nz_c)
+    return bitplane_gather.bitplane_gather_count(mext_w, idx_c, signs_c,
+                                                 nz_c)
 
 
 def brick_energy_op(m, active, h, w6, halos, bx: Optional[int] = None,

@@ -31,7 +31,8 @@ __all__ = ["neighbor_sums_ref", "int_field_ref", "pbit_brick_update_ref",
            "pbit_brick_sweep_ref", "decision_ulps_ref",
            "pbit_brick_update_int_ref", "pbit_brick_sweep_int_ref",
            "add_phase_flips_ref",
-           "bitplane_ones_count_ref", "pbit_bitplane_sweep_ref",
+           "bitplane_ones_count_ref", "bitplane_count_planes_ref",
+           "bitplane_gather_count_ref", "pbit_bitplane_sweep_ref",
            "brick_energy_sites_ref", "brick_energy_ref",
            "brick_energy_words_ref"]
 
@@ -231,6 +232,45 @@ def bitplane_ones_count_ref(mw, signs6, nz6, halos_w):
     b0 = s1 ^ s2
     k = s1 & s2
     return b0, c1 ^ c2 ^ k, (c1 & c2) | (k & (c1 ^ c2))
+
+
+def bitplane_count_planes_ref(planes):
+    """Per-lane count of set bits across a list of word planes, as
+    bit-slice planes: plane n is ripple-added into the slices, and a new
+    slice is appended only when the count can reach the next power of
+    two, so D planes give ``ceil(log2(D+1))`` slices; lane r's count is
+    ``sum_i 2**i * bit_r(slices[i])``."""
+    slices = []
+    for n, plane in enumerate(planes, start=1):
+        carry = plane
+        for i, s in enumerate(slices):
+            slices[i] = s ^ carry
+            carry = s & carry
+        if (1 << len(slices)) <= n:
+            slices.append(carry)
+    return slices
+
+
+def bitplane_gather_count_ref(mext_w, idx_c, signs_c, nz_c):
+    """Per-lane +1-contribution count of a gather-graph (ELL) site set, for
+    K partitions at once: ``mext_w`` (K, W, n_ext) uint32 word pools
+    (local words then ghosts), ``idx_c`` (K, nc, D) int32 slots into the
+    pool, ``signs_c`` / ``nz_c`` (K, nc, D) uint32 sign and nonzero
+    planes.  Gathers word ``mext_w[k, w, idx_c[k, i, d]]``, takes
+    ``(word ^ sign) & nz`` per neighbour and ripple-adds the D planes
+    (:func:`bitplane_count_planes_ref`).  Returns the ``ceil(log2(D+1))``
+    slices, (K, W, nc) uint32 each.  The words are XORed and ANDed as
+    their int32 views, which is exact bit for bit."""
+    K, W, _ = mext_w.shape
+    _, nc, D = idx_c.shape
+    nbr = torch.gather(mext_w.view(torch.int32), 2,
+                       idx_c.long().reshape(K, 1, nc * D).expand(
+                           K, W, nc * D)).reshape(K, W, nc, D)
+    sg = signs_c.view(torch.int32)[:, None]
+    nz = nz_c.view(torch.int32)[:, None]
+    planes = [(nbr[..., d] ^ sg[..., d]) & nz[..., d] for d in range(D)]
+    return [p.contiguous().view(torch.uint32)
+            for p in bitplane_count_planes_ref(planes)]
 
 
 def pbit_bitplane_sweep_ref(mw, s, rows, masks_w, signs6, nz6, base,

@@ -1,6 +1,6 @@
 """Runtime telemetry; port of ``repro.obs``: so far the measured-η meter
 (:mod:`.timing`)."""
 
-from .timing import EtaMeter, exchanges_per_sweep
+from .timing import EtaMeter, dist_eta_meter, exchanges_per_sweep
 
-__all__ = ["EtaMeter", "exchanges_per_sweep"]
+__all__ = ["EtaMeter", "dist_eta_meter", "exchanges_per_sweep"]

@@ -1,6 +1,7 @@
 """Measured η = f_comm / f_pbit — the paper's timing ratio, live.
 
-Port of ``repro.obs.timing``'s ``EtaMeter`` and ``exchanges_per_sweep``.
+Port of ``repro.obs.timing``'s ``EtaMeter``, ``exchanges_per_sweep`` and
+``dist_eta_meter``.
 
 ``core/commcost.py`` *predicts* the clocking bound (Eq. 2: the machine
 behaves as an unpartitioned one when f_comm/f_pbit >= 2 * N_color *
@@ -44,7 +45,7 @@ import torch
 
 from ..core import commcost
 
-__all__ = ["EtaMeter", "exchanges_per_sweep"]
+__all__ = ["EtaMeter", "exchanges_per_sweep", "dist_eta_meter"]
 
 SyncSpec = Union[int, str, None]
 
@@ -213,3 +214,20 @@ class EtaMeter:
             "exchanges_attributed": exchanges,
             "exchanges_timed": ex_n,
         }
+
+
+def dist_eta_meter(engine, *, sync_every: SyncSpec = 1, topo=None,
+                   clock: Callable[[], float] = time.perf_counter
+                   ) -> EtaMeter:
+    """EtaMeter pre-loaded with the commcost threshold of a partitioned
+    mesh engine (``DistDSIMEngine``): n_color from the colouring, C_max
+    from the engine's own boundary matrix on ``topo`` (default: a
+    unit-pin ring over its K partitions, the conservative all-links-equal
+    reading of Eq. S.3)."""
+    p = engine.p
+    b = commcost.boundary_matrix(p.graph.idx, p.graph.w, p.labels, p.K)
+    if topo is None:
+        topo = commcost.RingTopology(k=max(p.K, 2), pins_per_link=1)
+    c_max = commcost.comm_cost(b, topo).c_max
+    return EtaMeter(n_color=len(p.color_slots), c_max=c_max,
+                    sync_every=sync_every, clock=clock)

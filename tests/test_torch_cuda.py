@@ -904,3 +904,83 @@ def test_cuda_graph_engines_philox_resume_bitwise(cuda, name):
                            [8, 16], sync_every=4)
     assert torch.equal(a.m, b.m) and torch.equal(ra.energies, rb.energies)
     assert torch.equal(h.energy(a), ra.energies[-1])
+
+
+# -- the ELL word gather-count kernel and the distributed DSIM ------------------
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("K", [1, 4])
+@pytest.mark.parametrize("W", [1, 2, 3])
+@pytest.mark.parametrize("D", [1, 3, 4, 6, 12, 31])
+def test_cuda_gather_count_matches_plain(cuda, D, W, K):
+    """The kernel's bit-slice planes equal the plain version's bitwise
+    (random words, rows with repeats, zero couplings among them), one
+    launch per call."""
+    from repro_torch.kernels.bitplane_gather import bitplane_gather_count
+    rng = np.random.default_rng(D * 100 + W * 10 + K)
+    nc, n_ext = 1031, 2053
+    ones = np.uint32(0xFFFFFFFF)
+    args = (rng.integers(0, 2 ** 32, (K, W, n_ext), dtype=np.uint32),
+            rng.integers(0, n_ext, (K, nc, D), dtype=np.int32),
+            np.where(rng.random((K, nc, D)) < 0.5, ones, 0).astype(np.uint32),
+            np.where(rng.random((K, nc, D)) < 0.8, ones, 0).astype(np.uint32))
+    args = tuple(T(a) for a in args)
+    want = t_ref.bitplane_gather_count_ref(*args)
+    before = _build.launch_counts["bitplane_gather_count"]
+    got = bitplane_gather_count(*to(cuda, args))
+    torch.cuda.synchronize()
+    assert _build.launch_counts["bitplane_gather_count"] == before + 1
+    assert len(got) == len(want) == D.bit_length()
+    assert_bitwise(got, want)
+
+
+def dist_runs(kind, sync, devices, replicas, **kw):
+    from repro_torch import make_engine
+    from repro_torch.core.annealing import ea_schedule
+    _, _, prob = graph_problem(kind)
+    out = {}
+    for dev in devices:
+        h = make_engine("dsim_dist", prob, rng="lfsr", replicas=replicas,
+                        device=dev, **kw)
+        assert h.device.type == torch.device(dev).type
+        _build.reset_launch_counts()
+        st, rec = h.run_recorded(h.init_state(seed=2), ea_schedule(24),
+                                 [8, 24], sync_every=sync)
+        out[torch.device(dev).type] = (st, rec,
+                                       dict(_build.launch_counts))
+    return out
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("prec,R,sync", [("int8", 3, "phase"),
+                                         ("int8", 3, 4), ("int8", 1, None),
+                                         ("bitplane", 40, 4),
+                                         ("bitplane", 5, "phase")])
+@pytest.mark.parametrize("kind", ["ea3d", "regular"])
+def test_cuda_dsim_dist_fixed_point_matches_cpu_bitwise(cuda, kind, prec, R,
+                                                        sync):
+    """dsim_dist int8 and bit-plane on the card == device="cpu" bitwise;
+    the bit-plane path launches the gather-count kernel and no lattice
+    kernel."""
+    out = dist_runs(kind, sync, ("cpu", cuda), R, precision=prec)
+    (sc, rc, _), (sg, rg, counts) = out["cpu"], out["cuda"]
+    for f in ("m", "ghosts", "macc", "rng", "sweep", "flips"):
+        assert_bitwise((getattr(sg, f),), (getattr(sc, f),))
+    assert torch.equal(rg.energies.cpu(), rc.energies) and \
+        rg.flips == rc.flips
+    gathers = counts.pop("bitplane_gather_count")
+    assert (gathers > 0) == (prec == "bitplane")
+    assert not any(counts.values())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("mode,sync,bitpack", [("dsim", 4, True),
+                                               ("dsim", 1, False),
+                                               ("cmft", 4, True),
+                                               ("cmft", "phase", True)])
+def test_cuda_dsim_dist_f32_matches_cpu(cuda, mode, sync, bitpack):
+    out = dist_runs("regular", sync, ("cpu", cuda), 3, mode=mode,
+                    bitpack=bitpack)
+    out = {k: v[:2] for k, v in out.items()}
+    assert_graph_runs_agree(
+        out, ("m", "ghosts", "macc", "rng", "sweep", "flips"), True)

@@ -168,3 +168,75 @@ def test_dsim_golden_values_match_jax():
     assert m.shape == s.shape == (2, 8, L ** 3 // 8)
     assert hashlib.sha256(m.tobytes()).hexdigest() == golden["m_sha256"]
     assert hashlib.sha256(s.tobytes()).hexdigest() == golden["s_sha256"]
+
+
+DIST_REFERENCE = """
+import hashlib, json
+import numpy as np, jax, jax.numpy as jnp
+from jax.sharding import Mesh
+from repro.core.annealing import ea_schedule
+from repro.core.coloring import lattice3d_coloring
+from repro.core.dsim import DSIMState, build_partitioned
+from repro.core.dsim_dist import DistDSIMEngine
+from repro.core.graph import ea3d
+from repro.core.partition import brick_partition
+
+L, seed, sync, K = %(L)d, %(seed)d, %(sync)d, 8
+m0 = np.random.default_rng(%(m0_seed)d).choice(np.array([-1, 1], np.int8),
+                                               size=L ** 3)
+prob = build_partitioned(ea3d(L, seed=seed), lattice3d_coloring(L),
+                         brick_partition((L, L, L), %(bricks)r), K)
+gid = np.asarray(prob.global_ids)
+mesh = Mesh(np.asarray(jax.devices()[:K]), ("data",))
+sha = lambda a: hashlib.sha256(np.asarray(a).tobytes()).hexdigest()
+out = {}
+for prec in ("int8", "f32"):
+    d = DistDSIMEngine(prob, mesh, rng="lfsr", replicas=2, precision=prec)
+    st = d.init_state(seed=seed)
+    # every replica from graph_m0 (padding slots +1)
+    m = np.where(gid < prob.n, m0[np.minimum(gid, prob.n - 1)], 1)
+    m = jnp.asarray(np.repeat(m[:, None], 2, axis=1).astype(np.int8))
+    st = d.shard_state(DSIMState(m=m, ghosts=d._exchange_host(m),
+                                 macc=st.macc, rng=st.rng, sweep=st.sweep,
+                                 flips=st.flips))
+    st, rec = d.run_recorded(st, ea_schedule(16), [8, 16], sync_every=sync)
+    out[prec] = dict(
+        energies=np.asarray(rec.energies).tolist(),
+        flips=np.asarray(st.flips).tolist(),
+        # the stacked engine's (R, K, n_max) layout, and the dist one's
+        m_sha256=sha(np.asarray(st.m).transpose(1, 0, 2)),
+        s_sha256=sha(np.asarray(st.rng).transpose(1, 0, 2)),
+        s_dist_sha256=sha(st.rng))
+print(json.dumps(out))
+"""
+
+
+def test_dist_golden_values_match_jax_on_8_devices():
+    """The reference's ``DistDSIMEngine`` on K=8 forced host devices at
+    L=100 from ``graph_m0`` (sync_every=SYNC, R=2, lfsr): int8 reproduces
+    ``DSIM_GOLDEN`` (energies, flips, and the spin and LFSR digests once
+    transposed to the stacked engine's layout), and f32 (bitpack, its
+    own LFSR stream ``lfsr_init(K*R*n_max, seed)``) gives ``DIST_GOLDEN``
+    (energies and flips, held to 0.5% on the card, and the LFSR digest in
+    the dist layout)."""
+    import json
+    import os
+    import subprocess
+    import sys
+    smoke = chip_smoke()
+    code = DIST_REFERENCE % dict(L=smoke.L, seed=smoke.SEED,
+                                 sync=smoke.SYNC, m0_seed=smoke.GRAPH_M0_SEED,
+                                 bricks=smoke.BRICKS)
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"), JAX_PLATFORMS="cpu",
+               XLA_FLAGS="--xla_force_host_platform_device_count=8")
+    r = subprocess.run([sys.executable, "-c", code], capture_output=True,
+                       text=True, env=env, timeout=600)
+    assert r.returncode == 0, r.stderr[-3000:]
+    out = json.loads(r.stdout.strip().splitlines()[-1])
+    golden = smoke.DSIM_GOLDEN
+    for f in ("energies", "flips", "m_sha256", "s_sha256"):
+        assert out["int8"][f] == golden[f], f
+    dist = smoke.DIST_GOLDEN
+    assert out["f32"]["energies"] == dist["energies"]
+    assert out["f32"]["flips"] == dist["flips"]
+    assert out["f32"]["s_dist_sha256"] == dist["s_sha256"]

@@ -80,7 +80,8 @@ def test_entry_points_raise_without_cuda():
         "for fn in (lambda: make_engine('lattice', L=4, precision='int8'),\n"
         "           lambda: build_ea3d_lattice(4), lambda: ea3d(3),\n"
         "           lambda: make_engine('gibbs', g),\n"
-        "           lambda: make_engine('dsim', g, K=2)):\n"
+        "           lambda: make_engine('dsim', g, K=2),\n"
+        "           lambda: make_engine('dsim_dist', g, K=2)):\n"
         "    try:\n"
         "        fn()\n"
         "    except RuntimeError as e:\n"
@@ -88,7 +89,7 @@ def test_entry_points_raise_without_cuda():
         "    else:\n"
         "        raise SystemExit('ran without CUDA')\n"
         "h = make_engine('lattice', L=4, precision='int8', device='cpu')\n"
-        "for name in ('gibbs', 'dsim'):\n"
+        "for name in ('gibbs', 'dsim', 'dsim_dist'):\n"
         "    assert make_engine(name, g, device='cpu').device.type == 'cpu'\n"
         "print('CPU', h.device)\n")
     out = run_python(code)

@@ -283,9 +283,9 @@ def test_make_engine_raises_for_what_this_slice_does_not_port():
         t_make("lattice", precision="int8", mesh=mesh, **kw)
     assert t_make("lattice", precision="int8", mesh=mesh,
                   dim_axes=("x", "y", "z"), **kw).eng.nb == (2, 1, 1)
-    # gibbs and dsim are ported (the first half of queue A item 7): they
-    # take a graph, as in the reference; dsim_dist is the item's remainder
-    with pytest.raises(NotImplementedError, match="ROADMAP.*item 7"):
+    # gibbs, dsim and dsim_dist are ported (queue A item 7): they take a
+    # graph, as in the reference
+    with pytest.raises(ValueError, match="IsingGraph"):
         t_make("dsim_dist", precision="int8", **kw)
     with pytest.raises(ValueError, match="not supported on engine 'gibbs'"):
         t_make("gibbs", precision="int8", **kw)
