@@ -84,10 +84,32 @@ Phases; every check raises on failure and the script then exits non-zero:
    profiled bit-plane run (device busy share, the gather-count's share of
    the device time) and the gather-count timed against its plain version
    and its bound;
-8. print one JSON line of kernels (``launches`` over the main and mesh
+8. the degraded mesh and the sampling server: (a) both mesh engines'
+   checked exchange at L=100 (``degrade=``): the lattice's ``MESH_RUNS``
+   under ``stale_hold:8`` with no faults bitwise the unchecked run (and
+   the (2,2,2) ``MESH_GOLDEN`` still reproduced), with ``DEG_CODES`` of
+   drops and corruptions bitwise the ``impl="ref"`` run with the same
+   codes (f32: LFSR states bitwise, energies within 0.5%), with the same
+   health report as the codes predict; ``freeze_boundary`` against its
+   ``impl="ref"`` run, ``resync`` clearing the staleness, ``fail_fast``
+   raising at the chunk of its code; (b) the same for ``dsim_dist``
+   K=8 at int8 R=4 and bit-plane R=64 (with codes against the
+   ``device="cpu"`` twin), the checked exchange's time per call beside
+   the unchecked one's (CUDA events) for both engines, and measured eta
+   with ``effective_eta`` at ``sync_every`` 1 and 8 under injected
+   drops; (c) ``repro_torch.serve.SampleServer`` on the card answering
+   ``SERVER_JOBS`` at L=100 (a packed int8 pair, bit-plane, f32, a
+   degraded mesh job with a drop, a ``fail_fast`` dsim_dist job that ends
+   ``failed`` with ``StateCorruption``), every job equal to a direct
+   ``make_engine`` run of its seeds, the packed job equal to its solo
+   run, the launch counters (0 just before the server is driven) showing
+   kernels #1-#4 and the gather-count launched from within it, and the
+   server's jobs/s and flips/s beside the direct runs';
+9. print one JSON line of kernels (``launches`` over the main and mesh
    paths, and the bit-plane dist run's for the gather-count;
-   ``mesh_launches`` the mesh path's), the card's name and power limit,
-   and last ``{"ok": true, "device": {...}}``.
+   ``mesh_launches`` the mesh path's, ``server_launches`` the server
+   path's), the card's name and power limit, and last
+   ``{"ok": true, "device": {...}}``.
 
 It exits non-zero, printing no result, where CUDA is absent or the
 script stands outside a checkout of the repository.
@@ -258,6 +280,32 @@ DIST_GOLDEN = {
                 "207778984a7f44badfdb469252d3ac3f",
 }
 
+# The degraded mesh (phase 8): DEG_SWEEPS sweeps at sync_every DEG_SYNC
+# (eight exchanges), record points DEG_POINTS; DEG_CODES[seq] injects a
+# drop (1) or a corruption (2) on the received planes of exchange seq:
+# four bad exchanges of eight, two of them consecutive.
+DEG_SWEEPS, DEG_SYNC, DEG_POINTS = 32, 4, [16, 32]
+DEG_CODES = [0, 1, 0, 2, 2, 0, 1, 0]
+DEG_POLICY = "stale_hold:8"
+# The server path (phase 8c): label -> (problem, submit keywords), each
+# job over ea_schedule(MAIN_SWEEPS) at sync_every SYNC; the first two pack
+# into one R=8 call.  The server's FaultPlan corrupts exchange 1 and drops
+# exchange SERVER_DROP of every degraded job: the mesh job holds both, the
+# dsim_dist job fails at the first.
+SERVER_JOBS = {
+    "int8 R=4 seed 0": ("lat", dict(precision="int8", replicas=4, seed=0)),
+    "int8 R=4 seed 1": ("lat", dict(precision="int8", replicas=4, seed=1)),
+    "bitplane R=64": ("lat", dict(precision="bitplane", replicas=64,
+                                  seed=2)),
+    "f32 R=4": ("lat", dict(replicas=4, seed=3)),
+    "mesh (2,2,2) int8 R=4 stale_hold:8": ("mesh", dict(
+        precision="int8", replicas=4, seed=4, degrade_policy=DEG_POLICY)),
+}
+SERVER_DROP = 5
+SERVER_FAILING = ("graph", dict(engine="dsim_dist", precision="bitplane",
+                                replicas=64, seed=5,
+                                degrade_policy="fail_fast"))
+
 
 def graph_m0(n: int) -> np.ndarray:
     """The golden runs' initial spins, one draw shared by every replica."""
@@ -393,8 +441,11 @@ class Smoke:
         self.phase_timing(card)
         self.phase_graph(card)
         self.phase_dist(card)
+        self.phase_degraded(card)
+        self.phase_server(card)
         for k in KERNELS:
             self.results[k]["mesh_launches"] = self.mesh_launches[k]
+            self.results[k]["server_launches"] = self.server_launches[k]
         print(json.dumps({"kernels": [self.results[k] for k in KERNELS]}))
         print(card)
         print(json.dumps({"ok": True, "device": {
@@ -2257,6 +2308,450 @@ class Smoke:
               f"by {r['bound_by']} ({r['bounds']}); {r['launches']} "
               f"launches on the bit-plane dist run; on {card}", flush=True)
         del r["work"], r["bounds"]
+
+    # -- phase 8: the degraded mesh and the sampling server ---------------
+
+    def deg_run(self, hh, codes, st0=None):
+        """A degraded run of DEG_SWEEPS chunk by chunk with ``codes``
+        armed: (state in the reference's shapes, record, report, raised,
+        sweeps done)."""
+        from repro_torch.core.annealing import ea_schedule
+        from repro_torch.core.degrade import StateCorruption
+        hh.eng.set_exchange_faults(codes)
+        cur = hh.start_recorded(hh.init_state(seed=SEED) if st0 is None
+                                else st0, ea_schedule(DEG_SWEEPS),
+                                DEG_POINTS, sync_every=DEG_SYNC)
+        raised = False
+        while not cur.done:
+            try:
+                cur.advance(1)
+            except StateCorruption:
+                raised = True
+                break
+        health = hh.eng.health
+        return (hh.eng.global_state(cur.state), cur.record(),
+                None if health is None else health.report(), raised,
+                cur.sweeps_done, cur.state)
+
+    def same_state(self, a, b, fields) -> bool:
+        return all(self.same(getattr(a, f), getattr(b, f))
+                   for f in fields) and \
+            all(self.same(x, y) for x, y in zip(getattr(a, "halos", ()),
+                                                getattr(b, "halos", ())))
+
+    def phase_degraded(self, card: str):
+        """(a) the lattice mesh and (b) dsim_dist with a degrade policy at
+        L=100: without faults bitwise the unchecked run, with DEG_CODES
+        equal to the plain run (impl="ref" on the card, or the CPU twin)
+        with the same codes and the report the codes predict, freeze,
+        resync and fail_fast; the checked exchange timed against the
+        unchecked one; eta and effective_eta under injected drops."""
+        print(f"== 8. degraded mesh at L={L}: checked exchange, stale hold, "
+              f"freeze, resync", flush=True)
+        lat_fields = ("m", "s", "sweep", "flips")
+        bad = [i for i, c in enumerate(DEG_CODES) if c]
+        want = dict(detections=len(bad), stale_exchanges=len(bad),
+                    exchanges_total=len(DEG_CODES), max_staleness_seen=2,
+                    delivered_fraction=1 - len(bad) / len(DEG_CODES))
+        for label, kw in MESH_RUNS.items():
+            f32 = "precision" not in kw
+            clean = self.deg_run(self.engine(kw), None)
+            hd = self.engine(dict(kw, degrade=DEG_POLICY))
+            chk = self.deg_run(hd, None)
+            check(self.same_state(clean[0], chk[0], lat_fields) and
+                  self.same(clean[1].energies, chk[1].energies) and
+                  clean[1].flips == chk[1].flips and
+                  chk[2]["detections"] == 0,
+                  f"{label} {DEG_POLICY}, no faults: bitwise the unchecked "
+                  f"run over {DEG_SWEEPS} sweeps ({chk[2]['exchanges_total']}"
+                  f" exchanges, 0 detections)")
+            got = self.deg_run(hd, DEG_CODES)
+            ref = self.deg_run(self.engine(dict(kw, degrade=DEG_POLICY,
+                                                impl="ref")), DEG_CODES)
+            rep = got[2]
+            check(rep == ref[2] and all(rep[k] == v for k, v in
+                                        want.items()),
+                  f"{label} codes {DEG_CODES}: report == impl='ref' and "
+                  f"the codes' ({ {k: rep[k] for k in want} })")
+            if f32:
+                rel = float(((got[1].energies - ref[1].energies).abs()
+                             / ref[1].energies.abs()).max())
+                check(self.same(got[0].s, ref[0].s) and rel < 0.005,
+                      f"{label} codes: LFSR states == impl='ref' bitwise, "
+                      f"energies within 0.5% (largest {rel:.3e}; "
+                      f"{int((got[0].m != ref[0].m).sum())} spins differ)")
+            else:
+                check(self.same_state(got[0], ref[0], lat_fields) and
+                      self.same(got[1].energies, ref[1].energies) and
+                      got[1].flips == ref[1].flips,
+                      f"{label} codes: == impl='ref' bitwise (spins, LFSR, "
+                      f"halos, flips, energies)")
+        # MESH_GOLDEN through the checked exchange
+        from repro_torch.core.annealing import ea_schedule
+        hg = self.engine(dict(precision="int8", replicas=2, mesh=(2, 2, 2),
+                              degrade=DEG_POLICY))
+        st, rec = hg.run_recorded(hg.init_state(seed=SEED), ea_schedule(16),
+                                  [8, 16], sync_every=SYNC)
+        g = hg.eng.global_state(st)
+        check(rec.energies.cpu().numpy().tolist() == MESH_GOLDEN["energies"]
+              and st.flips.cpu().numpy().tolist() == MESH_GOLDEN["flips"]
+              and hashlib.sha256(g.m.cpu().numpy().tobytes()).hexdigest()
+              == MESH_GOLDEN["m_sha256"],
+              f"mesh (2,2,2) int8 R=2 {DEG_POLICY}: MESH_GOLDEN energies, "
+              f"flips and sha256(m)")
+        # freeze, resync, fail_fast on int8 R=4 (2,2,2)
+        kw = MESH_RUNS[ETA_RUN]
+        freeze = [0, 0, 2]
+        hf = self.engine(dict(kw, degrade="freeze_boundary"))
+        got = self.deg_run(hf, freeze)
+        ref = self.deg_run(self.engine(dict(kw, degrade="freeze_boundary",
+                                            impl="ref")), freeze)
+        rep = got[2]
+        check(self.same_state(got[0], ref[0], lat_fields) and
+              rep == ref[2] and rep["detections"] == 1 and
+              rep["stale_exchanges"] == 6 and rep["staleness"] == [6] * 6
+              and rep["suspect"],
+              f"{ETA_RUN} freeze_boundary codes {freeze}: == impl='ref' "
+              f"bitwise; 1 detection, every face held from exchange 2 on "
+              f"({rep['stale_exchanges']} held, staleness "
+              f"{rep['staleness']})")
+        st2 = hf.eng.resync(got[5])
+        fresh = hf.eng._refresh_halos(got[5])
+        check(all(self.same(x, y) for x, y in zip(st2.halos, fresh.halos))
+              and not hf.eng.health.suspect and
+              hf.eng.health.report()["staleness"] == [0] * 6,
+              "resync: every halo == a fresh exchange of the current "
+              "spins, staleness cleared")
+        ff = [0, 0, 0, 0, 0, 2, 0, 0]
+        got = self.deg_run(self.engine(dict(kw, degrade="fail_fast")), ff)
+        check(got[3] and got[4] == 16 and got[2]["detections"] == 1,
+              f"{ETA_RUN} fail_fast codes {ff}: StateCorruption at the "
+              f"chunk of exchange 5 (stopped at sweep {got[4]})")
+        self.deg_lattice_exchange(card)
+        self.deg_dist(card)
+
+    def time_exchange(self, label, unchecked, checked, corrupt, card):
+        """µs per call of an exchange, unchecked, checked without faults
+        and checked with a corrupt code (CUDA events)."""
+        us = [self.time_ms(fn, reps=200, warm=5) * 1e3
+              for fn in (unchecked, checked, corrupt)]
+        print(f"  {label}: exchange {us[0]:.1f} us per call unchecked, "
+              f"{us[1]:.1f} us checked ({us[1] / us[0]:.2f}x), {us[2]:.1f} "
+              f"us checked with a corrupt code (CUDA events); an in-process "
+              f"gather on one card; on {card}", flush=True)
+        self.deg_exchange_us[label] = us
+
+    def deg_lattice_exchange(self, card: str):
+        t = self.torch
+        from repro_torch.core.degrade import carry_to_device, health_init
+        self.deg_exchange_us = {}
+        hh = self.engine(dict(MESH_RUNS[ETA_RUN], degrade=DEG_POLICY))
+        eng = hh.eng
+        st = hh.init_state(seed=SEED)
+        m = eng._bricks_of(st.m)
+        ex = eng._exchanger(int(m.shape[1]), m.dtype)
+        buf = ex.buffer(st.halos)
+        hc = carry_to_device(health_init(6), len(eng.coords), self.dev)
+        codes = t.tensor([2], dtype=t.int64, device=self.dev)
+        self.time_exchange(f"lattice {ETA_RUN}", lambda: ex(m),
+                           lambda: ex.checked(m, buf, hc, None, False),
+                           lambda: ex.checked(m, buf, hc, codes, False),
+                           card)
+        self.deg_eta(f"lattice {ETA_RUN}", hh, n_color=eng.p.n_colors,
+                     exchange=lambda s: ex.checked(
+                         eng._bricks_of(s.m), buf, hc, None, False),
+                     card=card)
+
+    def deg_eta(self, label, hh, exchange, card, n_color=None):
+        """Measured eta and effective_eta at sync_every 1 and SYNC under
+        DEG_POLICY with every eighth exchange dropped: the checked
+        exchange timed alone, the held exchanges fed to the meter from
+        the health report."""
+        from repro_torch.core.annealing import ea_schedule
+        from repro_torch.obs.timing import EtaMeter, dist_eta_meter
+        for sync in (1, SYNC):
+            n_ex = MAIN_SWEEPS // sync
+            codes = [1 if i % 8 == 3 else 0 for i in range(n_ex)]
+            hh.eng.set_exchange_faults(codes)
+            st = hh.init_state(seed=SEED)
+            hh.run_recorded(st, ea_schedule(MAIN_SWEEPS), MAIN_POINTS,
+                            sync_every=sync)                    # warm
+            cur = hh.start_recorded(st, ea_schedule(MAIN_SWEEPS),
+                                    MAIN_POINTS, sync_every=sync)
+            meter = (EtaMeter(n_color=n_color, sync_every=sync)
+                     if n_color is not None else
+                     dist_eta_meter(hh.eng, sync_every=sync)).attach(cur)
+            while not cur.done:
+                cur.advance(1)
+            meter.measure_exchange(lambda: exchange(cur.state), reps=100,
+                                   warmup=5)
+            rep = hh.eng.health.report()
+            meter.note_stale(rep["stale_exchanges"], rep["exchanges_total"],
+                             rep["max_staleness_seen"])
+            r = meter.report()
+            check(rep["stale_exchanges"] == n_ex // 8 and
+                  abs(r["effective_eta"] - r["measured_eta"] * 7 / 8)
+                  <= 1e-9 * r["measured_eta"] and
+                  np.isfinite(r["effective_eta"]) and r["effective_eta"] > 0,
+                  f"{label} sync_every={sync}: {rep['stale_exchanges']} of "
+                  f"{n_ex} exchanges held, effective eta = 7/8 of eta")
+            print(f"  {label}, {DEG_POLICY}, sync_every={sync}: measured "
+                  f"eta {r['measured_eta']:.4e}, effective eta "
+                  f"{r['effective_eta']:.4e} (delivered "
+                  f"{r['delivered_fraction']:.4f}), checked exchange "
+                  f"{r['t_exchange_s'] * 1e6:.1f} us, sweep "
+                  f"{r['t_pbit_sweep_s'] * 1e6:.1f} us; on {card}",
+                  flush=True)
+        hh.eng.set_exchange_faults(None)
+
+    def deg_dist(self, card: str):
+        t = self.torch
+        from repro_torch import make_engine
+        from repro_torch.core.annealing import ea_schedule
+        from repro_torch.core.degrade import carry_to_device, health_init
+        fields = ("m", "ghosts", "macc", "rng", "sweep", "flips")
+        for prec, R in (("int8", 4), ("bitplane", 64)):
+            label = f"dsim_dist {prec} R={R} K={self.prob.K}"
+
+            def mk(policy, device=None):
+                return make_engine("dsim_dist", self.prob if device is None
+                                   else self.prob.to(device), rng="lfsr",
+                                   precision=prec, replicas=R,
+                                   degrade=policy, device=device)
+            clean = self.deg_run(mk(None), None)
+            hd = mk(DEG_POLICY)
+            chk = self.deg_run(hd, None)
+            check(self.same_state(clean[0], chk[0], fields) and
+                  self.same(clean[1].energies, chk[1].energies) and
+                  chk[2]["detections"] == 0,
+                  f"{label} {DEG_POLICY}, no faults: bitwise the unchecked "
+                  f"run over {DEG_SWEEPS} sweeps")
+            # with codes against the CPU twin over the first 8 sweeps
+            codes = [0, 2, 1, 0]
+            twin = {}
+            for dev in (None, "cpu"):
+                hh = mk(DEG_POLICY, dev)
+                hh.eng.set_exchange_faults(codes)
+                st, rec = hh.run_recorded(hh.init_state(seed=SEED),
+                                          ea_schedule(8), [8],
+                                          sync_every=2)
+                twin[dev] = (st, rec, hh.eng.health.report())
+            (a, ra, pa), (b, rb, pb) = twin[None], twin["cpu"]
+            def host(x):
+                return (x.view(t.int32) if x.dtype == t.uint32 else x).cpu()
+            check(all(self.same(host(getattr(a, f)), host(getattr(b, f)))
+                      for f in fields) and
+                  self.same(ra.energies.cpu(), rb.energies) and
+                  pa == pb and pa["detections"] == 2,
+                  f"{label} codes {codes}: == device='cpu' bitwise (state, "
+                  f"energies) with the same report ({pa['detections']} "
+                  f"detections, {pa['stale_exchanges']} held)")
+            # freeze and fail_fast on the card
+            got = self.deg_run(mk("freeze_boundary"), [0, 0, 2])
+            rep = got[2]
+            check(rep["detections"] == 1 and rep["stale_exchanges"] == 6 and
+                  rep["staleness"] == [6] * self.prob.K and rep["suspect"],
+                  f"{label} freeze_boundary: 1 detection, every partition "
+                  f"held from exchange 2 on (staleness {rep['staleness']})")
+            got = self.deg_run(mk("fail_fast"), [0, 0, 0, 0, 0, 2, 0, 0])
+            check(got[3] and got[4] == 16,
+                  f"{label} fail_fast: StateCorruption at the chunk of "
+                  f"exchange 5 (stopped at sweep {got[4]})")
+            # the exchange alone: unchecked, checked, checked and corrupt
+            eng = hd.eng
+            st = hd.init_state(seed=SEED)
+            word = prec == "bitplane"
+            x = st.m.view(t.int32) if word else st.m
+            gh = st.ghosts.view(t.int32) if word else st.ghosts
+            hc = carry_to_device(health_init(self.prob.K), 1, self.dev)
+            one = t.tensor([2], dtype=t.int64, device=self.dev)
+            self.time_exchange(label, lambda: eng._refresh(x),
+                               lambda: eng._exchange_checked(
+                                   x, gh, hc, None, False),
+                               lambda: eng._exchange_checked(
+                                   x, gh, hc, one, False), card)
+            if prec == "int8":
+                self.deg_eta(label, hd, card=card, exchange=lambda s:
+                             eng._exchange_checked(s.m, s.ghosts, hc, None,
+                                                   False))
+
+    def server_direct(self, name, kw, sweeps, pts, seeds, hh=None):
+        """The server's job run directly through make_engine (or on the
+        handle ``hh`` such a call built): the same problem, width, seeds,
+        record points and fault codes."""
+        from repro_torch import make_engine
+        from repro_torch.core.annealing import ea_schedule
+        from repro_torch.core.mesh import make_mesh
+        if hh is None:
+            extra = {} if name != "mesh" else dict(
+                mesh=make_mesh((2, 2, 2), AXES), dim_axes=AXES)
+            hh = make_engine("lattice", L=L, seed=SEED,
+                             precision=kw.get("precision", "f32"),
+                             replicas=len(seeds),
+                             degrade=kw.get("degrade_policy"), **extra)
+        if name == "mesh":
+            hh.eng.set_exchange_faults(
+                self.server_plan().exchange_codes(sweeps // SYNC))
+        st, rec = hh.run_recorded(hh.init_state_packed(seeds),
+                                  ea_schedule(sweeps), pts,
+                                  sync_every=SYNC)
+        return hh, st, rec
+
+    @staticmethod
+    def server_plan():
+        from repro_torch.serve import FaultPlan, FaultRule
+        return FaultPlan([FaultRule(site="exchange_corrupt", index=1),
+                          FaultRule(site="exchange_drop", index=SERVER_DROP)])
+
+    def phase_server(self, card: str):
+        """(c) repro_torch.serve.SampleServer on the card at L=100."""
+        t = self.torch
+        from repro_torch.core.partition import brick_partition
+        from repro_torch.engines.base import spawn_seeds
+        from repro_torch.kernels import _build
+        from repro_torch.core.mesh import make_mesh
+        from repro_torch.serve import SampleServer
+        print(f"== 8c. sampling server: repro_torch.serve.SampleServer at "
+              f"L={L} on the card", flush=True)
+
+        def server():
+            srv = SampleServer(fault_plan=self.server_plan(), max_retries=0)
+            srv.register_problem("lat", L=L, seed=SEED)
+            srv.register_problem("mesh", L=L, seed=SEED,
+                                 mesh=make_mesh((2, 2, 2), AXES),
+                                 dim_axes=AXES)
+            srv.register_problem("graph", graph=self.g, coloring=self.col,
+                                 K=int(np.prod(BRICKS)), rng="lfsr",
+                                 labels=brick_partition((L, L, L), BRICKS))
+            return srv
+
+        def submit(srv, jobs):
+            return {label: srv.submit(prob, engine=kw.get(
+                "engine", "lattice"), sweeps=MAIN_SWEEPS, sync_every=SYNC,
+                **{k: v for k, v in kw.items() if k != "engine"})
+                for label, (prob, kw) in jobs.items()}
+
+        srv = server()
+        check(srv.device.type == "cuda",
+              f"SampleServer() builds its engines on {srv.device}")
+        t.cuda.synchronize()
+        _build.reset_launch_counts()
+        ids = submit(srv, dict(SERVER_JOBS, failing=SERVER_FAILING))
+        srv.drain()
+        t.cuda.synchronize()
+        self.server_launches = dict(_build.launch_counts)
+        out = {label: srv.result(j) for label, j in ids.items()}
+        for name in ("pbit_brick_sweep_int", "pbit_bitplane_sweep",
+                     "pbit_brick_sweep", "brick_energy",
+                     "bitplane_gather_count"):
+            check(self.server_launches[name] > 0,
+                  f"server path launched {name} "
+                  f"{self.server_launches[name]} times")
+        bad = out.pop("failing")
+        check(bad["status"] == "failed" and
+              "StateCorruption" in (bad["error"] or "") and
+              bad["degrade"]["detections"] == 1,
+              f"dsim_dist bitplane R=64 K=8 fail_fast with a corrupt "
+              f"exchange: failed, {bad['error'][:60]!r}")
+        first = list(SERVER_JOBS)[:2]
+        check(all(out[k]["packed_with"] == 1 for k in first) and
+              all(out[k]["packed_with"] == 0 for k in list(SERVER_JOBS)[2:]),
+              f"{first} packed into one call, the others solo")
+        pts = sorted(set(range(MAIN_SWEEPS // 8, MAIN_SWEEPS + 1,
+                               MAIN_SWEEPS // 8)))
+        # every job == a direct make_engine run of its seeds
+        seeds = {k: spawn_seeds(kw["seed"], kw["replicas"])
+                 for k, (_, kw) in SERVER_JOBS.items()}
+        packed = seeds[first[0]] + seeds[first[1]]
+        for label, (name, kw) in SERVER_JOBS.items():
+            r = out[label]
+            sd = packed if label in first else seeds[label]
+            hh, st, rec = self.server_direct(name, kw, MAIN_SWEEPS, pts, sd)
+            lo = 0 if label != first[1] else kw["replicas"]
+            e = rec.energies.cpu().numpy()[:, lo:lo + kw["replicas"]]
+            if "precision" not in kw:
+                rel = float(np.max(np.abs(r["energies"] / e - 1)))
+                check(r["status"] == "done" and rel < 0.005,
+                      f"server {label}: energies within 0.5% of the direct "
+                      f"run (largest {rel:.3e}; bitwise: "
+                      f"{bool(np.array_equal(r['energies'], e))})")
+            else:
+                check(r["status"] == "done" and
+                      np.array_equal(r["energies"], e),
+                      f"server {label}: energies == the direct run's "
+                      f"bitwise (E[-1] {r['energies'][-1].tolist()})")
+            if float(e[-1].min()) < float(e[:-1].min()):
+                # the best first reached at the last point: the final spins
+                best = int(np.argmin(e[-1]))
+                spins = hh.global_spins(st).cpu().numpy()[lo + best]
+                check(r["best_replica"] == best and
+                      r["best_energy"] == float(e[-1, best]) and
+                      np.array_equal(r["best_spins"], spins),
+                      f"server {label}: best replica, energy and spins == "
+                      f"the direct run's final ones")
+            if name == "mesh":
+                rep = hh.eng.health.report()
+                check(r["degrade"] == rep and rep["detections"] == 2 and
+                      rep["stale_exchanges"] == 2 and
+                      rep["max_staleness_seen"] == 1,
+                      f"server {label}: degrade report == the direct run's "
+                      f"(a corruption and a drop detected and held, "
+                      f"delivered {rep['delivered_fraction']:.4f})")
+        # the packed job equals its solo run
+        solo = server()
+        sid = solo.submit("lat", engine="lattice", sweeps=MAIN_SWEEPS,
+                          sync_every=SYNC, **SERVER_JOBS[first[1]][1])
+        rs = solo.drain().result(sid)
+        check(rs["packed_with"] == 0 and
+              np.array_equal(rs["energies"], out[first[1]]["energies"]) and
+              rs["flips"] == out[first[1]]["flips"] and
+              np.array_equal(rs["best_spins"], out[first[1]]["best_spins"]),
+              f"packed job {first[1]!r} == its solo run bitwise (energies, "
+              f"flips, best spins)")
+        # throughput: the jobs again on the warm server, then directly
+        walls, flips = [], 0
+        for _ in range(2):
+            t.cuda.synchronize()
+            t0 = time.perf_counter()
+            ids = submit(srv, SERVER_JOBS)
+            srv.drain()
+            t.cuda.synchronize()
+            walls.append(time.perf_counter() - t0)
+        res = [srv.result(j) for j in ids.values()]
+        check(all(r["status"] == "done" and r["pool_hit"] for r in res),
+              "warm rounds: every job done from a pooled engine")
+        flips = sum(r["flips"] for r in res)
+        dt = walls[1]
+        updates = sum(L ** 3 * kw["replicas"] * MAIN_SWEEPS
+                      for _, kw in SERVER_JOBS.values())
+        # the direct baseline: each job on its own engine, built and run
+        # once before the timed pass (as the server's pooled engines)
+        handles = {}
+        for label, (name, kw) in SERVER_JOBS.items():
+            handles[label] = self.server_direct(name, kw, MAIN_SWEEPS, pts,
+                                             seeds[label])[0]
+        t.cuda.synchronize()
+        t0 = time.perf_counter()
+        for label, (name, kw) in SERVER_JOBS.items():
+            self.server_direct(name, kw, MAIN_SWEEPS, pts, seeds[label],
+                               hh=handles[label])
+        t.cuda.synchronize()
+        dd = time.perf_counter() - t0
+        # the part of each job that is host work: its initial state (spins
+        # and LFSR columns drawn per replica with numpy, then copied in)
+        t0 = time.perf_counter()
+        for label, (_, kw) in SERVER_JOBS.items():
+            handles[label].init_state_packed(seeds[label])
+        t.cuda.synchronize()
+        di = time.perf_counter() - t0
+        n = len(SERVER_JOBS)
+        print(f"  server: {n} jobs in {dt:.4f} s (first warm round "
+              f"{walls[0]:.4f} s) = {n / dt:.4f} jobs/s, "
+              f"{updates / dt:.4e} flips/s ({flips} accepted flips); "
+              f"the same jobs run one by one on warm make_engine handles "
+              f"{dd:.4f} s = {n / dd:.4f} jobs/s, {updates / dd:.4e} "
+              f"flips/s; their initial states alone {di:.4f} s; on {card}",
+              flush=True)
 
     def _timed(self, name, source, replaces, kernel, plain, byts, int_ops,
                f32_ops, work):

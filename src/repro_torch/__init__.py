@@ -1,7 +1,8 @@
-"""PyTorch/CUDA port of the p-bit machine (single GPU, lattice engine).
+"""PyTorch/CUDA port of the p-bit machine.
 
 The JAX package ``repro`` is the reference; this package mirrors its
-layout (``core/``, ``kernels/``, ``engines/``) and imports neither JAX nor
+layout (``core/``, ``kernels/``, ``engines/``, ``obs/``, ``serve/``) and
+imports neither JAX nor
 ``repro``.  Entry points run on a CUDA device unless the caller passes
 ``device="cpu"`` (the plain PyTorch versions of the kernels, used by the
 CPU tests); with no device given and no CUDA present they raise.

@@ -19,6 +19,14 @@ have no neighbour and hold zero words on the bit-plane path, zero spins
 with ``bitpack_halos=False``, and -1 with ``bitpack_halos=True``: there the
 reference's 1-bit wire delivers zero bytes, and a zero bit unpacks to -1.
 The face couplings are zero, so the sweeps do not see the difference.
+
+Both exchanges also run checked (``checked``), the reference's
+``_exchange_block_checked``: every wired face carries a header [seq,
+checksum of the face as sent], the receiver checksums what arrived, and a
+face that fails, or that an injected fault code hits, is held at its last
+good plane (``core/degrade.py``).  The outer faces of an open chain have
+no sender and are always accepted, as are the faces of an axis of one
+brick, which touch no link.
 """
 
 from __future__ import annotations
@@ -30,6 +38,8 @@ from typing import List, Sequence, Tuple
 import numpy as np
 import torch
 
+from .degrade import (_mults, fault_code, health_step, mulmod32,
+                      wire_checksum, wire_words)
 from .packing import pack_pm1, pad_to_multiple, unpack_pm1
 
 __all__ = ["BrickState", "brick_coords", "cut", "join", "GatherExchange",
@@ -169,12 +179,71 @@ class GatherExchange:
         self.fill = torch.from_numpy(
             np.concatenate([x.reshape(-1) for x in fill])).to(
                 device=device, dtype=gdt)
+        # the checked exchange's constants: each element's plane, brick k
+        # and direction d as k * 6 + d, its checksum weight within the
+        # plane, and which planes have a sender over a link
+        plane, pos, has_src = [], [], np.zeros((K, 6), bool)
+        for d in range(6):
+            a = d // 2
+            n = lead * int(np.prod(blocks[d][1][2:]))
+            for k in range(K):
+                plane.append(np.full(n, k * 6 + d, np.int64))
+                pos.append(np.arange(n))
+                has_src[k, d] = nb[a] > 1 and bool(keep[d * K + k].all())
+        self.plane = torch.from_numpy(np.concatenate(plane)).to(device)
+        n_max = max(len(x) for x in pos)
+        self.weight = _mults(n_max, device)[
+            torch.from_numpy(np.concatenate(pos)).to(device)]
+        self.has_src = torch.from_numpy(has_src).to(device)
+        self.n_planes = K * 6
 
     def __call__(self, m: torch.Tensor) -> torch.Tensor:
         """(K, lead, bx, by, bz) spins or words -> the halo buffer."""
         return _as(torch.where(self.keep,
                                _i32(m).reshape(-1).index_select(0, self.idx),
                                self.fill), self.dtype)
+
+    def _checksums(self, x: torch.Tensor) -> torch.Tensor:
+        """(K, 6) checksum of every plane of an int32-viewed buffer."""
+        p = mulmod32(wire_words(x), self.weight,
+                     narrow=self.dtype == torch.int8)
+        ck = torch.zeros(self.n_planes, dtype=torch.int64, device=x.device)
+        return (ck.index_add_(0, self.plane, p) & 0xFFFFFFFF).reshape(-1, 6)
+
+    def checked(self, m: torch.Tensor, prev: torch.Tensor, health: tuple,
+                codes, freeze: bool):
+        """The exchange with the integrity layer on: ``prev`` the halo
+        buffer of the last exchange, ``health`` the carry of every brick
+        ((K, 6) staleness), ``codes`` the injected fault codes on the
+        device or None.  Returns the new buffer and carry."""
+        seq = health[0]
+        raw = _i32(m).reshape(-1).index_select(0, self.idx)
+        rx = torch.where(self.keep, raw, self.fill)
+        ck_sent = self._checksums(rx)
+        hdr_seq = seq.expand(ck_sent.shape)
+        if codes is not None:
+            code = fault_code(codes, seq)
+            wired = self.has_src.reshape(-1)[self.plane]
+            flip = 1 if self.dtype == torch.uint32 else 2
+            rx = torch.where(wired & (code == 2), rx ^ flip, rx)
+            drop = wired & (code == 1)
+            rx = torch.where(drop, torch.zeros_like(rx), rx)
+            dropped = self.has_src & (code == 1)
+            ck_sent = torch.where(dropped, 0xFFFFFFFF, ck_sent)
+            hdr_seq = torch.where(dropped, 0xFFFFFFFF, hdr_seq)
+        ok = ((self._checksums(rx) == ck_sent) & (hdr_seq == seq)) \
+            | ~self.has_src
+        bad, health = health_step(health, ok, freeze)
+        held = bad.reshape(-1)[self.plane]
+        out = torch.where(held, _i32(prev).reshape(-1), rx)
+        return _as(out, self.dtype), health
+
+    def buffer(self, planes) -> torch.Tensor:
+        """The six planes of a halo buffer (in the order and shapes of
+        :meth:`planes`, or one brick's (lead, 1, Y, Z)-style planes) ->
+        the buffer."""
+        return _as(torch.cat([_i32(h).reshape(-1) for h in planes]),
+                   self.dtype)
 
     def planes(self, h: torch.Tensor) -> tuple:
         """The six (K, lead, A, B) planes of a halo buffer."""
@@ -231,9 +300,15 @@ class GroupExchange:
     def __call__(self, m: torch.Tensor) -> tuple:
         """(1, lead, bx, by, bz) -> the brick's six (lead, A, B) planes
         (its halo buffer)."""
+        return tuple(self._exchange(m)[0])
+
+    def _exchange(self, m: torch.Tensor, seq=None):
+        """The six planes, and with ``seq`` (the checked exchange) each
+        wired direction's received header [seq, checksum of the face as
+        sent] (zeros where there is no sender)."""
         import torch.distributed as dist
         mb = m[0]
-        ops, recvs, out = [], {}, [None] * 6
+        ops, recvs, out, hdrs = [], {}, [None] * 6, {}
         for d in range(6):
             a, lo, _, (A, B) = _plane(self.brick, d)
             shape = (self.lead, A, B)
@@ -254,12 +329,55 @@ class GroupExchange:
                 ops.append(dist.P2POp(dist.irecv, buf, src, self.group,
                                       tag=d))
             recvs[d] = (buf, shape)
+            if seq is not None:
+                hdr = torch.stack([seq, wire_checksum(face)])
+                if dst is not None:
+                    ops.append(dist.P2POp(dist.isend, hdr, dst, self.group,
+                                          tag=6 + d))
+                hdrs[d] = torch.zeros_like(hdr)
+                if src is not None:
+                    ops.append(dist.P2POp(dist.irecv, hdrs[d], src,
+                                          self.group, tag=6 + d))
         if ops:
             for w in dist.batch_isend_irecv(ops):
                 w.wait()
         for d, (buf, shape) in recvs.items():
             out[d] = self._unpayload(buf, shape)
-        return tuple(out)
+        return out, hdrs
+
+    def checked(self, m: torch.Tensor, prev: tuple, health: tuple, codes,
+                freeze: bool):
+        """:meth:`GatherExchange.checked` for this rank's brick: ``prev``
+        its six planes of the last exchange, ``health`` its carry ((1, 6)
+        staleness).  Returns the new planes and carry."""
+        seq = health[0]
+        out, hdrs = self._exchange(m, seq)
+        code = None if codes is None else fault_code(codes, seq)
+        flip = 1 if self.dtype == torch.uint32 else 2
+        oks = []
+        for d in range(6):
+            a, lo = d // 2, d % 2 == 0
+            has_src = d in hdrs and \
+                (self.peers[a] if lo else self.peers[a][::-1])[0] is not None
+            if not has_src:
+                oks.append(torch.ones((), dtype=torch.bool,
+                                      device=seq.device))
+                continue
+            rx, hdr = _i32(out[d]), hdrs[d]
+            if code is not None:
+                rx = torch.where(code == 2, rx ^ flip, rx)
+                rx = torch.where(code == 1, torch.zeros_like(rx), rx)
+                hdr = torch.where(code == 1, 0xFFFFFFFF, hdr)
+            oks.append((wire_checksum(rx) == hdr[1]) & (hdr[0] == seq))
+            out[d] = _as(rx, self.dtype)
+        bad, health = health_step(health, torch.stack(oks)[None], freeze)
+        return tuple(_as(torch.where(bad[0, d], _i32(prev[d]), _i32(out[d])),
+                         self.dtype) for d in range(6)), health
+
+    @staticmethod
+    def buffer(planes) -> tuple:
+        """The state's (1, lead, A, B) planes -> the brick's six planes."""
+        return tuple(h[0] for h in planes)
 
     @staticmethod
     def planes(h: tuple) -> tuple:

@@ -251,6 +251,7 @@ class ColorPhases:
     (ROADMAP.md §C)."""
 
     _LANE_AXIS = 0
+    health = None         # a degraded mesh engine's health monitor
 
     def _init_colors(self):
         """The colours' constants; on the fixed-point paths first the int8
@@ -364,10 +365,12 @@ class ColorPhases:
     # -- runners -------------------------------------------------------------------
 
     def _iteration(self, m, ghosts, macc, s, gens, sched_S, sync: SyncSpec,
-                   S_t, lut):
+                   S_t, lut, exchange=None):
         """S sweeps then one boundary exchange (or one per phase, or
-        none); ``sched_S`` the S betas or LUT rows.  Updates m, s and gens
-        in place; returns (ghosts, macc, flips)."""
+        none); ``sched_S`` the S betas or LUT rows; ``exchange(m, ghosts)
+        -> ghosts`` replaces the end-of-iteration exchange (the checked
+        one of a degraded mesh).  Updates m, s and gens in place; returns
+        (ghosts, macc, flips)."""
         word = self.precision == "bitplane"
         cmft = self.mode == "cmft"
         flips = None
@@ -383,14 +386,16 @@ class ColorPhases:
             if cmft:
                 # dsim mode never reads the window accumulator
                 macc = macc + m.to(torch.float32)
-        if sync not in ("phase", None):
+        if exchange is not None:
+            ghosts = exchange(m, ghosts)
+        elif sync not in ("phase", None):
             ghosts = self._exchange(macc / S_t) if cmft else self._refresh(m)
         if cmft:
             macc = torch.zeros_like(macc)
         return ghosts, macc, flips
 
     def _sweeps(self, m, ghosts, macc, rng, sched2d: np.ndarray,
-                sync: SyncSpec, lut):
+                sync: SyncSpec, lut, exchange=None):
         """``iters`` iterations of S sweeps on the engine's layout (m
         updated in place); sched2d (iters, S) f32 betas or int32 LUT rows
         (with ``lut`` the threshold table).  Returns (m, ghosts, macc,
@@ -407,7 +412,8 @@ class ColorPhases:
                             dtype=torch.int64, device=self.device)
         for it in range(iters):
             ghosts, macc, f = self._iteration(m, ghosts, macc, s, gens,
-                                              sched2d[it], sync, S_t, thr)
+                                              sched2d[it], sync, S_t, thr,
+                                              exchange)
             flips = flips + f
         rng = i64_to_u32(s) if lfsr else philox_save(gens).reshape(rng.shape)
         return m, ghosts, macc, rng, flips
@@ -419,6 +425,12 @@ class ColorPhases:
         resumable :class:`RecordedCursor` with ``cursor=True``.  Record
         points are quantized to multiples of S."""
         sync = sync_every if sync_every in ("phase", None) else int(sync_every)
+        if self.health is not None:
+            if sync in ("phase", None):
+                raise ValueError("degrade policies need an integer "
+                                 "sync_every (one checked exchange per S "
+                                 "sweeps)")
+            self.health.reset()
         lut = None
         if self.precision != "f32":
             # the staircase becomes LUT row indices (beta is in the table)
@@ -434,7 +446,8 @@ class ColorPhases:
             state=state, schedule=schedule, record_points=record_points,
             chunk_fn=chunk, record_fn=self.energy, sync_every=sync_every,
             flips_of=lambda st: st.flips,
-            flips_per_sweep=self.p.n * self._lanes(state))
+            flips_per_sweep=self.p.n * self._lanes(state),
+            warm_scope=None if self.health is None else self.health.quiet)
         if cursor:
             return RecordedCursor(**kw)
         return run_recorded_driver(**kw)

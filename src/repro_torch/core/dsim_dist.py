@@ -50,7 +50,10 @@ from typing import Optional, Union
 import numpy as np
 import torch
 
-from .bits import i64_to_i32, u32_from_numpy
+from .bits import MASK32, i64_to_i32, u32_from_numpy
+from .degrade import (DegradePolicy, MeshHealthMonitor, carry_max,
+                      carry_to_device, fault_code, health_step,
+                      wire_checksum)
 from .device import as_numpy, resolve_device
 from .dsim import ColorPhases, DSIMState, PartitionedProblem, SyncSpec, _Color
 from .gibbs import init_spins
@@ -101,12 +104,15 @@ class DistDSIMEngine(ColorPhases):
             # per-p-bit LFSRs and instantaneous +-1 ghosts
             raise ValueError(
                 f"precision={precision!r} needs rng='lfsr', mode='dsim'")
-        if degrade is not None:
-            if mode != "dsim":
-                raise ValueError("degrade policies need mode='dsim'")
-            raise NotImplementedError(
-                "degrade policies come with the degraded mesh: ROADMAP.md "
-                "queue A item 9")
+        self.degrade = DegradePolicy.parse(degrade)
+        if self.degrade is not None and mode != "dsim":
+            # cmft publishes fractional window means: no wire form to
+            # checksum, and held means are no last good value
+            raise ValueError("degrade policies need mode='dsim'")
+        self.health = MeshHealthMonitor(self.degrade, prob.K,
+                                        kind="partitions") \
+            if self.degrade is not None else None
+        self._fault_codes = None
         self.words = check_lanes(precision, replicas)
         self.device = resolve_device(device)
         self.p = p = prob.to(self.device)
@@ -156,6 +162,9 @@ class DistDSIMEngine(ColorPhases):
         # 0's slot 0, then its first boundary slot, as in the reference)
         self._ghost_src = {"init": p.ghost_src.long(),
                            "pool": src_k * p.n_max + bs[src_k, src_c]}
+        # the source partition of every ghost: the hold mask of the
+        # checked exchange
+        self._ghost_src_part = src_k[held]
         self._global_ids = p.global_ids.reshape(-1).long()
 
     # -- state -----------------------------------------------------------------
@@ -298,6 +307,92 @@ class DistDSIMEngine(ColorPhases):
         pool = pool.transpose(0, 1).reshape(lead, -1)
         return pool.index_select(1, self._ghost_src_pool[0])[None]
 
+    def _wire(self, x: torch.Tensor, seq: torch.Tensor):
+        """The checked exchange's wire: every partition's boundary values
+        as they arrive, (K, lead, b_pad) (int8 spins; the f32 bits of the
+        1-bit wire's +-1, as int32; int32-viewed words), and every
+        partition's header [seq, checksum of what it sent], (K, 2)."""
+        unpack = self.bitpack
+        if self.group is None:
+            K, lead = int(x.shape[0]), int(x.shape[1])
+            pool = torch.gather(x, 2, self._bnd_slots[:, None, :].expand(
+                K, lead, self.b_pad))
+            wire = pool.to(torch.float32).view(torch.int32) if unpack \
+                else pool
+            hdrs = torch.stack([seq.expand(K),
+                                wire_checksum(wire, batch_dims=1)], 1)
+            return wire, hdrs
+        import torch.distributed as dist
+        bnd = x[0].index_select(1, self._bnd_slots[0])        # (lead, b_pad)
+        sent = bnd.to(torch.float32).view(torch.int32) if unpack else bnd
+        hdr = torch.stack([seq, wire_checksum(sent)])
+        payload = pack_pm1(bnd) if unpack else bnd.contiguous()
+        bufs = [torch.empty_like(payload) for _ in range(self.p.K)]
+        hbufs = [torch.empty_like(hdr) for _ in range(self.p.K)]
+        dist.all_gather(bufs, payload, group=self.group)
+        dist.all_gather(hbufs, hdr, group=self.group)
+        pool = torch.stack(bufs)
+        if unpack:
+            pool = unpack_pm1(pool, self.b_pad).to(torch.float32).view(
+                torch.int32)
+        return pool, torch.stack(hbufs)
+
+    def _exchange_checked(self, x: torch.Tensor, ghosts: torch.Tensor,
+                          health: tuple, codes, freeze: bool):
+        """The boundary exchange with the integrity layer on (the
+        reference's ``_exchange_block_checked``): the receiver checksums
+        each source partition's slice of the pool; a source that fails,
+        or that an injected code hits (``codes``: the faults on the
+        device, or None), has all its ghosts held at ``ghosts``.  Every
+        process sees the same pool, so the carry has one holder."""
+        seq = health[0]
+        wire, hdrs = self._wire(x, seq)
+        if codes is not None:
+            code = fault_code(codes, seq)
+            flip = 2 if wire.dtype == torch.int8 else 0x00400000
+            wire = torch.where(code == 2, wire ^ flip, wire)
+            wire = torch.where(code == 1, torch.zeros_like(wire), wire)
+            hdrs = torch.where(code == 1, MASK32, hdrs)
+        ok = (wire_checksum(wire, batch_dims=1) == hdrs[:, 1]) \
+            & (hdrs[:, 0] == seq)
+        bad, health = health_step(health, ok[None], freeze)
+        if wire.dtype == torch.int8:
+            vals = wire.to(torch.float32)
+        elif self.precision == "bitplane":
+            vals = wire
+        else:
+            vals = wire.view(torch.float32)
+        K, lead = int(vals.shape[0]), int(vals.shape[1])
+        src = self._ghost_src_pool
+        new = vals.transpose(0, 1).reshape(lead, -1).index_select(
+            1, src.reshape(-1)).reshape(lead, *src.shape).transpose(0, 1)
+        held = bad[0][self._ghost_src_part][:, None, :]
+        return torch.where(held, ghosts, new), health
+
+    def set_exchange_faults(self, codes):
+        """Schedule exchange faults: ``codes[seq]`` in {0 ok, 1 drop,
+        2 corrupt} applied to the received pool of global exchange ``seq``
+        of a run (see ``serve.faults.FaultPlan.exchange_codes``); ``None``
+        clears.  Needs a degrade policy: an unchecked engine would ingest
+        the damage."""
+        if codes is None:
+            self._fault_codes = None
+            return
+        if self.degrade is None:
+            raise ValueError("set_exchange_faults needs a degrade policy "
+                             "(unchecked engines must not ingest damage)")
+        self._fault_codes = torch.from_numpy(
+            np.asarray(codes, np.int64)).to(self.device)
+
+    def resync(self, state: DSIMState) -> DSIMState:
+        """Quarantine exit: every ghost recomputed from the current spins,
+        the exchange a run without faults would make here; clears the
+        monitor's staleness and freeze."""
+        ghosts = self.boundary_exchange_fn()(state)
+        if self.health is not None:
+            self.health.on_resync()
+        return dataclasses.replace(state, ghosts=ghosts)
+
     def boundary_exchange_fn(self):
         """The exchange alone, ``fn(state) -> ghosts`` on live state, every
         p-bit update elided: the measured-eta probe
@@ -364,14 +459,27 @@ class DistDSIMEngine(ColorPhases):
         word = self.precision == "bitplane"
         as_i32 = (lambda t: t.view(torch.int32)) if word else (lambda t: t)
         as_u32 = (lambda t: t.view(torch.uint32)) if word else (lambda t: t)
+        exchange = None
+        if self.health is not None:
+            carry = [carry_to_device(self.health.carry, 1, self.device)]
+            codes = self._fault_codes
+            freeze = self.degrade.mode == "freeze_boundary"
+
+            def exchange(m, ghosts):
+                ghosts, carry[0] = self._exchange_checked(
+                    m, ghosts, carry[0], codes, freeze)
+                return ghosts
         m, ghosts, macc, rng, flips = self._sweeps(
             as_i32(state.m).clone(), as_i32(state.ghosts), state.macc,
-            state.rng, sched2d, sync, lut)
+            state.rng, sched2d, sync, lut, exchange)
         iters, S = sched2d.shape
-        return DSIMState(
+        st = DSIMState(
             m=as_u32(m), ghosts=as_u32(ghosts), macc=macc, rng=rng,
             sweep=state.sweep + iters * S,
             flips=flips_publish(state.flips, self._sum_parts(flips)))
+        if self.health is not None:
+            self.health.update(carry_max(carry[0]), exchanges=iters)
+        return st
 
     # -- observables ---------------------------------------------------------------
 

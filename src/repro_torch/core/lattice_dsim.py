@@ -23,6 +23,14 @@ are summed over the bricks (the reference's ``psum``).
 Replicas ride a leading axis R; on the bit-plane path they are the bit
 lanes of W = ceil(R / 32) stacked uint32 word planes, lane (w, b)
 bit-identical to int8 replica w*32+b.
+
+With ``degrade=`` (a :class:`repro_torch.core.degrade.DegradePolicy` or
+its string form) every exchange runs checked (``core/bricks.py``): a face
+that fails its header is held at its last good plane, the six faces are
+the health monitor's sources, the carry stays on the device through a
+chunk and the host reads it once per chunk (:attr:`LatticeDSIM.health`).
+:meth:`LatticeDSIM.set_exchange_faults` injects drops and corruptions on
+the received planes, :meth:`LatticeDSIM.resync` refreshes every halo.
 """
 
 from __future__ import annotations
@@ -37,6 +45,8 @@ from .annealing import ArraySchedule, beta_row_indices, beta_table
 from .bits import u32_from_numpy, u32_to_i64
 from .bricks import (BrickState, GatherExchange, GroupExchange,
                      brick_coords, cut, join)
+from .degrade import (DegradePolicy, MeshHealthMonitor, carry_max,
+                      carry_to_device)
 from .device import resolve_device
 from .lattice import LatticeProblem
 from .packing import LANE_WIDTH, pack_lanes, unpack_lanes
@@ -164,7 +174,8 @@ class LatticeDSIM:
                  impl: str = "auto", replicas: int = 1,
                  precision: str = "f32", fused: bool = True,
                  kernel_bx: Optional[int] = None, device=None, mesh=None,
-                 dim_axes=None, bitpack_halos: bool = True):
+                 dim_axes=None, bitpack_halos: bool = True,
+                 degrade=None):
         if precision not in ("f32", "int8", "bitplane"):
             raise ValueError(f"unknown precision {precision!r}")
         if precision == "bitplane" and kernel_bx is not None:
@@ -197,6 +208,11 @@ class LatticeDSIM:
         else:
             self._fixed_point_constants(prob)
         self._partition(mesh, dim_axes)
+        # the degraded-mode fabric: the six faces are the sources
+        self.degrade = DegradePolicy.parse(degrade)
+        self.health = MeshHealthMonitor(self.degrade, 6, kind="faces") \
+            if self.degrade is not None else None
+        self._fault_codes = None
 
     def _fixed_point_constants(self, prob: LatticeProblem):
         """Quantized couplings and, on the bit-plane path, its word
@@ -540,6 +556,12 @@ class LatticeDSIM:
         ms, ss = list(m.unbind(0)), list(self._bricks_of(st.s).unbind(0))
         hs = self._brick_halos(st.halos)
         ex = self._exchanger(int(m.shape[1]), m.dtype)
+        deg = self.health is not None
+        if deg:
+            buf = ex.buffer(st.halos)
+            health = carry_to_device(self.health.carry, len(ms), self.device)
+            codes = self._fault_codes
+            freeze = self.degrade.mode == "freeze_boundary"
         flips = []
         for it in range(iters):
             outs = [self._sweeps(b, mk, sk, sched[it], hk, lut)
@@ -547,16 +569,55 @@ class LatticeDSIM:
             ms = [o[0] for o in outs]
             ss = [o[1] for o in outs]
             m = _stack(ms)
-            buf = ex(m)
+            if deg:
+                buf, health = ex.checked(m, buf, health, codes, freeze)
+            else:
+                buf = ex(m)
             hs = ex.bricks(buf)
             flips += [o[2] for o in outs]
         # every (iteration, brick) count of the chunk, summed once, exactly
         local = u32_to_i64(torch.stack(flips)).sum(0)
         m, s = (ms[0], ss[0]) if self.mesh is None else (m, _stack(ss))
-        return dataclasses.replace(
+        st = dataclasses.replace(
             st, m=m, s=s, halos=self._state_halos(ex, buf),
             sweep=st.sweep + iters * S,
             flips=flips_publish(st.flips, self._sum_ranks(local)))
+        if deg:
+            # one read of the carry per chunk: the worst over the bricks
+            # here, then over the ranks (the reference's pmax)
+            health = carry_max(health)
+            if self.group is not None:
+                import torch.distributed as dist
+                flat = torch.cat([x.reshape(-1) for x in health[1:]])
+                dist.all_reduce(flat, op=dist.ReduceOp.MAX,
+                                group=self.group)
+                health = (health[0], flat[:6]) + tuple(flat[6:].unbind(0))
+            self.health.update(health, exchanges=iters)
+        return st
+
+    def set_exchange_faults(self, codes):
+        """Schedule exchange faults: ``codes[seq]`` in {0 ok, 1 drop,
+        2 corrupt} applied to the received halo planes of global exchange
+        ``seq`` of a run (see ``serve.faults.FaultPlan.exchange_codes``);
+        ``None`` clears.  Needs a degrade policy: an unchecked engine would
+        ingest the damage."""
+        if codes is None:
+            self._fault_codes = None
+            return
+        if self.degrade is None:
+            raise ValueError("set_exchange_faults needs a degrade policy "
+                             "(unchecked engines must not ingest damage)")
+        self._fault_codes = torch.from_numpy(
+            np.asarray(codes, np.int64)).to(self.device)
+
+    def resync(self, state):
+        """Quarantine exit: every halo plane refreshed from the current
+        spins, the exchange a run without faults would make here; clears
+        the monitor's staleness and freeze."""
+        st = self._refresh_halos(state)
+        if self.health is not None:
+            self.health.on_resync()
+        return st
 
     def run_recorded_full(self, state, schedule,
                           record_points: Sequence[int], sync_every: int = 1,
@@ -583,11 +644,14 @@ class LatticeDSIM:
         def chunk(st, rows2d, iters, S):
             return self._chunk(st, rows2d, iters, S, lut)
 
+        if self.health is not None:
+            self.health.reset()
         kw = dict(
             state=state, schedule=sched, record_points=record_points,
             chunk_fn=chunk, record_fn=self.energy, sync_every=int(sync_every),
             flips_of=lambda st: st.flips,
-            flips_per_sweep=self.n_sites * self.replicas)
+            flips_per_sweep=self.n_sites * self.replicas,
+            warm_scope=None if self.health is None else self.health.quiet)
         if cursor:
             return RecordedCursor(**kw)
         return run_recorded_driver(**kw)

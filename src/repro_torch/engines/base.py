@@ -9,6 +9,7 @@ the modular delta is unambiguous.
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import time
 from typing import (Any, Callable, List, Optional, Protocol, Sequence, Union,
@@ -195,7 +196,8 @@ class RecordedCursor:
                  chunk_fn: Callable, record_fn: Callable,
                  sync_every: SyncSpec = 1,
                  flips_of: Optional[Callable] = None,
-                 flips_per_sweep: Optional[int] = None):
+                 flips_per_sweep: Optional[int] = None,
+                 warm_scope: Optional[Callable] = None):
         if len(record_points) == 0:
             raise ValueError("record_points must be non-empty")
         S = 1 if sync_every in ("phase", None) else int(sync_every)
@@ -224,6 +226,13 @@ class RecordedCursor:
         self._pos = 0                # sweeps completed
         self._out: List[Any] = []
         self._times: List[int] = []
+        # a context :meth:`warm` runs its chunks in: a degraded mesh
+        # engine's health monitor ignores their exchanges there
+        self._warm_scope = warm_scope
+        # optional per-chunk boundary hook `(cursor) -> None`, called at
+        # the top of every plan chunk (the serving layer's FaultPlan
+        # raises, hangs or corrupts the state here)
+        self.fault_hook: Optional[Callable] = None
         # optional per-chunk timer `(sweeps, seconds) -> None`; when set,
         # each chunk is bracketed by a device synchronise so asynchronous
         # work is attributed to the chunk that launched it
@@ -274,6 +283,8 @@ class RecordedCursor:
         """Run up to ``max_chunks`` plan chunks; returns how many ran."""
         ran = 0
         while ran < max_chunks and not self.done:
+            if self.fault_hook is not None:
+                self.fault_hook(self)
             c = self._plan[self._i]
             nsw = c * self.S
             worst = nsw * (self._flips_per_sweep or 0)
@@ -326,8 +337,10 @@ class RecordedCursor:
             if c in seen:
                 continue
             seen.add(c)
-            _sync(self._chunk_fn(self.state, self._chunk_betas(0, c), c,
-                                 self.S))
+            with (self._warm_scope() if self._warm_scope is not None
+                  else contextlib.nullcontext()):
+                _sync(self._chunk_fn(self.state, self._chunk_betas(0, c), c,
+                                     self.S))
         if not self.done:
             self._record_fn(self.state)
             _sync(self.state)
@@ -394,7 +407,8 @@ def run_recorded_driver(*, state, schedule, record_points: Sequence[int],
                         record_fn: Callable,
                         sync_every: SyncSpec = 1,
                         flips_of: Optional[Callable] = None,
-                        flips_per_sweep: Optional[int] = None):
+                        flips_per_sweep: Optional[int] = None,
+                        warm_scope: Optional[Callable] = None):
     """The shared recording loop (a :class:`RecordedCursor` driven to
     completion).  ``chunk_fn(state, betas_2d, iters, S) -> state`` runs
     ``iters`` iterations of ``S`` sweeps (betas_2d is (iters, S, ...));
@@ -403,7 +417,8 @@ def run_recorded_driver(*, state, schedule, record_points: Sequence[int],
     cur = RecordedCursor(
         state=state, schedule=schedule, record_points=record_points,
         chunk_fn=chunk_fn, record_fn=record_fn, sync_every=sync_every,
-        flips_of=flips_of, flips_per_sweep=flips_per_sweep)
+        flips_of=flips_of, flips_per_sweep=flips_per_sweep,
+        warm_scope=warm_scope)
     cur.run_to_completion()
     return cur.state, cur.record()
 

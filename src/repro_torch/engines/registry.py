@@ -6,10 +6,8 @@ a mesh, as bricks in one process or one per rank of a process group; the
 monolithic Gibbs engine (``"gibbs"``, f32); the partitioned DSIM/CMFT
 engine (``"dsim"``, f32 and int8); and the distributed DSIM
 (``"dsim_dist"``, f32, int8 and bitplane), one partition per member of a
-mesh, every partition in one process or one per rank.  What the
-reference's factory offers beyond that (``degrade=``) raises
-``NotImplementedError`` naming the ROADMAP.md item that brings it;
-nothing is substituted.
+mesh, every partition in one process or one per rank.  Both mesh engines
+take the reference's ``degrade=`` policies.
 """
 
 from __future__ import annotations
@@ -58,6 +56,14 @@ class HandleCursor:
     @state.setter
     def state(self, st):
         self._c.state = st
+
+    @property
+    def fault_hook(self):
+        return self._c.fault_hook
+
+    @fault_hook.setter
+    def fault_hook(self, fn):
+        self._c.fault_hook = fn
 
     @property
     def chunk_timer(self):
@@ -130,6 +136,7 @@ class _Handle:
     """The uniform engine surface over one engine instance."""
 
     name: str = ""
+    supports_packing: bool = True     # init_state_packed(seeds) available
 
     def __init__(self, eng, replicas: int, n_sites: int):
         self.eng = eng
@@ -320,6 +327,10 @@ def make_engine(name: str, graph=None, *, coloring: Optional[Coloring] = None,
     ``bitpack_halos`` the reference's 1-bit halo wire.  ``impl`` "auto" |
     "cuda" | "ref".
 
+    ``degrade=`` (the mesh engines) turns on the boundary-integrity layer
+    with a :class:`repro_torch.core.degrade.DegradePolicy`: None, a
+    policy, or "fail_fast" | "stale_hold[:N]" | "freeze_boundary".
+
     ``replicas=R`` makes every handle run R independent chains per call.
     """
     if name not in ENGINE_NAMES:
@@ -328,17 +339,10 @@ def make_engine(name: str, graph=None, *, coloring: Optional[Coloring] = None,
         raise ValueError("replicas must be >= 1")
     check_precision(name, precision)
     check_lanes(precision, replicas)
-    if degrade is not None:
-        if name not in ("dsim_dist", "lattice"):
-            raise ValueError(
-                f"degrade policies apply to the mesh engines "
-                f"(dsim_dist, lattice), not {name!r}")
-        # dsim_dist's constructor raises the reference's own ValueErrors
-        # first, then this
-        if name == "lattice":
-            raise NotImplementedError(
-                "degrade policies come with the degraded mesh: ROADMAP.md "
-                "queue A item 9")
+    if degrade is not None and name not in ("dsim_dist", "lattice"):
+        raise ValueError(
+            f"degrade policies apply to the mesh engines "
+            f"(dsim_dist, lattice), not {name!r}")
 
     if name == "gibbs":
         if not isinstance(graph, IsingGraph):
@@ -374,5 +378,5 @@ def make_engine(name: str, graph=None, *, coloring: Optional[Coloring] = None,
     eng = LatticeDSIM(prob, fmt=fmt, impl=impl, replicas=replicas,
                       precision=precision, fused=fused, kernel_bx=kernel_bx,
                       device=device, mesh=mesh, dim_axes=dim_axes,
-                      bitpack_halos=bitpack_halos)
+                      bitpack_halos=bitpack_halos, degrade=degrade)
     return _LatticeHandle(eng, replicas, prob.n_active)

@@ -19,6 +19,7 @@ import subprocess
 from pathlib import Path
 
 __all__ = ["SOURCES", "NVCC_FLAGS", "build", "library", "launch_counts",
+           "KernelError",
            "reset_launch_counts", "check_launch", "ptrs6", "plain_device",
            "stream_of", "check_bx", "check_sites", "require"]
 
@@ -60,13 +61,18 @@ def reset_launch_counts():
         launch_counts[k] = 0
 
 
+class KernelError(RuntimeError):
+    """A hand kernel failed to build (``nvcc``) or to launch: a property
+    of the code, the toolkit or the card, never worth a retry."""
+
+
 def _nvcc() -> str:
     for cand in (os.environ.get("CUDA_HOME"), "/usr/local/cuda"):
         if cand and (Path(cand) / "bin" / "nvcc").exists():
             return str(Path(cand) / "bin" / "nvcc")
     found = shutil.which("nvcc")
     if found is None:
-        raise RuntimeError("nvcc not found (set CUDA_HOME); the repro_torch "
+        raise KernelError("nvcc not found (set CUDA_HOME); the repro_torch "
                            "CUDA kernels are built from source at first use")
     return found
 
@@ -101,14 +107,14 @@ def build() -> Path:
             failed.append(src)
     (BUILD_DIR / "build.log").write_text("\n".join(log))
     if failed:
-        raise RuntimeError(f"nvcc failed on {failed}:\n" + "\n".join(log))
+        raise KernelError(f"nvcc failed on {failed}:\n" + "\n".join(log))
     tmp = BUILD_DIR / f"{lib.name}.{os.getpid()}.tmp"
     res = subprocess.run(
         [nvcc, *NVCC_FLAGS, "-shared", "-o", str(tmp),
          *(str(obj) for _, obj, _ in procs)],
         stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
     if res.returncode != 0:
-        raise RuntimeError(f"nvcc link failed:\n{res.stdout}")
+        raise KernelError(f"nvcc link failed:\n{res.stdout}")
     os.replace(tmp, lib)
     for _, obj, _ in procs:
         obj.unlink()
@@ -176,7 +182,7 @@ def library() -> ctypes.CDLL:
 def check_launch(name: str, err: int):
     """Raise on a non-zero cudaError_t returned right after a launch."""
     if err != 0:
-        raise RuntimeError(f"CUDA launch of {name} failed: cudaError_t "
+        raise KernelError(f"CUDA launch of {name} failed: cudaError_t "
                            f"{err}")
 
 

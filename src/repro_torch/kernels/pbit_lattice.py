@@ -176,7 +176,7 @@ def launch_shape(R: int, n: int, resident: bool, sms: int, occupancy):
         smem = persistent_smem(R, tile, resident)
         if occupancy(smem) >= per_sm:
             return blocks, tile, smem, per_sm
-    raise RuntimeError(f"persistent sweep: not even one block per SM is "
+    raise _build.KernelError(f"persistent sweep: not even one block per SM is "
                        f"resident with {smem} B of shared memory (R={R}, "
                        f"{n} sites)")
 

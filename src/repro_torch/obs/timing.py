@@ -25,9 +25,9 @@ update time ``t_pbit = (chunk_time - exchanges * t_ex) / sweeps`` gives
 attempts once per sweep); measured η is their ratio, and the margin is
 η divided by ``commcost.eta_threshold(n_color, c_max)`` for the active
 partition — margin >= 1 means the realized exchange cadence clears the
-paper's bound.  The reference's degraded-mode accounting
-(``note_stale``, ``effective_eta``) comes with the degraded mesh
-(ROADMAP.md queue A item 9).
+paper's bound.  A degraded mesh feeds :meth:`EtaMeter.note_stale` from
+its health monitor: held exchanges do not refresh the boundary, so
+``effective_eta`` is η scaled by the delivered fraction.
 
 The clock is injectable for tests; all accumulation is lock-guarded so
 a dashboard thread can read :meth:`report` while the pump records.  On a
@@ -41,9 +41,8 @@ import threading
 import time
 from typing import Callable, Optional, Union
 
-import torch
-
 from ..core import commcost
+from .trace import device_sync
 
 __all__ = ["EtaMeter", "exchanges_per_sweep", "dist_eta_meter"]
 
@@ -61,15 +60,6 @@ def exchanges_per_sweep(sync_every: SyncSpec, n_color: int) -> float:
     if S < 1:
         raise ValueError(f"sync_every must be >= 1, got {sync_every!r}")
     return 1.0 / S
-
-
-def _wait(out) -> None:
-    """Wait for the CUDA devices that hold tensors of ``out`` (a tensor or
-    a tuple of them); tensors on the CPU are ready when returned."""
-    ts = out if isinstance(out, (tuple, list)) else (out,)
-    for dev in {t.device for t in ts if isinstance(t, torch.Tensor)
-                and t.is_cuda}:
-        torch.cuda.synchronize(dev)
 
 
 class EtaMeter:
@@ -92,6 +82,9 @@ class EtaMeter:
         self._chunks = 0
         self._ex_s = 0.0
         self._ex_n = 0
+        self._stale = 0
+        self._stale_total = 0
+        self._max_staleness = 0
 
     # -- recording ------------------------------------------------------------------
 
@@ -133,16 +126,52 @@ class EtaMeter:
         attributed; records the measurement and returns mean seconds per
         exchange."""
         for _ in range(max(warmup, 1)):
-            _wait(fn())
+            device_sync(fn())
         t0 = self.clock()
         for _ in range(reps):
             out = fn()
-        _wait(out)
+        device_sync(out)
         dt = self.clock() - t0
         self.record_exchange(dt, reps)
         return dt / reps
 
+    def note_stale(self, held: int, total: int,
+                   max_staleness: int = 0) -> None:
+        """Degraded-mode accounting from a mesh engine's health monitor:
+        ``held`` of ``total`` attempted exchanges were held at their last
+        good values (cumulative; feed per-run totals once, or deltas)."""
+        with self._lock:
+            self._stale += int(held)
+            self._stale_total += int(total)
+            self._max_staleness = max(self._max_staleness,
+                                      int(max_staleness))
+
     # -- derived quantities ----------------------------------------------------------
+
+    @property
+    def stale_exchanges(self) -> int:
+        with self._lock:
+            return self._stale
+
+    @property
+    def max_staleness_seen(self) -> int:
+        with self._lock:
+            return self._max_staleness
+
+    @property
+    def delivered_fraction(self) -> float:
+        """Fraction of attempted exchanges actually ingested (1.0 until
+        degraded-mode accounting reports otherwise)."""
+        with self._lock:
+            if not self._stale_total:
+                return 1.0
+            return max(0.0, 1.0 - self._stale / self._stale_total)
+
+    @property
+    def effective_eta(self) -> float:
+        """Measured η scaled by the delivered-exchange fraction (equal to
+        ``eta`` on a healthy mesh)."""
+        return self.eta * self.delivered_fraction
 
     @property
     def t_exchange_s(self) -> float:
@@ -195,12 +224,22 @@ class EtaMeter:
         eta = self.eta
         thr = self.eta_threshold
         margin = eta / thr if thr and thr == thr else float("nan")
+        eff = self.effective_eta
+        eff_margin = eff / thr if thr and thr == thr else float("nan")
         return {
             "measured_eta": eta,
             "eta_threshold": thr,
             "margin": margin,
             "behaves_unpartitioned": bool(margin >= 1.0)
             if margin == margin else None,
+            "effective_eta": eff,
+            "delivered_fraction": self.delivered_fraction,
+            "stale_exchanges": self.stale_exchanges,
+            "max_staleness_seen": self.max_staleness_seen,
+            # the held exchanges alone pushed an above-threshold mesh
+            # below Eq. 2
+            "degraded_below_threshold": bool(margin >= 1.0 > eff_margin)
+            if margin == margin and eff_margin == eff_margin else None,
             "f_comm_hz": self.f_comm_hz,
             "f_pbit_hz": self.f_pbit_hz,
             "t_exchange_s": self.t_exchange_s,

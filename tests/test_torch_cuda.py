@@ -984,3 +984,128 @@ def test_cuda_dsim_dist_f32_matches_cpu(cuda, mode, sync, bitpack):
     out = {k: v[:2] for k, v in out.items()}
     assert_graph_runs_agree(
         out, ("m", "ghosts", "macc", "rng", "sweep", "flips"), True)
+
+
+# -- the degraded mesh and the server on the card ----------------------------
+
+def degraded_runs(engine, prec, R, policy, codes, devices):
+    """A degraded mesh run (L=8 lattice on (2,2,2), or dsim_dist on the
+    EA3D L=8 instance cut into 4 slabs) on each device: (state in the
+    reference's shapes, record, report, raised) per device."""
+    from repro_torch import make_engine
+    from repro_torch.core.annealing import ea_schedule
+    from repro_torch.core.coloring import lattice3d_coloring
+    from repro_torch.core.degrade import StateCorruption
+    from repro_torch.core.dsim import build_partitioned
+    from repro_torch.core.graph import ea3d
+    from repro_torch.core.mesh import make_mesh
+    from repro_torch.core.partition import slab_partition
+    out = {}
+    for dev in devices:
+        if engine == "lattice":
+            axes = ("x", "y", "z")
+            h = make_engine("lattice", L=8, seed=1, replicas=R,
+                            precision=prec, mesh=make_mesh((2, 2, 2), axes),
+                            dim_axes=axes, degrade=policy, device=dev)
+        else:
+            prob = build_partitioned(ea3d(8, seed=1, device=dev),
+                                     lattice3d_coloring(8),
+                                     slab_partition(8, 4), 4)
+            h = make_engine("dsim_dist", prob, rng="lfsr", replicas=R,
+                            precision=prec, degrade=policy, device=dev)
+        h.eng.set_exchange_faults(codes)
+        cur = h.start_recorded(h.init_state(seed=2), ea_schedule(16),
+                               [8, 16], sync_every=2)
+        raised = False
+        while not cur.done:
+            try:
+                cur.advance(1)
+            except StateCorruption:
+                raised = True
+                break
+        out[str(torch.device(dev).type)] = (
+            h.eng.global_state(cur.state), cur.record(),
+            h.eng.health.report(), raised)
+    return out
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("engine,prec,R", [("lattice", "int8", 3),
+                                           ("lattice", "bitplane", 40),
+                                           ("dsim_dist", "int8", 3),
+                                           ("dsim_dist", "bitplane", 40)])
+@pytest.mark.parametrize("policy,codes", [
+    ("stale_hold:4", None), ("stale_hold:4", [0, 2, 0, 1, 1]),
+    ("freeze_boundary", [0, 0, 2]), ("fail_fast", [0, 0, 0, 0, 0, 1])])
+def test_cuda_checked_exchange_matches_cpu_bitwise(cuda, engine, prec, R,
+                                                   policy, codes):
+    """The checked exchange on the card, with and without injected codes,
+    == device="cpu" bitwise: state, energies, flips, the health report
+    and where a policy escalated."""
+    out = degraded_runs(engine, prec, R, policy, codes, ("cpu", cuda))
+    (sc, rc, pc, xc), (sg, rg, pg, xg) = out["cpu"], out["cuda"]
+    fields = ("m", "s", "sweep", "flips") if engine == "lattice" else \
+        ("m", "ghosts", "rng", "sweep", "flips")
+    for f in fields:
+        assert_bitwise((getattr(sg, f),), (getattr(sc, f),))
+    for x, y in zip(getattr(sg, "halos", ()), getattr(sc, "halos", ())):
+        assert_bitwise((x,), (y,))
+    assert (pg, xg) == (pc, xc)
+    assert rg.flips == rc.flips
+    if len(rc.times):
+        assert torch.equal(rg.energies.cpu(), rc.energies)
+    assert (pg["detections"] > 0) == (codes is not None)
+
+
+@pytest.mark.cuda
+def test_cuda_server_matches_cpu_server(cuda):
+    """The same jobs through SampleServer on the card and on the CPU: an
+    int8 lattice pair packed into one call, a bit-plane job, a degraded
+    mesh job with a drop and a fail_fast dsim_dist job; the card's jobs
+    launch the lattice and gather-count kernels."""
+    from repro_torch.core.coloring import lattice3d_coloring
+    from repro_torch.core.graph import ea3d
+    from repro_torch.core.mesh import make_mesh
+    from repro_torch.core.partition import slab_partition
+    from repro_torch.serve import FaultPlan, FaultRule, SampleServer
+    axes = ("x", "y", "z")
+    results = {}
+    for dev in ("cpu", cuda):
+        plan = FaultPlan([FaultRule(site="exchange_drop", index=3),
+                          FaultRule(site="exchange_corrupt", index=1)])
+        srv = SampleServer(device=dev, fault_plan=plan, max_retries=0)
+        srv.register_problem("lat", L=8, seed=1)
+        srv.register_problem("mesh", L=8, seed=1,
+                             mesh=make_mesh((2, 2, 2), axes), dim_axes=axes)
+        srv.register_problem("graph", graph=ea3d(8, seed=1, device=dev),
+                             coloring=lattice3d_coloring(8), K=4,
+                             labels=slab_partition(8, 4), rng="lfsr")
+        _build.reset_launch_counts()
+        ids = [srv.submit("lat", engine="lattice", precision="int8",
+                          sweeps=16, replicas=2, seed=s, sync_every=4)
+               for s in (0, 1)]
+        ids.append(srv.submit("lat", engine="lattice",
+                              precision="bitplane", sweeps=16, replicas=40,
+                              seed=3, sync_every=4))
+        ids.append(srv.submit("mesh", engine="lattice", precision="int8",
+                              sweeps=16, replicas=2, seed=4, sync_every=2,
+                              degrade_policy="stale_hold:8"))
+        ids.append(srv.submit("graph", engine="dsim_dist",
+                              precision="bitplane", sweeps=16, replicas=40,
+                              seed=5, sync_every=2,
+                              degrade_policy="fail_fast"))
+        srv.drain()
+        results[torch.device(dev).type] = [srv.result(j) for j in ids]
+        if dev != "cpu":
+            counts = dict(_build.launch_counts)
+    for c, g in zip(results["cpu"], results["cuda"]):
+        assert c["status"] == g["status"]
+        assert c["error"] == g["error"] and c["degrade"] == g["degrade"]
+        np.testing.assert_array_equal(c["energies"], g["energies"])
+        assert c["flips"] == g["flips"]
+    assert results["cuda"][0]["packed_with"] == 1
+    assert results["cuda"][4]["status"] == "failed"
+    assert "StateCorruption" in results["cuda"][4]["error"]
+    for k in ("pbit_brick_sweep_int", "pbit_bitplane_sweep", "brick_energy",
+              "bitplane_gather_count"):
+        assert counts[k] > 0, k

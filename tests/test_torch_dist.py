@@ -17,6 +17,15 @@ on f32 with ``bitpack``, int8 spins, f32 window means on cmft, int32
 views of the words on the bit-plane path), flips are summed with
 ``all_reduce``, and every rank's energies, flips, gathered global state
 and own partition must equal the one-process engine's bitwise.
+
+Both mesh engines also run their ``DEG_CASES`` with a degrade policy and
+injected fault codes in the same ranks: the lattice's checked exchange
+sends each face's header [seq, checksum] as a message of its own and
+takes the worst health over the ranks with ``all_reduce(MAX)``, the
+distributed DSIM gathers the headers with the pool.  Every rank's state
+(after the last chunk, or before the chunk whose check raised), energies,
+flips, health report and the point where it raised must equal the
+one-process engine's bitwise.
 """
 
 import inspect
@@ -72,6 +81,63 @@ DIST_CASES = {
 }
 DIST_FIELDS = ("m", "ghosts", "macc", "rng", "sweep", "flips")
 
+# world size -> name: (engine, its CASES or DIST_CASES tuple, degrade
+# policy, fault codes)
+DEG_CASES = {
+    2: {"deg-x2-int8-hold": ("lattice", (6, (2, 1, 1), "int8", 3, 2, True,
+                                         True), "stale_hold:4",
+                             [0, 2, 0, 1, 0, 0, 0, 0]),
+        "deg-dist-reg-int8-freeze": ("dsim_dist", ("regular", "int8", 3, 2,
+                                                   "dsim", True),
+                                     "freeze_boundary", [0, 0, 2])},
+    4: {"deg-xz-bitplane5-failfast": ("lattice", (6, (2, 1, 2), "bitplane",
+                                                  5, 2, True, True),
+                                      "fail_fast", [0, 0, 0, 0, 0, 1]),
+        "deg-yz-f32-hold": ("lattice", (6, (1, 2, 2), "f32", 2, 2, False,
+                                        True), "stale_hold:2",
+                            [0, 1, 2, 0]),
+        "deg-dist-ea3d-bitplane40-hold": ("dsim_dist", ("ea3d", "bitplane",
+                                                        40, 2, "dsim",
+                                                        True),
+                                          "stale_hold:8", [0, 1, 0, 2]),
+        "deg-dist-reg-f32-failfast": ("dsim_dist", ("regular", "f32", 2, 2,
+                                                    "dsim", True),
+                                      "fail_fast", [0, 0, 0, 0, 0, 2])},
+}
+
+
+def degraded_run(engine, case, policy, codes, world, group=None):
+    """A DEG_CASES case chunk by chunk: (handle, cursor, raised), the
+    cursor stopped after the last chunk or before the one that raised."""
+    from repro_torch import make_engine
+    from repro_torch.core.annealing import ea_schedule
+    from repro_torch.core.degrade import StateCorruption
+    from repro_torch.core.mesh import make_mesh
+    if engine == "lattice":
+        L, shape, prec, R, sync, bp, fused = case
+        h = make_engine("lattice", L=L, seed=1, replicas=R, precision=prec,
+                        mesh=make_mesh(shape, ("x", "y", "z"), group=group),
+                        dim_axes=("x", "y", "z"), bitpack_halos=bp,
+                        fused=fused, degrade=policy, device="cpu")
+    else:
+        kind, prec, R, sync, mode, bp = case
+        h = make_engine("dsim_dist", dist_problem(kind, world), rng="lfsr",
+                        precision=prec, replicas=R, mode=mode, bitpack=bp,
+                        degrade=policy, device="cpu",
+                        mesh=None if group is None else
+                        make_mesh((world,), ("data",), group=group))
+    h.eng.set_exchange_faults(codes)
+    cur = h.start_recorded(h.init_state(seed=3), ea_schedule(16), [8, 16],
+                           sync_every=sync)
+    raised = False
+    while not cur.done:
+        try:
+            cur.advance(1)
+        except StateCorruption:
+            raised = True
+            break
+    return h, cur, raised
+
 
 def dist_problem(kind, K):
     """A random regular graph cut by the greedy partitioner, or an L=6
@@ -103,6 +169,7 @@ from repro_torch.interop import state_to_numpy
 
 rank, world, out = int(sys.argv[1]), int(sys.argv[2]), sys.argv[3]
 cases, dist_cases = json.loads(sys.argv[4]), json.loads(sys.argv[5])
+deg_cases = json.loads(sys.argv[6])
 dist.init_process_group("gloo", init_method=f"file://{out}/rendezvous-{world}",
                         world_size=world, rank=rank)
 
@@ -142,9 +209,28 @@ for name, (kind, prec, R, sync, mode, bp) in dist_cases.items():
     np.savez(f"{out}/{name}-{rank}.npz", e0=e0.numpy(),
              energies=rec.energies.numpy(), total_flips=rec.flips,
              spins=h.global_spins(st).numpy(), **g, **own)
+for name, (engine, case, pol, codes) in deg_cases.items():
+    h, cur, raised = degraded_run(engine, case, pol, codes, world,
+                                  dist.group.WORLD)
+    g = state_to_numpy(h.eng.global_state(cur.state))
+    g.update({f"halo{i}": x for i, x in enumerate(g.pop("halos", ()))})
+    rec = cur.record()
+    np.savez(f"{out}/{name}-{rank}.npz", energies=rec.energies.numpy(),
+             total_flips=rec.flips, sweeps_done=cur.sweeps_done, **g)
+    with open(f"{out}/{name}-{rank}.json", "w") as f:
+        json.dump(dict(raised=raised, report=h.eng.health.report()), f)
+# drop the engines (they hold the group) while it is alive, and let every
+# rank finish before any tears its connections down: released only at
+# interpreter exit, after the group, they can abort the process there
+for name in ("h", "cur", "st0", "st", "rec"):
+    globals().pop(name, None)
+import gc
+gc.collect()
+dist.barrier()
 dist.destroy_process_group()
 """ % dict(seed=SEED, init_seed=INIT_SEED, sweeps=SWEEPS, points=POINTS)
-WORKER = textwrap.dedent(inspect.getsource(dist_problem)) + WORKER
+WORKER = textwrap.dedent(inspect.getsource(dist_problem)) \
+    + textwrap.dedent(inspect.getsource(degraded_run)) + WORKER
 
 
 @pytest.fixture(scope="module")
@@ -160,7 +246,8 @@ def ranks(tmp_path_factory):
             procs.append(subprocess.Popen(
                 [sys.executable, "-c", WORKER, str(rank), str(world),
                  str(out), json.dumps(cases),
-                 json.dumps(DIST_CASES[world])],
+                 json.dumps(DIST_CASES[world]),
+                 json.dumps(DEG_CASES[world])],
                 env=env, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
                 text=True))
     try:
@@ -249,3 +336,26 @@ def test_dsim_dist_ranks_equal_the_one_process_mesh(ranks, world, name):
         for f in ("m", "ghosts", "rng"):
             np.testing.assert_array_equal(r[f"own_{f}"][0],
                                           as_numpy(getattr(st, f)[rank]))
+
+
+@pytest.mark.parametrize("world,name", [(w, n)
+                                        for w, cases in DEG_CASES.items()
+                                        for n in cases])
+def test_degraded_ranks_equal_the_one_process_mesh(ranks, world, name):
+    engine, case, policy, codes = DEG_CASES[world][name]
+    h, cur, raised = degraded_run(engine, case, policy, codes, world)
+    g = state_to_numpy(h.eng.global_state(cur.state))
+    g.update({f"halo{i}": x for i, x in enumerate(g.pop("halos", ()))})
+    rec = cur.record()
+    report = h.eng.health.report()
+    assert report["detections"] > 0
+    for rank in range(world):
+        r = np.load(ranks / f"{name}-{rank}.npz")
+        meta = json.loads((ranks / f"{name}-{rank}.json").read_text())
+        assert meta == dict(raised=raised, report=report)
+        assert int(r["sweeps_done"]) == cur.sweeps_done
+        np.testing.assert_array_equal(r["energies"], rec.energies.numpy())
+        assert int(r["total_flips"]) == rec.flips
+        for f, x in g.items():
+            assert r[f].dtype == x.dtype, f
+            np.testing.assert_array_equal(r[f], x, err_msg=f)

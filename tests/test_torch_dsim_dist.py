@@ -358,8 +358,10 @@ def test_guards():
         DistDSIMEngine(prob, mesh=make_mesh((4,), ("x",)), **CPU)
     with pytest.raises(ValueError, match="mode='dsim'"):
         t_make("dsim_dist", prob, mode="cmft", degrade="stale_hold", **CPU)
-    with pytest.raises(NotImplementedError, match="queue A item 9"):
-        t_make("dsim_dist", prob, degrade="stale_hold", **CPU)
+    # the degraded mesh is ported (queue A item 9): one source per
+    # partition
+    assert t_make("dsim_dist", prob, degrade="stale_hold",
+                  **CPU).eng.health.report()["staleness"] == [0] * prob.K
     with pytest.raises(ValueError, match="mesh engines"):
         t_make("dsim", prob, degrade="fail_fast", **CPU)
     with pytest.raises(ValueError, match="bitplane"):

@@ -274,8 +274,11 @@ def test_make_engine_raises_for_what_this_slice_does_not_port():
                   **kw).kernel_path == "bitplane"
     with pytest.raises(ValueError, match="kernel_bx.*bitplane"):
         t_make("lattice", precision="bitplane", kernel_bx=2, **kw)
-    with pytest.raises(NotImplementedError, match="ROADMAP.*item 9"):
-        t_make("lattice", precision="int8", degrade="fail_fast", **kw)
+    # the degraded mesh is ported (ROADMAP queue A item 9): degrade=
+    # builds the health monitor of the six faces
+    h = t_make("lattice", precision="int8", degrade="fail_fast", **kw)
+    assert h.eng.health.report()["policy"] == "fail_fast" and \
+        h.eng.health.n_sources == 6
     # the mesh is ported (ROADMAP queue A item 5): it needs dim_axes, as
     # in the reference, and then builds
     mesh = make_mesh((2, 1, 1), ("x", "y", "z"))
