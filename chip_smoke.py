@@ -105,11 +105,27 @@ Phases; every check raises on failure and the script then exits non-zero:
    run, the launch counters (0 just before the server is driven) showing
    kernels #1-#4 and the gather-count launched from within it, and the
    server's jobs/s and flips/s beside the direct runs';
-9. print one JSON line of kernels (``launches`` over the main and mesh
-   paths, and the bit-plane dist run's for the gather-count;
-   ``mesh_launches`` the mesh path's, ``server_launches`` the server
-   path's), the card's name and power limit, and last
-   ``{"ok": true, "device": {...}}``.
+9. APT+ICM (``repro_torch.core.apt_icm.APTICM``) on the G81 shape
+   (N=20,000, 2 chains x 64 temperatures): with ``HostDraws`` the card
+   reproduces ``APT_GOLDEN`` (the JAX reference's digests, recomputed by
+   ``tests/test_torch_golden.py``) in ``rng="lfsr"`` and packed mode and
+   equals its ``device="cpu"`` twin bitwise over 16 sweeps; the
+   gather-count kernel against its plain version at the packed shape
+   (K=1, W=4); ``philox`` f32, ``lfsr`` and packed (W=4) timed over 256
+   sweeps with an ICM every 10th (sweeps/s, p-bit updates/s, best cut;
+   packed launches the gather-count once per colour phase, the others no
+   kernel), packed == lfsr bitwise with the card's generator, the ICM's
+   share of the time and host syncs per ICM, one profiled packed run, and
+   one ``adapt_ladder`` call;
+10. ``repro_torch.analyze``'s IR audit with every one-process chunk on the
+   card: IR-A, IR-D and IR-E (no float arithmetic in integer bodies, host
+   syncs as declared, modular counters) over the glue of the hand
+   kernels;
+11. print one JSON line of kernels (``launches`` over the main and mesh
+   paths, and the bit-plane dist run's and the packed APT run's for the
+   gather-count; ``mesh_launches`` the mesh path's, ``server_launches``
+   the server path's, ``apt_launches`` the APT path's), the card's name
+   and power limit, and last ``{"ok": true, "device": {...}}``.
 
 It exits non-zero, printing no result, where CUDA is absent or the
 script stands outside a checkout of the repository.
@@ -249,6 +265,41 @@ DSIM_GOLDEN = {
     "s_sha256": "fb1e5f4bbba32792de4c54c18737f3ea"
                 "b46dce4046fd6572679d8124a6e8f48a",
 }
+
+# APT+ICM (phase 9) on the G81 shape: APT_CHAINS chains over an APT_T
+# ladder apt_betas(), in three modes (f32 philox, lfsr, lfsr packed into
+# W = 4 word planes), each over APT_SWEEPS sweeps with an ICM every
+# APT_ICM_EVERY-th, from init_state(seed=SEED).
+APT_CHAINS, APT_T = 2, 64
+APT_SWEEPS, APT_ICM_EVERY = 256, 10
+APT_MODES = {"philox": dict(rng="philox"), "lfsr": dict(rng="lfsr"),
+             "packed": dict(rng="lfsr", packed=True)}
+APT_PROFILED = "packed"
+# The JAX reference's APTICM (rng="lfsr", run eagerly, every uniform from
+# HostDraws(APT_DRAW_SEED) through a patched jax.random.uniform) from the
+# port's init_state(seed=SEED): APT_GOLDEN_SWEEPS sweeps, an ICM and a
+# record point every APT_GOLDEN_ICM-th; digests of its (P, T, N) spins,
+# (P, T) energies and LFSR states.  tests/test_torch_golden.py recomputes
+# these from the JAX package.
+APT_DRAW_SEED = 81
+APT_GOLDEN_SWEEPS, APT_GOLDEN_ICM = 16, 4
+APT_GOLDEN = {
+    "m_sha256": "1a4829ca3d1f619bdc8cc997bc0ea2f7"
+                "833eb047b2b66fc9bf134a0ef1d6804e",
+    "E_sha256": "c9b192acf64ff7474214141f7b400ba8"
+                "ec207ea857c83de98fefbd859cd64ca7",
+    "lfsr_sha256": "1723525f7fda837664cd048519862f2c"
+                   "403685b4a98baa47115586ed9216539a",
+    "swaps": 1043, "icms": 256, "sweeps": [4, 8, 12, 16],
+    "best": [-24360.0, -25620.0, -26064.0, -26368.0],
+}
+
+
+def apt_betas() -> np.ndarray:
+    """Phase 9's ladder, the reference's T=64 case
+    (tests/test_problems.py)."""
+    return np.linspace(0.2, 3.0, APT_T)
+
 
 # The distributed DSIM on the same K=8 brick partition, every partition on
 # the card (make_engine("dsim_dist") with no mesh), rng="lfsr", each at
@@ -443,6 +494,11 @@ class Smoke:
         self.phase_dist(card)
         self.phase_degraded(card)
         self.phase_server(card)
+        self.phase_apt(card)
+        self.phase_audit(card)
+        r = self.results["bitplane_gather_count"]
+        r["launches"] += self.apt_launches
+        r["apt_launches"] = self.apt_launches
         for k in KERNELS:
             self.results[k]["mesh_launches"] = self.mesh_launches[k]
             self.results[k]["server_launches"] = self.server_launches[k]
@@ -2286,20 +2342,14 @@ class Smoke:
         from repro_torch.kernels import ref
         from repro_torch.kernels.bitplane_gather import bitplane_gather_count
         args = self.gather_inputs
-        mext, idx, nz = args[0], args[1], args[3]
-        K, W, n_ext = (int(d) for d in mext.shape)
-        nc, D = int(idx.shape[1]), int(idx.shape[2])
-        live = nz.view(self.torch.int32) != 0
-        reached = sum(int(self.torch.unique(idx[k][live[k]]).numel())
-                      for k in range(K))
-        byts = 4 * W * reached + 3 * 4 * K * nc * D \
-            + 4 * D.bit_length() * K * W * nc
-        ops = sum(2 + 2 * (n - 1).bit_length() for n in range(1, D + 1))
+        K, W, n_ext = (int(d) for d in args[0].shape)
+        nc, D = int(args[1].shape[1]), int(args[1].shape[2])
+        byts, int_ops, reached = self.gather_work(args)
         self._timed("bitplane_gather_count", "src/repro_torch/kernels/csrc/"
                     "bitplane_gather.cu", "src/repro/kernels/ops.py:120",
                     lambda: bitplane_gather_count(*args),
                     lambda: ref.bitplane_gather_count_ref(*args), byts,
-                    K * W * nc * ops, 0,
+                    int_ops, 0,
                     f"one colour, K={K}, W={W}, nc={nc}, D={D}, {reached} of "
                     f"{K * n_ext} pool slots reached, 1 launch")
         r = self.results["bitplane_gather_count"]
@@ -2308,6 +2358,21 @@ class Smoke:
               f"by {r['bound_by']} ({r['bounds']}); {r['launches']} "
               f"launches on the bit-plane dist run; on {card}", flush=True)
         del r["work"], r["bounds"]
+
+    def gather_work(self, args):
+        """(bytes, INT32 operations, pool slots reached) of one
+        gather-count call on ``args``, as ``time_gather_count`` bounds
+        it."""
+        mext, idx, nz = args[0], args[1], args[3]
+        K, W = int(mext.shape[0]), int(mext.shape[1])
+        nc, D = int(idx.shape[1]), int(idx.shape[2])
+        live = nz.view(self.torch.int32) != 0
+        reached = sum(int(self.torch.unique(idx[k][live[k]]).numel())
+                      for k in range(K))
+        byts = 4 * W * reached + 3 * 4 * K * nc * D \
+            + 4 * D.bit_length() * K * W * nc
+        ops = sum(2 + 2 * (n - 1).bit_length() for n in range(1, D + 1))
+        return byts, K * W * nc * ops, reached
 
     # -- phase 8: the degraded mesh and the sampling server ---------------
 
@@ -2753,15 +2818,295 @@ class Smoke:
               f"flips/s; their initial states alone {di:.4f} s; on {card}",
               flush=True)
 
-    def _timed(self, name, source, replaces, kernel, plain, byts, int_ops,
-               f32_ops, work):
-        """Time a kernel's wrapper and its plain version; its bound is the
+    # -- phase 9: APT+ICM on the G81 shape ----------------------------------
+
+    def apt(self, mode, device=None, draws=None):
+        from repro_torch.core.apt_icm import APTICM
+        return APTICM(self.g81_ising, self.col81, apt_betas(),
+                      chains=APT_CHAINS, device=device, draws=draws,
+                      **APT_MODES[mode])
+
+    @staticmethod
+    def apt_digest(apt, st, ts, best) -> dict:
+        """The APT_GOLDEN fields of a run (spins unpacked, LFSR states in
+        the reference's byte order in either mode)."""
+        from repro_torch.core.bits import u32_to_numpy
+        sha = lambda a: hashlib.sha256(np.asarray(a).tobytes()).hexdigest()  # noqa: E731
+        return dict(m_sha256=sha(apt.spins(st).cpu().numpy()),
+                    E_sha256=sha(st.E.cpu().numpy()),
+                    lfsr_sha256=sha(u32_to_numpy(st.lfsr)),
+                    swaps=int(st.swaps), icms=int(st.icms),
+                    sweeps=np.asarray(ts).tolist(),
+                    best=np.asarray(best).tolist())
+
+    def phase_apt(self, card: str):
+        """APT+ICM (repro_torch.core.apt_icm) on the G81 shape at full
+        width: APT_GOLDEN and the device="cpu" twin with HostDraws, the
+        gather-count kernel against its plain version at the packed
+        shape, the three modes timed over APT_SWEEPS sweeps with the
+        launches counted, packed == lfsr with the card's generator, the
+        ICM's share of the time and its host syncs, one profiled packed
+        run and one adapt_ladder call."""
+        t = self.torch
+        from repro_torch.core.apt_icm import HostDraws, adapt_ladder
+        from repro_torch.core.energy import energy
+        from repro_torch.kernels import _build
+        from repro_torch.problems.maxcut import cut_of
+        g, col = self.g81_ising, self.col81
+        N, P, T = g.n, APT_CHAINS, APT_T
+        print(f"== 9. APT+ICM on the G81 shape: N={N}, P={P} chains x T={T} "
+              f"temperatures, {col.n_colors} colours", flush=True)
+        for mode in ("lfsr", "packed"):
+            got = {}
+            for dev in (None, "cpu"):
+                apt = self.apt(mode, dev, HostDraws(APT_DRAW_SEED))
+                t0 = time.perf_counter()
+                st, (ts, best) = apt.run(
+                    apt.init_state(seed=SEED), APT_GOLDEN_SWEEPS,
+                    icm_every=APT_GOLDEN_ICM, record_every=APT_GOLDEN_ICM)
+                if dev is None:
+                    t.cuda.synchronize()
+                    check(apt.device.type == "cuda" and
+                          st.m.device.type == "cuda",
+                          f"APT {mode} runs on {apt.device}")
+                got[dev] = (self.apt_digest(apt, st, ts, best),
+                            time.perf_counter() - t0)
+            check(got[None][0] == APT_GOLDEN,
+                  f"APT {mode} on the card with HostDraws({APT_DRAW_SEED}) "
+                  f"reproduces APT_GOLDEN: spins, energies and LFSR digests, "
+                  f"{APT_GOLDEN['swaps']} swaps, {APT_GOLDEN['icms']} ICMs, "
+                  f"best-energy trace {APT_GOLDEN['best']}")
+            check(got["cpu"][0] == got[None][0],
+                  f"APT {mode}: card == device='cpu' twin bitwise over "
+                  f"{APT_GOLDEN_SWEEPS} sweeps ({got[None][1]:.2f} s on the "
+                  f"card, {got['cpu'][1]:.2f} s on the CPU)")
+        self.apt_kernel(card)
+        runs = {}
+        for mode in APT_MODES:
+            runs[mode] = self.apt_main(mode, card)
+        (lu, lst, lb), (pk, pst, pb) = runs["lfsr"][:3], runs["packed"][:3]
+        check(t.equal(lu.spins(lst), pk.spins(pst)) and t.equal(lst.E, pst.E)
+              and self.same(lst.lfsr.reshape(-1), pst.lfsr.reshape(-1))
+              and int(lst.swaps) == int(pst.swaps) and
+              int(lst.icms) == int(pst.icms) and t.equal(lst.key, pst.key)
+              and np.array_equal(lb, pb),
+              f"packed == lfsr bitwise over {APT_SWEEPS} sweeps with the "
+              f"card's generator (spins, energies, LFSR, {int(pst.swaps)} "
+              f"swaps, {int(pst.icms)} ICMs, generator state, trace)")
+        w_tot = float(self.g81.w.sum()) / 2
+        for mode, (apt, st, best, wall, launches) in runs.items():
+            spins, e_best = apt.best_config(st)
+            cut = cut_of(self.g81, spins)
+            E = st.E
+            check(tuple(E.shape) == (P, T) and bool(t.isfinite(E).all()) and
+                  t.equal(E, energy(g, apt.spins(st))) and
+                  cut == (w_tot - e_best) / 2 and best[-1] <= best[0],
+                  f"APT {mode}: energies finite (P, T), tracked == direct, "
+                  f"best cut {cut:.0f} == (W - E_best) / 2, best energy "
+                  f"{best[0]:.0f} -> {best[-1]:.0f}")
+            rate = N * P * T * APT_SWEEPS / wall
+            print(f"  APT {mode}: {APT_SWEEPS} sweeps of {N} p-bits x "
+                  f"{P * T} replicas in {wall:.4f} s = "
+                  f"{APT_SWEEPS / wall:.2f} sweeps/s, {rate:.4e} p-bit "
+                  f"updates/s; best cut {cut:.0f}; on {card}", flush=True)
+        self.apt_shares(card)
+        self.profile_apt(card)
+        t.cuda.synchronize()
+        t0 = time.perf_counter()
+        ladder = adapt_ladder(g, col, 1.0, 6.0, T)
+        t.cuda.synchronize()
+        dt = time.perf_counter() - t0
+        check(len(ladder) == T and bool((np.diff(ladder) > 0).all()) and
+              abs(ladder[0] - 1.0) < 1e-9 and abs(ladder[-1] - 6.0) < 1e-9,
+              f"adapt_ladder(G81, 1.0, 6.0, {T}) on the card: increasing "
+              f"from 1.0 to 6.0, in {dt:.3f} s on {card}")
+
+    def apt_main(self, mode, card):
+        """One warm short run, then APT_SWEEPS sweeps timed with the launch
+        counters at 0 just before; returns (engine, state, best trace,
+        wall seconds, launches)."""
+        t = self.torch
+        from repro_torch.kernels import _build
+        apt = self.apt(mode)
+        st0 = apt.init_state(seed=SEED)
+        apt.run(st0, 2, icm_every=1, record_every=2)
+        t.cuda.synchronize()
+        _build.reset_launch_counts()
+        t0 = time.perf_counter()
+        st, (_, best) = apt.run(st0, APT_SWEEPS, icm_every=APT_ICM_EVERY,
+                                record_every=APT_ICM_EVERY)
+        t.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        counts = {k: v for k, v in _build.launch_counts.items() if v}
+        gathers = counts.pop("bitplane_gather_count", 0)
+        phases = APT_SWEEPS * self.col81.n_colors
+        if mode == "packed":
+            self.apt_launches = gathers
+            check(gathers == phases and not counts,
+                  f"APT packed: the gather-count kernel launched {gathers} "
+                  f"times, once per colour phase ({phases}); no other "
+                  f"kernel ({counts})")
+        else:
+            check(gathers == 0 and not counts,
+                  f"APT {mode}: plain PyTorch operations, no kernel "
+                  f"launched ({counts})")
+        return apt, st, best, wall, gathers
+
+    def apt_kernel(self, card):
+        """The gather-count kernel against its plain version at the packed
+        APT shape (K=1, W=4, every colour), bitwise, and timed."""
+        t = self.torch
+        from repro_torch.core.bits import u32_to_i64
+        from repro_torch.kernels import ref
+        from repro_torch.kernels.bitplane_gather import bitplane_gather_count
+        apt = self.apt("packed")
+        st = apt.init_state(seed=SEED)
+        errs = []
+        for c in range(self.col81.n_colors):
+            args = (st.m[None], apt._idx32[c], apt._signs[c], apt._nz[c])
+            got = bitplane_gather_count(*args)
+            want = ref.bitplane_gather_count_ref(*args)
+            t.cuda.synchronize()
+            errs += [self.max_abs(a, b) for a, b in zip(got, want)]
+            K, nc, D = (int(d) for d in args[1].shape)
+            check(len(got) == len(want) and
+                  all(self.same(a, b) for a, b in zip(got, want)),
+                  f"bitplane_gather_count at the APT shape, colour {c}: "
+                  f"K={K}, W={apt.words}, nc={nc}, n_ext={apt.n}, D={D}: "
+                  f"== the plain version bitwise")
+        r = self.results["bitplane_gather_count"]
+        r["max_abs_err"] = max([r["max_abs_err"]] + errs)
+        args = (st.m[None], apt._idx32[0], apt._signs[0], apt._nz[0])
+        ms = self.time_ms(lambda: bitplane_gather_count(*args), reps=50)
+        plain = self.time_ms(lambda: ref.bitplane_gather_count_ref(*args),
+                             reps=3, warm=1)
+        byts, int_ops, _ = self.gather_work(args)
+        bound = self.bound(byts, int_ops, 0)
+        # the whole packed sweep, to see what the per-lane tail costs
+        lfsr = u32_to_i64(st.lfsr)
+        sweep = self.time_ms(lambda: apt._gibbs_sweep_packed(
+            st.m, st.E, lfsr.clone()), reps=10)
+        n_col = self.col81.n_colors
+        print(f"  bitplane_gather_count at the APT shape: {ms:.4f} ms per "
+              f"colour (plain {plain:.4f} ms, bound {bound[1]:.4f} ms by "
+              f"{bound[0]}: {byts} bytes, {int_ops} INT32 ops); one "
+              f"packed sweep "
+              f"{sweep:.4f} ms, of which the {n_col} gather-counts "
+              f"{100 * n_col * ms / sweep:.1f}% and the per-lane tail the "
+              f"rest; on {card}", flush=True)
+
+    def apt_shares(self, card):
+        """Per mode, one run with every ICM bracketed by synchronises: the
+        ICM's share of the wall time and its host syncs per ICM."""
+        t = self.torch
+        for mode in APT_MODES:
+            apt = self.apt(mode)
+            st0 = apt.init_state(seed=SEED)
+            spent = [0.0]
+            for name in ("_icm", "_icm_packed"):
+                fn = getattr(apt, name)
+
+                def timed(*a, fn=fn):
+                    t.cuda.synchronize()
+                    t0 = time.perf_counter()
+                    out = fn(*a)
+                    t.cuda.synchronize()
+                    spent[0] += time.perf_counter() - t0
+                    return out
+                setattr(apt, name, timed)
+            t.cuda.synchronize()
+            t0 = time.perf_counter()
+            apt.run(st0, APT_SWEEPS, icm_every=APT_ICM_EVERY,
+                    record_every=APT_ICM_EVERY)
+            t.cuda.synchronize()
+            wall = time.perf_counter() - t0
+            print(f"  APT {mode}: ICM {spent[0]:.4f} s of {wall:.4f} s "
+                  f"({100 * spent[0] / wall:.1f}%), {apt.icm_calls} ICMs, "
+                  f"{apt.icm_syncs / max(apt.icm_calls, 1):.2f} host syncs "
+                  f"per ICM; on {card}", flush=True)
+
+    def profile_apt(self, card):
+        """One profiled APT_PROFILED run: device busy share and the
+        gather-count kernel's share of the device time."""
+        t = self.torch
+        from torch.autograd import DeviceType
+        from torch.profiler import ProfilerActivity, profile
+        apt = self.apt(APT_PROFILED)
+        st0 = apt.init_state(seed=SEED)
+        apt.run(st0, 2, icm_every=1, record_every=2)
+        t.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            apt.run(st0, APT_SWEEPS, icm_every=APT_ICM_EVERY,
+                    record_every=APT_ICM_EVERY)
+            t.cuda.synchronize()
+            wall = time.perf_counter() - t0
+        rows = [(e.key, e.count, e.self_device_time_total)
+                for e in prof.key_averages()
+                if e.device_type == DeviceType.CUDA
+                and e.self_device_time_total > 0]
+        if not rows:
+            print(f"  profile APT {APT_PROFILED}: the profiler saw no device "
+                  f"time; device busy share not measured", flush=True)
+            return
+        busy = sum(us for _, _, us in rows) / 1e6
+        hits = [(c, us) for key, c, us in rows
+                if "bitplane_gather_count" in key]
+        count, us = sum(c for c, _ in hits), sum(u for _, u in hits)
+        print(f"  profile APT {APT_PROFILED}: wall {wall:.4f} s under the "
+              f"profiler, device busy {busy:.4f} s "
+              f"({100 * busy / wall:.1f}%); gather-count {count} launches, "
+              f"{us / max(count, 1):.1f} us each, "
+              f"{100 * us / 1e6 / busy:.1f}% of the device time; on {card}",
+              flush=True)
+        for key, count, us in sorted(rows, key=lambda r: -r[2])[:8]:
+            print(f"    {us / 1e3:10.3f} ms  {count:6d} x  {key[:90]}",
+                  flush=True)
+
+    # -- phase 10: the static audit on the card's path ----------------------
+
+    def phase_audit(self, card: str):
+        """``repro_torch.analyze``'s IR audit with every one-process chunk
+        on the card (the hand kernels launch; their glue is recorded):
+        IR-A, IR-D and IR-E hold there as on the CPU.  The gloo rank
+        cases (IR-B, IR-C) are CPU processes, audited by the CPU gate."""
+        from repro_torch.analyze.configs import build_audits
+        from repro_torch.analyze.findings import Waivers
+        from repro_torch.analyze.ir_rules import audit_chunk
+        from repro_torch.analyze.runner import DEFAULT_WAIVER_FILE
+        print("== 10. static audit: python -m repro_torch.analyze ir on the "
+              "card's path", flush=True)
+        t0 = time.perf_counter()
+        audits, failures = build_audits(self.dev, ranks=False)
+        waivers = Waivers.load(DEFAULT_WAIVER_FILE)
+        found = [f for a in audits for f in audit_chunk(a)]
+        bad = [f for f in found if waivers.match(f) is None]
+        for f in bad:
+            print("  " + f.render(), flush=True)
+        syncs = sum(len(a.syncs) for a in audits)
+        check(not failures and not bad,
+              f"{len(audits)} configurations, one chunk each on "
+              f"{self.dev}: no float arithmetic in an integer body, "
+              f"{syncs} host syncs as declared, modular counters "
+              f"({len(failures)} failed to run, {len(bad)} unwaived "
+              f"findings; {time.perf_counter() - t0:.1f} s)")
+
+    def bound(self, byts, int_ops, f32_ops):
+        """(what bounds it, bound ms, {bytes, int32, fp32: ms}): the
         largest of the bytes over HBM bandwidth and the INT32 and FP32
         operations over their own peaks."""
         times = {"bytes": byts / HBM_BYTES_PER_S * 1e3,
                  "int32": int_ops / self.int_peak * 1e3,
                  "fp32": f32_ops / self.f32_peak * 1e3}
         by = max(times, key=times.get)
+        return by, times[by], times
+
+    def _timed(self, name, source, replaces, kernel, plain, byts, int_ops,
+               f32_ops, work):
+        """Time a kernel's wrapper and its plain version beside its
+        bound (``bound``)."""
+        by, _, times = self.bound(byts, int_ops, f32_ops)
         r = self.results[name]
         r.update({
             "name": name, "route": "cuda", "source": source,

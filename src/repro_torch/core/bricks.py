@@ -38,6 +38,7 @@ from typing import List, Sequence, Tuple
 import numpy as np
 import torch
 
+from .bits import i64_to_i32, u32_to_i64
 from .degrade import (_mults, fault_code, health_step, mulmod32,
                       wire_checksum, wire_words)
 from .packing import pack_pm1, pad_to_multiple, unpack_pm1
@@ -330,7 +331,8 @@ class GroupExchange:
                                       tag=d))
             recvs[d] = (buf, shape)
             if seq is not None:
-                hdr = torch.stack([seq, wire_checksum(face)])
+                # [seq, checksum] as the uint32 pair's int32 view
+                hdr = i64_to_i32(torch.stack([seq, wire_checksum(face)]))
                 if dst is not None:
                     ops.append(dist.P2POp(dist.isend, hdr, dst, self.group,
                                           tag=6 + d))
@@ -343,7 +345,7 @@ class GroupExchange:
                 w.wait()
         for d, (buf, shape) in recvs.items():
             out[d] = self._unpayload(buf, shape)
-        return out, hdrs
+        return out, {d: u32_to_i64(h) for d, h in hdrs.items()}
 
     def checked(self, m: torch.Tensor, prev: tuple, health: tuple, codes,
                 freeze: bool):

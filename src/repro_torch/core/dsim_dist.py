@@ -50,7 +50,7 @@ from typing import Optional, Union
 import numpy as np
 import torch
 
-from .bits import MASK32, i64_to_i32, u32_from_numpy
+from .bits import MASK32, i64_to_i32, u32_from_numpy, u32_to_i64
 from .degrade import (DegradePolicy, MeshHealthMonitor, carry_max,
                       carry_to_device, fault_code, health_step,
                       wire_checksum)
@@ -325,7 +325,8 @@ class DistDSIMEngine(ColorPhases):
         import torch.distributed as dist
         bnd = x[0].index_select(1, self._bnd_slots[0])        # (lead, b_pad)
         sent = bnd.to(torch.float32).view(torch.int32) if unpack else bnd
-        hdr = torch.stack([seq, wire_checksum(sent)])
+        # [seq, checksum] as the uint32 pair's int32 view
+        hdr = i64_to_i32(torch.stack([seq, wire_checksum(sent)]))
         payload = pack_pm1(bnd) if unpack else bnd.contiguous()
         bufs = [torch.empty_like(payload) for _ in range(self.p.K)]
         hbufs = [torch.empty_like(hdr) for _ in range(self.p.K)]
@@ -335,7 +336,7 @@ class DistDSIMEngine(ColorPhases):
         if unpack:
             pool = unpack_pm1(pool, self.b_pad).to(torch.float32).view(
                 torch.int32)
-        return pool, torch.stack(hbufs)
+        return pool, u32_to_i64(torch.stack(hbufs))
 
     def _exchange_checked(self, x: torch.Tensor, ghosts: torch.Tensor,
                           health: tuple, codes, freeze: bool):

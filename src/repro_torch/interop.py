@@ -1,11 +1,13 @@
 """Parameters across packages: numpy arrays in, the port's objects out.
 
 The reference's ``IsingGraph``, ``LatticeProblem``, and its ``LatticeState``
-/ ``BitplaneLatticeState`` / ``GibbsState`` / ``DSIMState`` fields, given
+/ ``BitplaneLatticeState`` / ``GibbsState`` / ``DSIMState`` / ``APTState``
+fields, given
 as numpy arrays, become the port's graph, problem and states (and back),
 so both packages can compute the same thing from the same data.  A
 ``rng="philox"`` state cannot cross: a ``jax.random`` key and a
-``torch.Generator`` are different streams.  States cross in the reference's global shapes: a
+``torch.Generator`` are different streams, and an ``APTState`` crosses
+with the port's generator state bytes as its ``key``.  States cross in the reference's global shapes: a
 mesh engine's ``shard_state`` cuts one into its bricks, and a
 ``BrickState`` of a one-process mesh is joined back (a distributed DSIM
 over a process group gives its global state through ``global_state``).  The dtypes are the reference's: int8 spins, uint32
@@ -19,6 +21,7 @@ import dataclasses
 import numpy as np
 import torch
 
+from repro_torch.core.apt_icm import APTState
 from repro_torch.core.device import resolve_device
 from repro_torch.core.dsim import DSIMState
 from repro_torch.core.gibbs import GibbsState
@@ -34,6 +37,10 @@ __all__ = ["graph_from_numpy", "problem_from_numpy", "state_from_numpy",
 _PHILOX = ("a rng='philox' state cannot cross between the packages: a "
            "jax.random key and a torch.Generator are different streams; "
            "use rng='lfsr'")
+_APT_KEY = ("an APTState's key crosses only as the port's generator state "
+            "bytes (uint8); a jax.random key is another stream: pass the "
+            "key of the port's init_state(seed)")
+_APT_FIELDS = {"m", "E", "key", "sweep", "swaps", "icms", "lfsr"}
 
 
 def graph_from_numpy(idx, w, h, meta=None, device=None) -> IsingGraph:
@@ -65,10 +72,26 @@ def state_from_numpy(*, device=None, **fields):
     ``BitplaneLatticeState``, int8 spins a ``LatticeState``); ``m, rng, E,
     sweep, flips`` a ``GibbsState``; ``m, ghosts, macc, rng, sweep,
     flips`` a ``DSIMState`` of the stacked or the distributed DSIM (uint32
-    words in ``m``: the distributed bit-plane state).  An ``rng`` that is
-    not one uint32 LFSR state per spin or lane (a philox key) raises."""
+    words in ``m``: the distributed bit-plane state); ``m, E, key, sweep,
+    swaps, icms, lfsr`` an ``APTState`` (uint32 words in ``m``: packed;
+    ``lfsr`` None with rng="philox"; ``key`` the port's uint8 generator
+    state).  An ``rng`` that is not one uint32 LFSR state per spin or lane
+    (a philox key) raises, as does an APT ``key`` that is not uint8."""
     keys = set(fields)
     m = np.asarray(fields["m"])
+    if keys == _APT_FIELDS:
+        key = np.asarray(fields["key"])
+        if key.dtype != np.uint8:
+            raise ValueError(_APT_KEY)
+        lfsr = fields["lfsr"]
+        snap = APTState(
+            m=m if m.dtype == np.uint32 else np.asarray(m, np.int8),
+            E=np.asarray(fields["E"], np.float32), key=key,
+            sweep=np.asarray(fields["sweep"], np.int32),
+            swaps=np.asarray(fields["swaps"], np.int32),
+            icms=np.asarray(fields["icms"], np.int32),
+            lfsr=None if lfsr is None else np.asarray(lfsr, np.uint32))
+        return restore_state(snap, resolve_device(device))
     if keys == {"m", "s", "halos", "sweep", "flips"}:
         if m.dtype == np.uint32:
             cls = BitplaneLatticeState

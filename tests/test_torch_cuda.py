@@ -1109,3 +1109,50 @@ def test_cuda_server_matches_cpu_server(cuda):
     for k in ("pbit_brick_sweep_int", "pbit_bitplane_sweep", "brick_energy",
               "bitplane_gather_count"):
         assert counts[k] > 0, k
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("rng,packed,draws", [("lfsr", False, True),
+                                              ("lfsr", True, True),
+                                              ("lfsr", True, False),
+                                              ("philox", False, True)])
+def test_cuda_apt_icm_matches_cpu(cuda, rng, packed, draws):
+    """APT+ICM on the card == device="cpu" with the same HostDraws: lfsr
+    and packed bitwise (packed launching the gather-count kernel once per
+    colour phase); f32 to tanh ties.  With the default generator (the
+    card's Philox, not the CPU's stream) packed == unpacked on the card."""
+    from repro_torch.core.apt_icm import APTICM, HostDraws
+    from repro_torch.core.graph import toroidal_grid
+    g = toroidal_grid(8, 12, seed=81, weights="pm1", device="cpu")
+    col = t_coloring.greedy_coloring(g.idx, g.w)
+    betas = np.linspace(0.2, 3.0, 48)
+    out = {}
+    for dev in ("cpu", cuda):
+        kw = dict(chains=2, rng=rng, device=dev)
+        apt = APTICM(g, col, betas, packed=packed, draws=HostDraws(3)
+                     if draws else None, **kw)
+        st = apt.init_state(seed=1)
+        _build.reset_launch_counts()
+        st, (_, best) = apt.run(st, 12, icm_every=4, record_every=4)
+        counts = dict(_build.launch_counts)
+        if not draws:
+            un = APTICM(g, col, betas, **kw)
+            su, (_, bu) = un.run(un.init_state(seed=1), 12, icm_every=4,
+                                 record_every=4)
+            assert torch.equal(un.spins(su), apt.spins(st))
+            assert torch.equal(su.E, st.E) and np.array_equal(bu, best)
+        out[str(dev)] = (apt.spins(st).cpu(), st, best, counts)
+    (sc, stc, bc, _), (sg, stg, bg, counts) = out["cpu"], out[str(cuda)]
+    gathers = counts.pop("bitplane_gather_count", 0)
+    assert gathers == (12 * col.n_colors if packed else 0)
+    assert not any(counts.values())
+    if not draws:
+        return
+    if rng == "philox":
+        assert (sc != sg).float().mean() <= 0.01
+        return
+    assert torch.equal(sc, sg)
+    assert torch.equal(stc.E, stg.E.cpu()) and np.array_equal(bc, bg)
+    assert_bitwise((stg.lfsr,), (stc.lfsr,))
+    assert int(stc.swaps) == int(stg.swaps) and \
+        int(stc.icms) == int(stg.icms) > 0

@@ -240,3 +240,50 @@ def test_dist_golden_values_match_jax_on_8_devices():
     assert out["f32"]["energies"] == dist["energies"]
     assert out["f32"]["flips"] == dist["flips"]
     assert out["f32"]["s_dist_sha256"] == dist["s_sha256"]
+
+
+def test_apt_golden_values_match_jax(monkeypatch):
+    """``APT_GOLDEN``: the JAX reference's APT+ICM (rng="lfsr", run
+    eagerly, its uniforms from ``HostDraws(APT_DRAW_SEED)`` through a
+    patched ``jax.random.uniform``) on the G81-shaped torus, from the
+    port's initial state at ``SEED``."""
+    import jax
+    import jax.numpy as jnp
+    from repro.core.apt_icm import APTICM, APTState
+    from repro.core.coloring import greedy_coloring
+    from repro.problems.maxcut import gset_like_toroidal, maxcut_to_ising
+    from repro_torch.core.apt_icm import APTICM as PortAPT, HostDraws
+    from repro_torch.core.coloring import Coloring
+    from repro_torch.core.graph import IsingGraph as PortGraph
+    from repro_torch.interop import state_to_numpy
+    import torch
+    smoke = chip_smoke()
+    g = maxcut_to_ising(gset_like_toroidal(**smoke.G81))
+    col = greedy_coloring(np.asarray(g.idx), np.asarray(g.w))
+    betas = smoke.apt_betas()
+    apt = APTICM(g, col, betas, chains=smoke.APT_CHAINS, rng="lfsr")
+    port = PortAPT(PortGraph(idx=torch.from_numpy(np.array(g.idx)),
+                             w=torch.from_numpy(np.array(g.w)),
+                             h=torch.from_numpy(np.array(g.h))),
+                   Coloring(col.colors), betas, chains=smoke.APT_CHAINS,
+                   rng="lfsr", device="cpu")
+    d = state_to_numpy(port.init_state(seed=smoke.SEED))
+    st = APTState(m=jnp.asarray(d["m"]), E=jnp.asarray(d["E"]),
+                  key=jax.random.PRNGKey(0), sweep=jnp.asarray(d["sweep"]),
+                  swaps=jnp.asarray(d["swaps"]), icms=jnp.asarray(d["icms"]),
+                  lfsr=jnp.asarray(d["lfsr"]))
+    hd = HostDraws(smoke.APT_DRAW_SEED)
+    monkeypatch.setattr(
+        jax.random, "uniform",
+        lambda key, shape=(), dtype=jnp.float32, minval=0.0, maxval=1.0:
+        jnp.asarray(hd.sample(shape, minval, maxval)))
+    apt._step = apt._step_impl
+    st, (ts, best) = apt.run(st, smoke.APT_GOLDEN_SWEEPS,
+                             icm_every=smoke.APT_GOLDEN_ICM,
+                             record_every=smoke.APT_GOLDEN_ICM)
+    sha = lambda a: hashlib.sha256(np.asarray(a).tobytes()).hexdigest()  # noqa: E731
+    assert np.asarray(st.m).dtype == np.int8
+    assert dict(m_sha256=sha(st.m), E_sha256=sha(st.E),
+                lfsr_sha256=sha(st.lfsr), swaps=int(st.swaps),
+                icms=int(st.icms), sweeps=ts.tolist(),
+                best=best.tolist()) == smoke.APT_GOLDEN
