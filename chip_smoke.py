@@ -121,11 +121,28 @@ Phases; every check raises on failure and the script then exits non-zero:
    card: IR-A, IR-D and IR-E (no float arithmetic in integer bodies, host
    syncs as declared, modular counters) over the glue of the hand
    kernels;
-11. print one JSON line of kernels (``launches`` over the main and mesh
-   paths, and the bit-plane dist run's and the packed APT run's for the
-   gather-count; ``mesh_launches`` the mesh path's, ``server_launches``
-   the server path's, ``apt_launches`` the APT path's), the card's name
-   and power limit, and last ``{"ok": true, "device": {...}}``.
+11. the paper's six examples on the port (``examples/torch_*.py``), each
+   ``main`` in its own subprocess at the reference's defaults with a
+   timeout of its own, reporting its result and launch counts through a
+   record file (``example_child``): quickstart's int8 per-replica
+   energies and its bit-plane best energy and lane-flips equal the JAX
+   reference's exactly (``QUICKSTART_GOLDEN``), and it launches kernels
+   #1-#4 and the gather-count; sat3 satisfies at least 90% of its
+   clauses; maxcut prints a cut per trial and the hex line; eta_sweep a
+   finite kappa in every row; serve_sampling's recovered jobs are
+   bitwise its uninterrupted ones; the dashboard's degraded job has a
+   detection and a held exchange, its probe launches the gather-count,
+   and its Prometheus head is not empty; one line per example of its
+   seconds and headline rate; then, in this process, quickstart's three
+   lattice runs and packed APT+ICM and the dashboard's eta probe again
+   at the examples' defaults, with every kernel launch held to its plain
+   version on the same inputs (f32 as in phase 2, the rest bitwise);
+12. print one JSON line of kernels (``launches`` over the main and mesh
+   paths, the bit-plane dist run's and the packed APT run's for the
+   gather-count, and the examples'; ``mesh_launches`` the mesh path's,
+   ``server_launches`` the server path's, ``apt_launches`` the APT
+   path's, ``example_launches`` each example's), the card's name and
+   power limit, and last ``{"ok": true, "device": {...}}``.
 
 It exits non-zero, printing no result, where CUDA is absent or the
 script stands outside a checkout of the repository.
@@ -133,10 +150,17 @@ script stands outside a checkout of the repository.
 
 from __future__ import annotations
 
+import contextlib
 import hashlib
+import importlib.util
+import inspect
 import json
+import math
+import os
+import re
 import subprocess
 import sys
+import tempfile
 import time
 from pathlib import Path
 
@@ -294,6 +318,21 @@ APT_GOLDEN = {
     "best": [-24360.0, -25620.0, -26064.0, -26368.0],
 }
 
+# Phase 11: the port's examples, each run as ``python3
+# examples/torch_<name>.py`` with its seconds allowed.
+EXAMPLES = {"quickstart": 150, "sat3_invertible": 120, "maxcut_gset": 150,
+            "eta_sweep": 300, "serve_sampling": 180, "serve_dashboard": 120}
+# The JAX reference's examples/quickstart.py (L=10, budget 2048): its int8
+# lattice's per-replica energies, and its bit-plane lattice's best energy
+# and lane-flips.  tests/test_torch_examples.py recomputes these from the
+# JAX package.
+QUICKSTART_GOLDEN = {"int8": [-1684.0, -1700.0, -1688.0, -1692.0],
+                     "bitplane_best": -1710.0, "bitplane_flips": 2837134}
+# The reference's examples/eta_sweep.py kappa_DSIM at S=1 and S=256 on
+# the CPU (reported beside the card's, not gated: the ground run draws
+# from philox).
+ETA_REFERENCE_KAPPA = {1: 0.646, 256: 0.900}
+
 
 def apt_betas() -> np.ndarray:
     """Phase 9's ladder, the reference's T=64 case
@@ -384,6 +423,31 @@ REDESIGNED = {"pbit_bitplane_sweep": ("bitplane_color_kernel",),
 
 class CheckFailed(RuntimeError):
     pass
+
+
+def load_example(name: str):
+    """``examples/torch_<name>.py`` as a module (its ``main`` not run)."""
+    path = Path(__file__).resolve().parent / "examples" / f"torch_{name}.py"
+    spec = importlib.util.spec_from_file_location(f"torch_{name}", path)
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+def write_example_record(mod, argv, record: str) -> dict:
+    """Run an example's ``main(argv)`` and write its result and this
+    process's launch counts to ``record`` as one JSON object."""
+    from repro_torch.kernels import _build
+    out = mod.main(argv)
+    Path(record).write_text(json.dumps(
+        {"result": out, "launches": dict(_build.launch_counts)},
+        default=float))
+    return out
+
+
+def example_child(name: str, record: str, *argv) -> None:
+    """The process ``Smoke.run_example`` starts for one example."""
+    write_example_record(load_example(name), list(argv), record)
 
 
 def check(cond, what: str):
@@ -485,23 +549,28 @@ class Smoke:
               f"{t.cuda.device_count()} visible)", flush=True)
         print(f"python {sys.version.split()[0]}  torch {t.__version__}  "
               f"cuda {t.version.cuda}", flush=True)
-        self.phase_build()
-        self.phase_kernels()
-        self.phase_main_path()
-        self.phase_mesh(card)
-        self.phase_timing(card)
-        self.phase_graph(card)
-        self.phase_dist(card)
-        self.phase_degraded(card)
-        self.phase_server(card)
-        self.phase_apt(card)
-        self.phase_audit(card)
+        laps, t0 = [], time.perf_counter()
+        for phase, args in (
+                (self.phase_build, ()), (self.phase_kernels, ()),
+                (self.phase_main_path, ()), (self.phase_mesh, (card,)),
+                (self.phase_timing, (card,)), (self.phase_graph, (card,)),
+                (self.phase_dist, (card,)), (self.phase_degraded, (card,)),
+                (self.phase_server, (card,)), (self.phase_apt, (card,)),
+                (self.phase_audit, (card,)), (self.phase_examples, ())):
+            phase(*args)
+            t1 = time.perf_counter()
+            laps.append(f"{phase.__name__[6:]} {t1 - t0:.1f}")
+            t0 = t1
+        print("seconds per phase: " + ", ".join(laps), flush=True)
         r = self.results["bitplane_gather_count"]
         r["launches"] += self.apt_launches
         r["apt_launches"] = self.apt_launches
         for k in KERNELS:
             self.results[k]["mesh_launches"] = self.mesh_launches[k]
             self.results[k]["server_launches"] = self.server_launches[k]
+            per = {n: c[k] for n, c in self.example_launches.items()}
+            self.results[k]["launches"] += sum(per.values())
+            self.results[k]["example_launches"] = per
         print(json.dumps({"kernels": [self.results[k] for k in KERNELS]}))
         print(card)
         print(json.dumps({"ok": True, "device": {
@@ -3091,6 +3160,282 @@ class Smoke:
               f"{syncs} host syncs as declared, modular counters "
               f"({len(failures)} failed to run, {len(bad)} unwaived "
               f"findings; {time.perf_counter() - t0:.1f} s)")
+
+    def run_example(self, name: str, args=()):
+        """``examples/torch_<name>.py``'s ``main`` in a process of its own
+        (``example_child``); returns its stdout, its record (result and
+        launch counts) and its seconds.  A timeout or a non-zero exit
+        fails the phase."""
+        root = Path(__file__).resolve().parent
+        env = dict(os.environ)
+        env["PYTHONPATH"] = os.pathsep.join(
+            [str(root), str(root / "src")] + ([env["PYTHONPATH"]]
+                                              if env.get("PYTHONPATH")
+                                              else []))
+        with tempfile.TemporaryDirectory() as tmp:
+            record = Path(tmp) / "record.json"
+            t0 = time.perf_counter()
+            try:
+                res = subprocess.run(
+                    [sys.executable, "-c",
+                     "import sys, chip_smoke; "
+                     "chip_smoke.example_child(*sys.argv[1:])",
+                     name, str(record), *args],
+                    cwd=root, env=env, capture_output=True, text=True,
+                    timeout=EXAMPLES[name])
+            except subprocess.TimeoutExpired:
+                raise CheckFailed(f"examples/torch_{name}.py ran past "
+                                  f"{EXAMPLES[name]} s")
+            sec = time.perf_counter() - t0
+            for line in res.stdout.splitlines():
+                print(f"  | {line}")
+            if res.returncode != 0:
+                print(res.stderr[-4000:], file=sys.stderr)
+            check(res.returncode == 0,
+                  f"examples/torch_{name}.py exited 0 in {sec:.1f} s")
+            rec = json.loads(record.read_text())
+        return res.stdout, rec, sec
+
+    def phase_examples(self, args=()):
+        """The paper's six examples on the port, at the reference's
+        defaults, each in its own process (``EXAMPLES``)."""
+        print("== 11. the examples (examples/torch_*.py)", flush=True)
+        self.example_launches, heads = {}, []
+        for name in EXAMPLES:
+            out, rec, sec = self.run_example(name, args)
+            res = rec["result"]
+            self.example_launches[name] = {k: rec["launches"][k]
+                                           for k in KERNELS}
+            heads.append(getattr(self, f"check_{name}")(out, res, sec))
+        for line in heads:
+            print(line, flush=True)
+        self.hold_examples()
+
+    def hold_examples(self):
+        """The kernels at the examples' own shapes, in this process:
+        quickstart's three lattice runs (L=10; f32 and int8 R=4, bit-plane
+        R=32) and its packed APT+ICM (L=6, 128 lanes in 4 words), and the
+        dashboard's eta probe (K=1 bit-plane ``dsim_dist``), each at the
+        example's defaults on the card with every kernel launch held to
+        its plain version on the same inputs (``held_kernels``); the
+        int8 and bit-plane runs also reproduce ``QUICKSTART_GOLDEN``."""
+        from repro_torch.kernels import _build
+        from repro_torch.obs import eta_probe
+        qs, dash = load_example("quickstart"), load_example("serve_dashboard")
+        d = {k: v.default for k, v in
+             inspect.signature(qs.run).parameters.items()}
+        lat = lambda **kw: qs.lattice_run(  # noqa: E731
+            d["L"], d["budget"], self.dev, **kw)
+        runs = {
+            f"quickstart f32 L={d['L']} R={d['R']}":
+                lambda: lat(replicas=d["R"]),
+            f"quickstart int8 L={d['L']} R={d['R']}":
+                lambda: lat(replicas=d["R"], precision="int8"),
+            f"quickstart bit-plane L={d['L']} R=32":
+                lambda: lat(replicas=32, precision="bitplane"),
+            f"quickstart packed APT+ICM L={d['apt_L']}, 128 lanes":
+                lambda: qs.apt_run(d["apt_L"], d["apt_sweeps"], self.dev),
+            f"dashboard eta probe {dash.ETA_PROBE}":
+                lambda: eta_probe(**dash.ETA_PROBE, device=self.dev),
+        }
+        for label, fn in runs.items():
+            before = dict(_build.launch_counts)
+            with self.held_kernels() as (tally, covered):
+                out = fn()
+            launched = {k: v - before[k]
+                        for k, v in _build.launch_counts.items()}
+            check(covered == launched and tally,
+                  f"{label}: every launch made within a call held to its "
+                  f"plain version (" + ", ".join(
+                      f"{k}: {n} calls, largest difference {err}"
+                      for k, (n, err) in tally.items()) + "; launches "
+                  + ", ".join(f"{k} {n}" for k, n in launched.items()
+                              if n and ":" not in k) + ")")
+            for k, (_, err) in tally.items():
+                r = self.results[k]
+                r["max_abs_err"] = max(r["max_abs_err"], err)
+            if "int8" in label:
+                got = out[2].tolist()
+                check(got == QUICKSTART_GOLDEN["int8"],
+                      f"{label}: per-replica energies {got} == the JAX "
+                      f"reference's")
+            if "bit-plane" in label:
+                best, flips = float(out[2].min()), out[1].flips
+                check(best == QUICKSTART_GOLDEN["bitplane_best"]
+                      and flips == QUICKSTART_GOLDEN["bitplane_flips"],
+                      f"{label}: best E {best}, {flips:,} lane-flips == "
+                      f"the JAX reference's")
+
+    @contextlib.contextmanager
+    def held_kernels(self):
+        """Within the scope every launch of a lattice kernel or the
+        gather-count first runs its plain version on the same inputs and
+        is held to it: the f32 sweep's LFSR states bitwise and its spins
+        bitwise or, where they differ, phase by phase within TANH_ULPS ulp
+        of the boundary (``f32_steps``); every other kernel bitwise.
+        Yields ({kernel: [calls held, largest difference]}, the launch
+        counters' increments made within the held calls, comparisons
+        included)."""
+        from repro_torch.kernels import (_build, bitplane_gather,
+                                         lattice_energy, pbit_bitplane,
+                                         pbit_lattice, ref)
+        tally, busy, saved = {}, [], []
+        covered = dict.fromkeys(_build.launch_counts, 0)
+
+        def hold(mod, attr, key, plain):
+            kernel = getattr(mod, attr)
+
+            def held(*args, **kw):
+                if busy:             # f32_steps' own launches
+                    return kernel(*args, **kw)
+                b0 = dict(_build.launch_counts)
+                want = plain(*args, **kw)
+                got = kernel(*args, **kw)
+                seq = isinstance(got, (tuple, list))
+                pair = list(zip(got, want)) if seq else [(got, want)]
+                if seq and len(got) != len(want):
+                    raise CheckFailed(f"{attr}: {len(got)} outputs, its "
+                                      f"plain version {len(want)}")
+                t = tally.setdefault(key, [0, 0.0])
+                what = f"{attr} launch {t[0]}"
+                busy.append(1)
+                try:
+                    if attr == "pbit_brick_sweep":
+                        if not self.same(got[1], want[1]):
+                            raise CheckFailed(f"{what}: LFSR states differ")
+                        if not all(self.same(g, w) for g, w in pair):
+                            self.f32_steps(what, args, kw.get("fmt"), got)
+                    elif not all(self.same(g, w) for g, w in pair):
+                        raise CheckFailed(f"{what} differs from its plain "
+                                          f"version")
+                finally:
+                    busy.pop()
+                for k, v in _build.launch_counts.items():
+                    covered[k] += v - b0[k]
+                t[0] += 1
+                t[1] = max([t[1]] + [self.max_abs(g, w) for g, w in pair])
+                return got
+
+            saved.append((mod, attr, kernel))
+            setattr(mod, attr, held)
+
+        hold(pbit_lattice, "pbit_brick_sweep", "pbit_brick_sweep",
+             lambda *a, fmt=None: ref.pbit_brick_sweep_ref(*a, fmt))
+        hold(pbit_lattice, "pbit_brick_sweep_int", "pbit_brick_sweep_int",
+             ref.pbit_brick_sweep_int_ref)
+        hold(pbit_bitplane, "pbit_bitplane_sweep", "pbit_bitplane_sweep",
+             ref.pbit_bitplane_sweep_ref)
+        hold(lattice_energy, "brick_energy", "brick_energy",
+             lambda *a, bx=None: ref.brick_energy_ref(*a))
+        hold(lattice_energy, "brick_energy_words", "brick_energy",
+             lambda *a, bx=None: ref.brick_energy_words_ref(*a))
+        hold(bitplane_gather, "bitplane_gather_count",
+             "bitplane_gather_count", ref.bitplane_gather_count_ref)
+        try:
+            yield tally, covered
+        finally:
+            for mod, attr, kernel in saved:
+                setattr(mod, attr, kernel)
+
+    def check_quickstart(self, out, res, sec) -> str:
+        lines = out.splitlines()
+
+        def line(prefix):
+            hit = [x for x in lines if x.startswith(prefix)]
+            check(len(hit) == 1, f"quickstart prints one {prefix!r} line")
+            return hit[0]
+
+        int8 = re.search(r"per-replica \[([^\]]*)\]",
+                         line("lattice x4 replicas (int8 pipeline"))
+        got = [float(v) for v in int8.group(1).split()]
+        check(got == QUICKSTART_GOLDEN["int8"],
+              f"quickstart int8 per-replica energies {got} == the JAX "
+              f"reference's {QUICKSTART_GOLDEN['int8']}")
+        bp = re.search(r"best E =\s*(-?[\d.]+) \(([\d,]+) lane-flips\)",
+                       line("lattice x32 lanes (bit-plane words"))
+        best, flips = float(bp.group(1)), int(bp.group(2).replace(",", ""))
+        check(best == QUICKSTART_GOLDEN["bitplane_best"]
+              and flips == QUICKSTART_GOLDEN["bitplane_flips"],
+              f"quickstart bit-plane best E {best}, {flips:,} lane-flips == "
+              f"the JAX reference's {QUICKSTART_GOLDEN['bitplane_best']}, "
+              f"{QUICKSTART_GOLDEN['bitplane_flips']:,}")
+        f32 = re.search(r"per-replica \[([^\]]*)\]",
+                        line("lattice x4 replicas (fused kernel)"))
+        print(f"  f32 lattice per-replica energies (not gated: f32 holds "
+              f"to tanh ties; its kernel launches are held to the plain "
+              f"version by hold_examples) [{f32.group(1)}]")
+        check("coloring: 2 colors" in out
+              and "C_max = 6.2, eta threshold = 2*N_color*C_max = 25" in out,
+              "quickstart: 2 colours, C_max 6.2, eta threshold 25")
+        want = ("pbit_brick_sweep_int", "pbit_bitplane_sweep",
+                "pbit_brick_sweep", "brick_energy", "bitplane_gather_count")
+        got = self.example_launches["quickstart"]
+        check(all(got[k] > 0 for k in want),
+              "quickstart launched #1, #2, #3, #4 and the gather-count: "
+              + ", ".join(f"{k} {got[k]}" for k in want))
+        return (f"  example quickstart: {sec:.1f} s; int8 lattice "
+                f"{res['int8']['updates_per_s']:.4e} p-bit updates/s, "
+                f"bit-plane {res['bitplane']['lane_updates_per_s']:.4e} "
+                f"lane updates/s")
+
+    def check_sat3_invertible(self, out, res, sec) -> str:
+        m = re.search(r"^best: (\d+)/(\d+) ", out, re.M)
+        best, m_cl = int(m.group(1)), int(m.group(2))
+        check(best >= 0.9 * m_cl,
+              f"sat3: best {best}/{m_cl} satisfied >= 90%")
+        return (f"  example sat3_invertible: {sec:.1f} s; "
+                f"{res['updates_per_s']:.4e} p-bit updates/s (DSIM, S=4)")
+
+    def check_maxcut_gset(self, out, res, sec) -> str:
+        cuts = re.findall(r"^trial \d+: cut = (\d+) ", out, re.M)
+        check(len(cuts) == 5, f"maxcut: a cut for each of 5 trials {cuts}")
+        lines = out.splitlines()
+        at = lines.index("verification hex (paper S9 format):")
+        check(re.fullmatch(r"[0-9A-F]+\.\.\.", lines[at + 1]) is not None,
+              f"maxcut: the hex line {lines[at + 1][:40]}")
+        return (f"  example maxcut_gset: {sec:.1f} s; "
+                f"{res['updates_per_s']:.4e} p-bit updates/s (APT+ICM)")
+
+    def check_eta_sweep(self, out, res, sec) -> str:
+        mono = re.findall(r"^\s+mono\s+(\S+)", out, re.M)
+        rows = re.findall(r"^\s*(\d+)\s+(\S+)\s+(\S+)$", out, re.M)
+        vals = [float(mono[0])] + [float(v) for r in rows for v in r[1:]] \
+            if mono else []
+        check(len(mono) == 1 and [int(r[0]) for r in rows] == [1, 8, 64, 256]
+              and all(math.isfinite(v) for v in vals),
+              "eta_sweep: the mono row and the S = 1, 8, 64, 256 rows, "
+              "every kappa finite")
+        kd = {int(r[0]): float(r[1]) for r in rows}
+        print("  eta_sweep kappa_DSIM (not gated; statistical): " + ", ".join(
+            f"S={s} {kd[s]:.3f} (reference on the CPU {k:.3f})"
+            for s, k in ETA_REFERENCE_KAPPA.items()))
+        return (f"  example eta_sweep: {sec:.1f} s; "
+                f"{res['updates_per_s']:.4e} p-bit updates/s (DSIM/CMFT)")
+
+    def check_serve_sampling(self, out, res, sec) -> str:
+        verdicts = re.findall(r"bitwise == uninterrupted run: (\w+)", out)
+        check(verdicts == ["True", "True"] and res["recovered_bitwise"],
+              "serve_sampling: both recovered jobs bitwise-identical to "
+              "their uninterrupted runs")
+        return (f"  example serve_sampling: {sec:.1f} s; "
+                f"{res['jobs_per_s']:.4f} jobs/s (the burst of "
+                f"{res['burst_jobs']})")
+
+    def check_serve_dashboard(self, out, res, sec) -> str:
+        m = re.search(r"(\d+) detection\(s\), (\d+)/(\d+) held", out)
+        check(m is not None and int(m.group(1)) >= 1
+              and int(m.group(2)) >= 1,
+              f"serve_dashboard: the degraded job "
+              f"{m.group(0) if m else 'missing'}")
+        head = out.split("-- Prometheus exposition (head) --", 1)
+        check(len(head) == 2 and head[1].strip() != "",
+              "serve_dashboard: the Prometheus head is not empty")
+        n = self.example_launches["serve_dashboard"]["bitplane_gather_count"]
+        check(n > 0, f"serve_dashboard's eta probe launched the "
+                     f"gather-count {n} times")
+        return (f"  example serve_dashboard: {sec:.1f} s; "
+                f"{res['jobs_per_s']:.4f} done-jobs/s, measured eta "
+                f"{res['eta']['measured_eta']:.4f}")
 
     def bound(self, byts, int_ops, f32_ops):
         """(what bounds it, bound ms, {bytes, int32, fp32: ms}): the

@@ -9,6 +9,7 @@ paths a staircase becomes int32 row indices into the threshold LUT.
 from __future__ import annotations
 
 import numpy as np
+import torch
 
 __all__ = ["Schedule", "ArraySchedule", "ea_schedule", "sat_schedule",
            "geometric_schedule", "constant_schedule", "replica_beta_arrays",
@@ -27,12 +28,23 @@ class Schedule:
         # stage s covers sweeps [bounds[s], bounds[s+1])
         self.bounds = np.linspace(0, total_sweeps, len(betas) + 1).astype(np.int64)
 
+    def beta_at(self, sweep) -> torch.Tensor:
+        """f32 beta at a sweep index (an int or an integer tensor of any
+        shape), on the sweep tensor's device or on the CPU."""
+        sweep = torch.as_tensor(sweep)
+        b = torch.as_tensor(self.bounds[1:-1], device=sweep.device)
+        stage = torch.searchsorted(b, sweep.to(b.dtype), right=True)
+        return torch.as_tensor(self.betas, device=sweep.device)[stage]
+
     def beta_array(self) -> np.ndarray:
         """Dense (total_sweeps,) beta staircase."""
         out = np.empty(self.total_sweeps, dtype=np.float32)
         for s, beta in enumerate(self.betas):
             out[self.bounds[s]:self.bounds[s + 1]] = beta
         return out
+
+    def rescale(self, total_sweeps: int) -> "Schedule":
+        return Schedule(self.betas, total_sweeps)
 
 
 class ArraySchedule:

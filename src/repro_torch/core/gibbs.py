@@ -37,10 +37,12 @@ from .graph import IsingGraph
 from .pbit import (FixedPoint, flips_publish, lfsr_init, lfsr_next,
                    lfsr_uniform, pbit_update, philox_init, philox_load,
                    philox_save, philox_uniform)
-from repro_torch.engines.base import (RecordedCursor, run_recorded_driver,
-                                      spawn_seeds, stack_states)
+from repro_torch.engines.base import (RecordedCursor, chunk_plan,
+                                      run_recorded_driver, spawn_seeds,
+                                      stack_states)
 
-__all__ = ["GibbsEngine", "GibbsState", "color_fields", "init_spins"]
+__all__ = ["GibbsEngine", "GibbsState", "chunk_plan", "color_fields",
+           "init_spins"]
 
 
 @dataclasses.dataclass
@@ -242,6 +244,8 @@ class GibbsEngine:
         """The energy of the spins, computed afresh (not the tracked E; the
         reference's ``direct_energy``)."""
         return direct_energy(self.g, state.m)
+
+    direct_energy = energy   # the reference's name
 
     def global_spins(self, state: GibbsState) -> torch.Tensor:
         return state.m

@@ -656,6 +656,12 @@ class LatticeDSIM:
             return RecordedCursor(**kw)
         return run_recorded_driver(**kw)
 
+    def run_recorded(self, state, schedule, record_points: Sequence[int],
+                     sync_every: int = 1):
+        """Run to each record point; returns (state, RunRecord)."""
+        return self.run_recorded_full(state, schedule, record_points,
+                                      sync_every=sync_every)
+
     # -- observables -----------------------------------------------------------
 
     def energy(self, state) -> torch.Tensor:

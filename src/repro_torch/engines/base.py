@@ -18,13 +18,13 @@ from typing import (Any, Callable, List, Optional, Protocol, Sequence, Union,
 import numpy as np
 import torch
 
-from repro_torch.core.packing import LANE_WIDTH, MAX_LANE_WORDS
+from repro_torch.core.packing import LANE_WIDTH, MAX_LANE_WORDS, lane_words
 
 __all__ = ["Engine", "RunRecord", "SyncSpec", "chunk_plan",
            "run_recorded_driver", "RecordedCursor", "spawn_seeds",
            "stack_states", "flips_chunk_cap", "quantize_record_points",
-           "PRECISIONS", "ENGINE_PRECISIONS", "lanes_of", "check_precision",
-           "check_lanes"]
+           "PRECISIONS", "ENGINE_PRECISIONS", "lanes_of", "lane_words",
+           "check_precision", "check_lanes"]
 
 SyncSpec = Union[int, str, None]
 
@@ -61,7 +61,7 @@ def check_lanes(precision: str, replicas: int,
             f"precision='bitplane' packs {what} into the bit lanes of up "
             f"to {int(max_words)} stacked uint32 word planes; {what} must "
             f"be in [1, {cap}], got {r}")
-    return (r + LANE_WIDTH - 1) // LANE_WIDTH
+    return lane_words(r)
 
 
 def check_precision(engine: str, precision: str):

@@ -400,3 +400,268 @@ def test_make_engine_defaults_and_exchange_probe():
     assert h.eng.boundary_exchange_fn() is not fn
     assert h.global_spins(st).shape == (2, 48)
     assert torch.equal(h.energy(st), h.eng.energy(st))
+
+
+# -- tests/test_dist_bitplane.py's single-process cases -----------------------
+# The reference runs them on a K=1 mesh; the port holds the one partition
+# in this process.  Its lowered-HLO case (the word-native collective) is
+# JAX-only.  Where a case compares numbers, the reference's K=1 engine
+# from the port's initial state is held to the port too.
+
+def _k1(L=4, seed=7):
+    g = t_graph.ea3d(L, seed=seed, **CPU)
+    col = lattice3d_coloring(L)
+    prob = build_partitioned(g, col, np.zeros(g.n, np.int32), 1)
+    return g, prob
+
+
+def _ref_k1(port_engine, port_state, L=4, seed=7, **kw):
+    """The reference's K=1 DistDSIMEngine and its state from the port's."""
+    import dataclasses
+    import jax.numpy as jnp
+    from repro.compat import auto_axes, make_mesh as j_mesh
+    from repro.core.coloring import lattice3d_coloring as j_col
+    from repro.core.dsim import build_partitioned as j_build
+    from repro.core.dsim_dist import DistDSIMEngine as JDist
+    from repro.core.graph import ea3d as j_ea3d
+    g = j_ea3d(L, seed=seed)
+    e = JDist(j_build(g, j_col(L), np.zeros(g.n, np.int32), 1),
+              j_mesh((1,), ("data",), axis_types=auto_axes(1)), **kw)
+    st = dataclasses.replace(e.init_state(seed=0), **{
+        k: jnp.asarray(v) for k, v in state_to_numpy(port_state).items()})
+    return e, e.shard_state(st)
+
+
+def test_dist_precision_guards():
+    g, prob = _k1()
+    with pytest.raises(ValueError, match="rng='lfsr'"):
+        DistDSIMEngine(prob, rng="philox", precision="int8", **CPU)
+    with pytest.raises(ValueError, match="rng='lfsr'"):
+        DistDSIMEngine(prob, rng="lfsr", mode="cmft", precision="bitplane",
+                       **CPU)
+    with pytest.raises(ValueError, match="256"):
+        DistDSIMEngine(prob, rng="lfsr", precision="bitplane", replicas=257,
+                       **CPU)
+    # word-straddling replica counts are legal (multi-word lane fabric)
+    assert DistDSIMEngine(prob, rng="lfsr", precision="bitplane",
+                          replicas=33, **CPU).words == 2
+    with pytest.raises(ValueError, match="unknown precision"):
+        DistDSIMEngine(prob, precision="fp4", **CPU)
+
+
+def test_registry_dist_precisions():
+    g, prob = _k1()
+    h = t_make("dsim_dist", prob, rng="lfsr", precision="bitplane",
+               replicas=4, **CPU)
+    assert h.precision == "bitplane"
+    with pytest.raises(ValueError, match="bit lanes"):
+        t_make("dsim_dist", prob, rng="lfsr", precision="bitplane",
+               replicas=300, **CPU)
+    with pytest.raises(ValueError, match="not supported"):
+        t_make("gibbs", t_graph.ea3d(4, seed=0, **CPU), precision="bitplane",
+               **CPU)
+
+
+def test_dist_int8_matches_stacked_int8():
+    g, prob = _k1()
+    sch = ea_schedule(96)
+    R = 3
+    s = DSIMEngine(prob, rng="lfsr", precision="int8", **CPU)
+    ss = s.init_state(seed=3, replicas=R)
+    ss, (_, Es) = s.run_recorded(ss, sch, [32, 96], sync_every=4)
+    d = DistDSIMEngine(prob, rng="lfsr", precision="int8", replicas=R, **CPU)
+    sd0 = d.init_state(seed=3)
+    sd, (_, Ed) = d.run_recorded(sd0, sch, [32, 96], sync_every=4)
+    assert torch.equal(s.global_spins(ss), d.global_spins(sd))
+    np.testing.assert_array_equal(Es.numpy(), Ed.numpy())
+    from repro.core.annealing import ea_schedule as j_ea
+    je, js = _ref_k1(d, sd0, rng="lfsr", precision="int8", replicas=R)
+    js, (_, jE) = je.run_recorded(js, j_ea(96), [32, 96], sync_every=4)
+    np.testing.assert_array_equal(np.asarray(jE), Ed.numpy())
+    np.testing.assert_array_equal(np.asarray(je.global_spins(js)),
+                                  d.global_spins(sd).numpy())
+
+
+@pytest.mark.parametrize("R", [1, 5, 32, 40])
+def test_dist_bitplane_lanes_match_int8_replicas(R):
+    g, prob = _k1()
+    sch = ea_schedule(64)
+    outs = {}
+    for prec in ("int8", "bitplane"):
+        e = DistDSIMEngine(prob, rng="lfsr", precision=prec, replicas=R,
+                           **CPU)
+        st0 = e.init_state(seed=11)
+        st, rec = e.run_recorded_full(st0, sch, [64], sync_every=4)
+        outs[prec] = (e.global_spins(st).numpy(), rec.energies.numpy(),
+                      rec.flips)
+    m8, E8, f8 = outs["int8"]
+    mw, Ew, fw = outs["bitplane"]
+    assert (m8 == mw).all()
+    np.testing.assert_array_equal(E8, Ew)
+    assert f8 == fw
+    # the reference's bit-plane engine from the port's words
+    from repro.core.annealing import ea_schedule as j_ea
+    je, js = _ref_k1(e, st0, rng="lfsr", precision="bitplane", replicas=R)
+    js, jrec = je.run_recorded_full(js, j_ea(64), [64], sync_every=4)
+    np.testing.assert_array_equal(np.asarray(jrec.energies), Ew)
+    assert jrec.flips == fw
+
+
+def test_dist_bitplane_lane_prefix_stability():
+    """Lane r depends on spawn_seeds(seed)[r] alone: growing the lane batch
+    never reshuffles existing chains (what lets the serving scheduler pad
+    every dist bit-plane job up to one word width)."""
+    g, prob = _k1()
+    sch = ea_schedule(48)
+    spins = {}
+    for R in (4, 8):
+        e = DistDSIMEngine(prob, rng="lfsr", precision="bitplane",
+                           replicas=R, **CPU)
+        st = e.init_state(seed=5)
+        st, _ = e.run_recorded(st, sch, [48], sync_every=4)
+        spins[R] = e.global_spins(st).numpy()
+    assert (spins[4] == spins[8][:4]).all()
+
+
+def test_dist_flip_odometer_exact_across_int32_wrap():
+    """Seeded just below 2^31, the counter crosses the int32 sign boundary
+    inside one chunk, and the driver's exact host-side total must not care
+    (uint32 modular accumulation + mod-2^32 odometer read)."""
+    import dataclasses
+    g, prob = _k1()
+    sch = ea_schedule(64)
+    R = 2
+    e = DistDSIMEngine(prob, rng="lfsr", precision="int8", replicas=R, **CPU)
+    st0 = e.init_state(seed=1)
+    _, ref = e.run_recorded_full(st0, sch, [64], sync_every=4)
+    st = e.init_state(seed=1)
+    near = torch.full((R,), (1 << 31) - 7, dtype=torch.int32)
+    st = e.shard_state(dataclasses.replace(st, flips=near))
+    st, rec = e.run_recorded_full(st, sch, [64], sync_every=4)
+    # same chains, same flips — the exact total ignores the counter origin
+    assert rec.flips == ref.flips
+    assert ref.flips > 0
+
+
+def test_dist_boundary_payload_accounting():
+    g, prob = _k1()
+
+    def payload(**kw):
+        return DistDSIMEngine(prob, rng="lfsr", **kw,
+                              **CPU).boundary_payload()
+    bp = payload(precision="bitplane", replicas=32)
+    assert bp["dtype"] == "uint32"
+    assert bp["bytes_per_site_all_chains"] == 4.0
+    assert bp["pack_compute"] == "none"
+    # multi-word: 4 B/site per word plane, W planes on the wire
+    bp2 = payload(precision="bitplane", replicas=40)
+    assert bp2["word_planes"] == 2
+    assert bp2["bytes_per_site_per_word"] == 4.0
+    assert bp2["bytes_per_site_all_chains"] == 8.0
+    assert bp2["bytes"] == 2 * bp["bytes"]
+    i8 = payload(precision="int8", replicas=32)
+    assert i8["bytes_per_site_all_chains"] == 32.0
+    assert i8["bytes_per_site_all_chains"] / \
+        bp["bytes_per_site_all_chains"] == 8.0
+    f32 = payload(replicas=32)
+    assert f32["dtype"] == "uint8-bitmap"
+    assert "pack" in f32["pack_compute"]
+
+
+def test_dist_bitplane_snapshot_restore_roundtrip():
+    from repro_torch.core.snapshot import restore_state, snapshot_state
+    g, prob = _k1()
+    e = DistDSIMEngine(prob, rng="lfsr", precision="bitplane", replicas=4,
+                       **CPU)
+    sch = ea_schedule(32)
+    st, _ = e.run_recorded(e.init_state(seed=2), sch, [16], sync_every=4)
+    snap = snapshot_state(st)
+    st2 = e.shard_state(restore_state(snap, "cpu"))
+    a, _ = e.run_recorded(st, sch, [16], sync_every=4)
+    b, _ = e.run_recorded(st2, sch, [16], sync_every=4)
+    assert torch.equal(e.global_spins(a), e.global_spins(b))
+
+
+def test_server_dist_bitplane_job_and_register_time_prewarm():
+    """Graph-registered problems carry array kwargs (labels); the pool key
+    hashes them by content.  With ``prewarm_bitplane=True`` the one R=32
+    word engine is built at register time, so the first bit-plane tenant
+    is not a cold start, and its lanes are its own chains (prefix-stable
+    padding to the word)."""
+    from repro_torch.serve.server import SampleServer
+    g = t_graph.ea3d(4, seed=0, **CPU)
+    srv = SampleServer(pack=True, warm_compile=False, **CPU)
+    srv.register_problem("g4", graph=g, coloring=lattice3d_coloring(4),
+                         K=1, labels=np.zeros(g.n, np.int32), rng="lfsr",
+                         prewarm_bitplane=True)
+    assert len(srv.prewarm_threads) == 1
+    srv.prewarm_threads[0].join(timeout=400)
+    assert not srv.prewarm_threads[0].is_alive()
+    j = srv.submit("g4", engine="dsim_dist", precision="bitplane",
+                   replicas=8, sweeps=16, sync_every=4, seed=2)
+    r = srv.result(j)
+    assert r["status"] == "done"
+    assert r["cold_start"] is False          # register-time prewarm hit
+    assert r["energies"].shape[1] == 8       # own lanes only, pad dropped
+    # the engine ran at the full word width (one engine for all packs)
+    e = t_make("dsim_dist", g, coloring=lattice3d_coloring(4), K=1,
+               labels=np.zeros(g.n, np.int32), rng="lfsr",
+               precision="bitplane", replicas=8, **CPU)
+    st = e.init_state(seed=2)
+    st, rec = e.run_recorded(st, ea_schedule(16), [16], sync_every=4)
+    np.testing.assert_array_equal(rec.energies[-1].numpy(),
+                                  r["energies"][-1])
+    # the f32 dist path serves through the same pool key
+    j2 = srv.submit("g4", engine="dsim_dist", sweeps=16, sync_every=4,
+                    seed=3)
+    assert srv.result(j2)["status"] == "done"
+
+
+# The reference's three 2-device cases run in one process here: K=2
+# partitions of ea3d(4) cut into two slabs, on the port's default mesh.
+
+@pytest.mark.parametrize("R,sweeps,points,syncs", [
+    (32, 96, [32, 96], (1, 4, "phase")),
+    (40, 48, [24, 48], (1, "phase"))], ids=["R32", "R40"])
+def test_k2_word_boundaries_bit_equal_to_int8_across_sync(R, sweeps, points,
+                                                          syncs):
+    """The native-word boundary exchange (W word planes per boundary
+    site) reproduces the unpacked int8 dist path bit for bit on every
+    lane, for every exchange cadence."""
+    L = 4
+    g = t_graph.ea3d(L, seed=7, **CPU)
+    prob = build_partitioned(g, lattice3d_coloring(L), slab_partition(L, 2),
+                             2)
+    for sync in syncs:
+        outs = {}
+        for prec in ("int8", "bitplane"):
+            e = DistDSIMEngine(prob, rng="lfsr", precision=prec,
+                               replicas=R, **CPU)
+            st, rec = e.run_recorded_full(e.init_state(seed=3),
+                                          ea_schedule(sweeps), points,
+                                          sync_every=sync)
+            outs[prec] = (e.global_spins(st).numpy(), rec.energies.numpy(),
+                          rec.flips)
+        (m8, E8, f8), (mw, Ew, fw) = outs["int8"], outs["bitplane"]
+        assert (m8 == mw).all(), sync
+        np.testing.assert_array_equal(E8, Ew)
+        assert f8 == fw
+
+
+def test_k2_cmft_phase_publishes_instantaneous_boundaries():
+    """cmft with sync_every='phase' publishes the instantaneous states
+    (the stacked engine's semantics): no all-zero ghost payload after
+    init."""
+    L = 4
+    g = t_graph.ea3d(L, seed=5, **CPU)
+    prob = build_partitioned(g, lattice3d_coloring(L), slab_partition(L, 2),
+                             2)
+    sch = ea_schedule(64)
+    d = DistDSIMEngine(prob, rng="lfsr", mode="cmft", **CPU)
+    sd, _ = d.run_recorded(d.init_state(seed=3), sch, [64],
+                           sync_every="phase")
+    s = DSIMEngine(prob, rng="lfsr", mode="cmft", **CPU)
+    ss, _ = s.run_recorded(s.init_state(seed=3), sch, [64],
+                           sync_every="phase")
+    assert torch.equal(d.global_spins(sd), s.global_spins(ss))
+    assert bool((sd.ghosts.abs() == 1.0).all())

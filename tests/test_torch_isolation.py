@@ -12,16 +12,21 @@ import subprocess
 import sys
 from pathlib import Path
 
+import pytest
+
 ROOT = Path(__file__).resolve().parents[1]
 SRC = ROOT / "src"
 PORT = SRC / "repro_torch"
+EXAMPLES = sorted((ROOT / "examples").glob("torch_*.py"))
 
 
-def run_python(code: str, cwd=ROOT, hide_cuda=True):
+def run_python(code: str, cwd=ROOT, hide_cuda=True, argv=None):
     env = dict(os.environ, PYTHONPATH=str(SRC))
     if hide_cuda:
         env["CUDA_VISIBLE_DEVICES"] = ""
-    return subprocess.run([sys.executable, "-c", code], cwd=cwd, env=env,
+    cmd = [sys.executable, "-c", code] if argv is None \
+        else [sys.executable, *argv]
+    return subprocess.run(cmd, cwd=cwd, env=env,
                           capture_output=True, text=True, timeout=120)
 
 
@@ -61,8 +66,8 @@ def imported_roots(path: Path):
 
 def test_no_source_of_the_port_imports_jax_or_the_reference():
     # the card's tests run where only PyTorch is installed
-    files = sorted(PORT.rglob("*.py")) + [ROOT / "chip_smoke.py",
-                                          ROOT / "tests" / "test_torch_cuda.py"]
+    files = sorted(PORT.rglob("*.py")) + EXAMPLES + [
+        ROOT / "chip_smoke.py", ROOT / "tests" / "test_torch_cuda.py"]
     found = [(str(p.relative_to(ROOT)), line, root)
              for p in files for line, root in imported_roots(p)
              if root in ("jax", "jaxlib", "repro")]
@@ -104,3 +109,47 @@ def test_chip_smoke_fails_without_cuda_or_outside_the_repo(tmp_path):
     shutil.copy(ROOT / "chip_smoke.py", tmp_path / "chip_smoke.py")
     out = run_python(code, cwd=tmp_path, hide_cuda=False)
     assert out.returncode != 0 and '"ok"' not in out.stdout
+
+
+def test_the_port_has_six_examples():
+    assert [p.name for p in EXAMPLES] == [
+        "torch_eta_sweep.py", "torch_maxcut_gset.py", "torch_quickstart.py",
+        "torch_sat3_invertible.py", "torch_serve_dashboard.py",
+        "torch_serve_sampling.py"]
+
+
+@pytest.mark.parametrize("path", EXAMPLES, ids=lambda p: p.stem)
+def test_example_imports_no_jax(path):
+    code = (
+        "import runpy, sys\n"
+        f"runpy.run_path({str(path)!r}, run_name='not_main')\n"
+        "import repro_torch.obs.probe\n"
+        "bad = sorted(m for m in sys.modules if m == 'jax' or "
+        "m.startswith('jax.') or m == 'repro' or m.startswith('repro.'))\n"
+        "print('LOADED', bad)\n")
+    out = run_python(code)
+    assert out.returncode == 0, out.stderr
+    assert "LOADED []" in out.stdout
+
+
+@pytest.mark.parametrize("path", EXAMPLES, ids=lambda p: p.stem)
+def test_example_raises_without_cuda(path):
+    # no --device: the example asks for the card and must not run on
+    # the CPU
+    out = run_python("", argv=[str(path)])
+    assert out.returncode != 0
+    assert "RuntimeError" in out.stderr and "CUDA" in out.stderr, out.stderr
+    assert out.stdout == ""
+
+
+def test_eta_probe_raises_without_cuda():
+    code = (
+        "from repro_torch.obs import eta_probe\n"
+        "try:\n"
+        "    eta_probe(L=3, sweeps=8)\n"
+        "except RuntimeError as e:\n"
+        "    assert 'CUDA' in str(e), e\n"
+        "    print('RAISED')\n")
+    out = run_python(code)
+    assert out.returncode == 0, out.stderr
+    assert "RAISED" in out.stdout
