@@ -61,8 +61,9 @@ Phases; every check raises on failure and the script then exits non-zero:
    graph (and Max-Cut on a G81-size torus): the JAX reference's golden
    values (dsim int8 on the (2,2,2) brick partition bitwise with its
    spin and LFSR digests, gibbs f32 within 0.5% with its LFSR digest),
-   every configuration against the same engine on the CPU over 16
-   sweeps (int8 bitwise; f32 with each colour phase held to the CPU's:
+   every configuration against the same engine on the CPU over its first
+   8 sweeps (``TWIN_SWEEPS``; int8 bitwise; f32 with each colour phase
+   held to the CPU's:
    LFSR states bitwise, a differing spin only within 8 ulp of its
    boundary; philox within 0.5% and repeatable on the card), then timed
    (two runs each; none of the six kernels may launch: these engines are
@@ -76,7 +77,7 @@ Phases; every check raises on failure and the script then exits non-zero:
    JAX reference's golden values (int8 R=2 and bit-plane R=32 lanes 0-1
    reproduce ``DSIM_GOLDEN``, f32 R=2 ``DIST_GOLDEN`` within 0.5% with its
    LFSR digest), every ``DIST_RUNS`` configuration against its
-   ``device="cpu"`` twin over 16 sweeps (int8 and bit-plane bitwise, f32
+   ``device="cpu"`` twin over 8 sweeps (int8 and bit-plane bitwise, f32
    phase by phase as in phase 6), then timed (two runs each; the
    bit-plane run launches the gather-count once per colour phase, no run
    launches a lattice kernel), the exchange's time per call and the
@@ -137,7 +138,23 @@ Phases; every check raises on failure and the script then exits non-zero:
    lattice runs and packed APT+ICM and the dashboard's eta probe again
    at the examples' defaults, with every kernel launch held to its plain
    version on the same inputs (f32 as in phase 2, the rest bitwise);
-12. print one JSON line of kernels (``launches`` over the main and mesh
+12. LM serving through ``repro_torch.configs.get_config``,
+   ``repro_torch.models.lm.build_model`` and
+   ``repro_torch.serve.serve_step``: (a) six reduced configs
+   (``LM_GOLDEN_ARCHS``, f32) from ``init(LM_SEED)``, their greedy tokens
+   equal to the JAX reference's and their prefill logits within 1e-4 of
+   their largest magnitude (``LM_GOLDEN``, recomputed by
+   ``tests/test_torch_golden.py``), and the same runs on the CPU equal;
+   (b) h2o-danube-1.8b at its published widths and depth in f32: decode
+   == forward and the rolling ring at its full 4,096-token window within
+   the reference's bound; (c) the same weights in bf16 serving 4 requests
+   of 512 prompt tokens, 64 new tokens each: prefill and decode timed
+   against the decode step's byte floor, peak memory, one profiled run;
+   (d) mamba2-370m at full width: f32 decode == forward and the SSD's
+   chunk invariance, then bf16 serving as (c); (e)
+   ``examples/torch_serve_lm.py`` at its defaults in a subprocess; (f)
+   none of the hand kernels launched in the phase;
+13. print one JSON line of kernels (``launches`` over the main and mesh
    paths, the bit-plane dist run's and the packed APT run's for the
    gather-count, and the examples'; ``mesh_launches`` the mesh path's,
    ``server_launches`` the server path's, ``apt_launches`` the APT
@@ -151,6 +168,7 @@ script stands outside a checkout of the repository.
 from __future__ import annotations
 
 import contextlib
+import dataclasses
 import hashlib
 import importlib.util
 import inspect
@@ -268,6 +286,10 @@ GRAPH_RUNS = {
     "maxcut G81 gibbs R=4": dict(engine="gibbs", replicas=4, graph="g81"),
 }
 GRAPH_PROFILED = ("gibbs f32 R=4", "dsim int8 R=4 K=8")
+# phases 6 and 7 hold each configuration to its device="cpu" twin over
+# the first TWIN_SWEEPS sweeps (cut from 16 to keep the whole script under
+# 900 s with phase 12: the CPU twins at L=100 take most of those phases)
+TWIN_SWEEPS = 8
 G81 = dict(rows=100, cols=200, seed=81)
 # The JAX reference's GibbsEngine (f32) and DSIMEngine (int8, K=8,
 # sync_every=SYNC) at L=100, rng="lfsr", R=2, every replica started from
@@ -332,6 +354,179 @@ QUICKSTART_GOLDEN = {"int8": [-1684.0, -1700.0, -1688.0, -1692.0],
 # the CPU (reported beside the card's, not gated: the ground run draws
 # from philox).
 ETA_REFERENCE_KAPPA = {1: 0.646, 256: 0.900}
+
+
+# Phase 12: LM serving.  (a) LM_GOLDEN: for each LM_GOLDEN_ARCHS config's
+# reduced() variant, the JAX reference's greedy_generate over the
+# lm_prompt batch (max_new LM_MAX_NEW) on the port's init(LM_SEED)
+# weights: its tokens, and its prefill's last-position logits digested by
+# lm_digest.  tests/test_torch_golden.py recomputes these from the JAX
+# package.  (b)-(d) two published configs at full width.
+LM_SEED = 0
+LM_GOLDEN_ARCHS = ("deepseek-7b", "h2o-danube-1.8b", "mamba2-370m",
+                   "jamba-v0.1-52b", "deepseek-moe-16b",
+                   "seamless-m4t-medium")
+LM_PROMPT, LM_MAX_NEW = (2, 16), 8
+LM_LOGIT_TOL = 1e-4          # of the logits' largest magnitude
+LM_GOLDEN = {
+    "deepseek-7b": {
+        "tokens": [
+            [241, 156, 125, 215, 251, 200, 145, 92],
+            [215, 215, 209, 100, 174, 15, 215, 153],
+        ],
+        "logits_at": [
+            [2.832101, 0.983238, -1.237308, 0.3164822, -1.832422, 1.41625,
+             -0.1653998, -0.4155436, -0.04307489, -0.7873837, -1.232342,
+             -1.171476, -0.5340856, 0.06597072, -0.6104801, -1.371543],
+            [-0.5580463, -0.1795695, 0.1499764, 0.1174837, 1.156285,
+             0.7326642, -0.3147198, 0.5453089, -0.7424611, 0.8880565, 2.332816,
+             -0.9137109, 0.7152172, 0.9176957, 1.446579, 0.724735],
+        ],
+        "absmax": [3.186565, 2.745797],
+        "l2": [15.32573, 15.85822],
+    },
+    "h2o-danube-1.8b": {
+        "tokens": [
+            [241, 156, 73, 48, 121, 142, 142, 142],
+            [215, 215, 153, 119, 217, 181, 92, 62],
+        ],
+        "logits_at": [
+            [2.832101, 0.9832386, -1.237307, 0.3164828, -1.832422, 1.416251,
+             -0.165401, -0.4155446, -0.04307546, -0.7873849, -1.232344,
+             -1.171476, -0.5340859, 0.06597076, -0.6104808, -1.371542],
+            [-0.5580463, -0.1795704, 0.1499764, 0.1174835, 1.156285,
+             0.7326646, -0.3147202, 0.5453081, -0.7424612, 0.8880557, 2.332815,
+             -0.9137117, 0.7152173, 0.9176952, 1.446579, 0.7247352],
+        ],
+        "absmax": [3.186565, 2.745797],
+        "l2": [15.32572, 15.85822],
+    },
+    "mamba2-370m": {
+        "tokens": [
+            [1, 178, 42, 93, 110, 132, 211, 200],
+            [61, 175, 199, 133, 35, 188, 214, 201],
+        ],
+        "logits_at": [
+            [-1.157078, -1.374344, 0.01968432, 0.7118489, -0.3728584,
+             -2.632576, -0.9701234, 2.144363, 0.7619892, 0.6763504,
+             -0.07379441, -0.6804114, -0.8036385, -0.6861641, 0.1779088,
+             1.758213],
+            [0.4923631, 0.1522083, 0.2679593, -1.116009, -0.9611572, 1.995158,
+             -0.3367978, 0.8635296, 0.07236376, 0.449971, -0.7294083,
+             -1.007289, -0.3955976, 0.1107077, 0.9095826, -0.4031285],
+        ],
+        "absmax": [2.811734, 2.653112],
+        "l2": [16.1548, 16.2886],
+    },
+    "jamba-v0.1-52b": {
+        "tokens": [
+            [3, 214, 122, 100, 243, 100, 126, 29],
+            [103, 26, 229, 196, 156, 62, 197, 209],
+        ],
+        "logits_at": [
+            [1.733728, -0.9624028, 0.228791, 0.7934014, 0.1333711, -0.5543106,
+             -0.7625684, 2.19372, 0.5918518, -0.3586381, 0.001819758,
+             0.5875515, 1.137355, -0.7377827, -1.626033, 1.346818],
+            [-0.4318311, 0.5361231, 0.6045761, 0.3593118, 0.3808406,
+             0.2082025, -0.06873598, 1.119103, -0.5147385, 0.3915426,
+             -3.468952, -1.019461, -0.2901396, -0.02660241, -0.2323041,
+             0.6840794],
+        ],
+        "absmax": [2.956446, 3.468952],
+        "l2": [15.65629, 16.05048],
+    },
+    "deepseek-moe-16b": {
+        "tokens": [
+            [14, 136, 44, 2, 117, 118, 94, 176],
+            [224, 1, 137, 40, 171, 215, 70, 171],
+        ],
+        "logits_at": [
+            [2.405584, 0.6045603, -2.430984, -1.611446, -1.593751, -0.3183598,
+             0.2479752, -2.469303, 0.544871, -1.407656, -0.1851996, -0.8109486,
+             0.9271124, -1.198428, -0.3686903, 0.7677527],
+            [-0.8460585, -0.3269142, 0.5696063, -0.384426, 1.65034, 0.6195712,
+             0.9904804, 1.159232, -1.688223, 0.9278261, 0.9612809, -0.1548869,
+             -0.3212979, 1.140561, 2.31367, 0.2350108],
+        ],
+        "absmax": [3.520609, 3.022104],
+        "l2": [15.50707, 15.79724],
+    },
+    "seamless-m4t-medium": {
+        "tokens": [
+            [110, 226, 77, 225, 77, 225, 77, 225],
+            [33, 113, 117, 113, 117, 33, 113, 33],
+        ],
+        "logits_at": [
+            [0.7584512, 1.431812, -0.8296189, -0.5032073, 1.399542, 0.3243932,
+             -1.062742, -0.2433267, 0.9681044, 0.1562665, -0.5553572,
+             0.7544894, 0.004042653, 1.393957, 0.5698424, 1.075734],
+            [-0.338294, 0.08561859, -1.097326, 1.085389, -1.159111, -1.774078,
+             -1.523079, 1.002615, 1.266741, 0.3986889, -1.845378, -0.04971166,
+             1.734541, 0.09107825, -0.4051859, 0.9454969],
+        ],
+        "absmax": [3.274681, 2.489507],
+        "l2": [15.95217, 14.97122],
+    },
+}
+# decode == forward and the rolling ring: the reference's bound
+# (tests/test_models.py); SSD chunk invariance: its rtol = atol
+LM_REL_TOL, LM_CHUNK_TOL = 2e-2, 2e-4
+LM_SERVE = dict(batch=4, prompt=512, max_new=64)
+LM_PROFILED_STEPS = 8
+EXAMPLE_SERVE_LM_TIMEOUT = 180
+
+
+def lm_param_count(cfg) -> int:
+    """The parameters of ``cfg``'s model, from its shapes (the tree
+    ``init`` builds; tests/test_torch_models.py holds the two equal on
+    every reduced config)."""
+    d, dh = cfg.d_model, cfg.d_head
+    attn = d * cfg.n_heads * dh * 2 + 2 * d * cfg.n_kv_heads * dh
+    di, n = 2 * d, cfg.ssm_state
+    heads = di // cfg.ssm_headdim
+    mixer = {"attn": attn, "swa": attn, "cross_attn": attn,
+             "mamba": d * (2 * di + 2 * n + heads) + 5 * (di + 2 * n)
+             + 3 * heads + di + di * d}
+    shared = 0
+    if cfg.moe_shared:
+        shared = 3 * d * (cfg.moe_d_ff_shared or
+                          cfg.moe_shared * cfg.moe_d_ff)
+    ffn = {None: 0, "dense": d + 3 * d * cfg.d_ff,
+           "moe": d + d * cfg.moe_experts
+           + 3 * cfg.moe_experts * d * cfg.moe_d_ff + shared}
+    block = lambda b: d + mixer[b.mixer] + ffn[b.ffn]  # noqa: E731
+    head = 2 * cfg.vocab_padded * d + d
+    if cfg.encdec:
+        enc = block(type(cfg.group[0])("attn", "dense"))
+        dec = block(type(cfg.group[0])("attn", None)) + block(
+            type(cfg.group[0])("cross_attn", "dense"))
+        return head + d + cfg.enc_layers * enc + cfg.n_groups * dec
+    return head + sum(block(b) for b in cfg.prelude) + \
+        cfg.n_groups * sum(block(b) for b in cfg.group)
+
+
+def lm_prompt(cfg) -> dict:
+    """Phase 12a's batch (numpy): LM_PROMPT tokens, and frames for an
+    encoder-decoder config."""
+    rng = np.random.default_rng(LM_SEED)
+    b = {"tokens": rng.integers(0, cfg.vocab, LM_PROMPT).astype(np.int32)}
+    if cfg.encdec:
+        b["frames"] = rng.standard_normal(
+            LM_PROMPT + (cfg.d_model,)).astype(np.float32)
+    return b
+
+
+def lm_digest(tokens, logits) -> dict:
+    """(B, max_new) tokens and (B, V) prefill logits -> LM_GOLDEN's entry:
+    the tokens, and each row's logits at 16 evenly spaced vocabulary
+    indices, its largest magnitude and its L2 norm, to 7 digits."""
+    logits = np.asarray(logits, np.float64)
+    rnd = lambda a: [[float(f"{v:.7g}") for v in row] for row in a]  # noqa
+    step = logits.shape[1] // 16
+    return {"tokens": np.asarray(tokens).tolist(),
+            "logits_at": rnd(logits[:, ::step][:, :16]),
+            "absmax": [float(f"{v:.7g}") for v in np.abs(logits).max(1)],
+            "l2": [float(f"{v:.7g}") for v in np.linalg.norm(logits, axis=1)]}
 
 
 def apt_betas() -> np.ndarray:
@@ -556,7 +751,8 @@ class Smoke:
                 (self.phase_timing, (card,)), (self.phase_graph, (card,)),
                 (self.phase_dist, (card,)), (self.phase_degraded, (card,)),
                 (self.phase_server, (card,)), (self.phase_apt, (card,)),
-                (self.phase_audit, (card,)), (self.phase_examples, ())):
+                (self.phase_audit, (card,)), (self.phase_examples, ()),
+                (self.phase_lm, (card,))):
             phase(*args)
             t1 = time.perf_counter()
             laps.append(f"{phase.__name__[6:]} {t1 - t0:.1f}")
@@ -1793,8 +1989,9 @@ class Smoke:
     def phase_graph(self, card: str):
         """The general-graph engines at L=100 through make_engine("gibbs")
         and make_engine("dsim"): the JAX golden values, every GRAPH_RUNS
-        configuration against its device="cpu" twin over the first 16
-        sweeps, then timed over MAIN_SWEEPS with the kernel launch counts
+        configuration against its device="cpu" twin over the first
+        TWIN_SWEEPS sweeps, then timed over MAIN_SWEEPS with the kernel
+        launch counts
         read (these engines are PyTorch operations; they launch none of
         the six kernels), and one profiled run of each engine."""
         t = self.torch
@@ -1931,8 +2128,8 @@ class Smoke:
               f"sha256(LFSR) {s_sha[:16]}")
 
     def graph_vs_cpu(self, label: str, kw):
-        """The first 16 sweeps of a configuration on the card against its
-        device="cpu" twin.  int8: bitwise.  f32 with LFSR: the card's
+        """The first TWIN_SWEEPS sweeps of a configuration on the card
+        against its device="cpu" twin.  int8: bitwise.  f32 with LFSR: the card's
         engine runs with every colour phase held to the twin's phase from
         the same input (LFSR states bitwise, each differing spin within
         TANH_ULPS ulp of its decision boundary, the twin's spins carried
@@ -1945,18 +2142,19 @@ class Smoke:
         if hg.precision == "f32" and hg.eng.rng_kind == "lfsr":
             held = self.hold_phases(hg.eng, hc.eng)
         try:
-            got = self.first16(hg, sync)
+            got = self.first_chunk(hg, sync)
         finally:
             if held is not None:
                 del hg.eng._phase
-        want = self.first16(hc, sync)
+        want = self.first_chunk(hc, sync)
         (a, ea, fa), (b, eb, fb) = got, want
         if hg.eng.rng_kind == "philox":
             rel = float(((ea.cpu() - eb) / eb).abs().max())
-            check(rel < 0.005, f"{label}: 16 sweeps on the card vs the CPU "
+            check(rel < 0.005, f"{label}: {TWIN_SWEEPS} sweeps on the card "
+                  f"vs the CPU "
                   f"(another philox stream): energies within 0.5% "
                   f"({rel:.2e})")
-            again = self.first16(hg, sync)
+            again = self.first_chunk(hg, sync)
             check(self.same(again[1], ea) and self.same(again[0].m, a.m),
                   f"{label}: the card's philox run repeats bitwise")
             return
@@ -1970,18 +2168,21 @@ class Smoke:
             f"bitwise, each of its {held['phases']} phases held to the CPU's "
             f"({held['differ']} decisions differed, all within {TANH_ULPS} "
             f"ulp of the boundary)")
-        check(same, f"{label}: 16 sweeps on the card == device='cpu', "
-              f"{what} (spins, LFSR, flips, energies; E[0]="
+        check(same, f"{label}: {TWIN_SWEEPS} sweeps on the card == "
+              f"device='cpu', {what} (spins, LFSR, flips, energies; E[0]="
               f"{float(ea[0, 0])})")
 
-    def first16(self, hh, sync):
+    def first_chunk(self, hh, sync):
+        """The first TWIN_SWEEPS sweeps of the main schedule (one chunk):
+        (state, energies, flips per replica)."""
         from repro_torch.core.annealing import ea_schedule
         cur = hh.start_recorded(hh.init_state(seed=SEED),
-                                ea_schedule(MAIN_SWEEPS), MAIN_POINTS,
-                                sync_every=sync)
+                                ea_schedule(MAIN_SWEEPS),
+                                [TWIN_SWEEPS] + MAIN_POINTS, sync_every=sync)
         cur.advance(1)
-        check(cur.sweeps_done == 16 and cur.points_recorded == 1,
-              f"{hh.name} on {hh.device}: first chunk is 16 sweeps")
+        check(cur.sweeps_done == TWIN_SWEEPS and cur.points_recorded == 1,
+              f"{hh.name} on {hh.device}: first chunk is {TWIN_SWEEPS} "
+              f"sweeps")
         return cur.state, cur.record().energies, cur.flips_per_replica()
 
     def hold_phases(self, eng, twin) -> dict:
@@ -2109,8 +2310,9 @@ class Smoke:
         """The distributed DSIM at L=100 through make_engine("dsim_dist"),
         all K partitions on the card: the gather-count kernel against its
         plain version, the JAX golden values, every DIST_RUNS
-        configuration against its device="cpu" twin over the first 16
-        sweeps, then timed over MAIN_SWEEPS with the launches counted, the
+        configuration against its device="cpu" twin over the first
+        TWIN_SWEEPS sweeps, then timed over MAIN_SWEEPS with the launches
+        counted, the
         exchange and eta at two cadences, and a profiled bit-plane run."""
         t = self.torch
         from repro_torch.core.annealing import ea_schedule
@@ -2292,8 +2494,8 @@ class Smoke:
                       f"sha256(LFSR) {s_sha[:16]}")
 
     def dist_vs_cpu(self, label: str, kw):
-        """The first 16 sweeps of a DIST_RUNS configuration on the card
-        against its device="cpu" twin: int8 and bit-plane bitwise; f32
+        """The first TWIN_SWEEPS sweeps of a DIST_RUNS configuration on the
+        card against its device="cpu" twin: int8 and bit-plane bitwise; f32
         with every colour phase held to the twin's (hold_phases)."""
         hg, sync = self.dist_engine(kw)
         hc, _ = self.dist_engine(kw, device="cpu")
@@ -2301,11 +2503,11 @@ class Smoke:
         if hg.precision == "f32":
             held = self.hold_phases(hg.eng, hc.eng)
         try:
-            got = self.first16(hg, sync)
+            got = self.first_chunk(hg, sync)
         finally:
             if held is not None:
                 del hg.eng._phase
-        want = self.first16(hc, sync)
+        want = self.first_chunk(hc, sync)
         (a, ea, fa), (b, eb, fb) = got, want
         same = all(self.same(getattr(a, f).cpu(), getattr(b, f)) for f in (
             "m", "ghosts", "macc", "rng", "sweep", "flips")) and \
@@ -2314,8 +2516,9 @@ class Smoke:
             f"bitwise, each of its {held['phases']} phases held to the CPU's "
             f"({held['differ']} decisions differed, all within {TANH_ULPS} "
             f"ulp of the boundary)")
-        check(same, f"{label}: 16 sweeps on the card == device='cpu', "
-              f"{what} (spins, ghosts, LFSR, flips, energies; E[0]="
+        check(same, f"{label}: {TWIN_SWEEPS} sweeps on the card == "
+              f"device='cpu', {what} (spins, ghosts, LFSR, flips, energies; "
+              f"E[0]="
               f"{float(ea[0, 0])})")
 
     def dist_eta(self, card: str):
@@ -3161,11 +3364,13 @@ class Smoke:
               f"({len(failures)} failed to run, {len(bad)} unwaived "
               f"findings; {time.perf_counter() - t0:.1f} s)")
 
-    def run_example(self, name: str, args=()):
+    def run_example(self, name: str, args=(), timeout=None):
         """``examples/torch_<name>.py``'s ``main`` in a process of its own
-        (``example_child``); returns its stdout, its record (result and
-        launch counts) and its seconds.  A timeout or a non-zero exit
-        fails the phase."""
+        (``example_child``) with ``timeout`` seconds (``EXAMPLES[name]``
+        by default); returns its stdout, its record (result and launch
+        counts) and its seconds.  A timeout or a non-zero exit fails the
+        phase."""
+        timeout = timeout or EXAMPLES[name]
         root = Path(__file__).resolve().parent
         env = dict(os.environ)
         env["PYTHONPATH"] = os.pathsep.join(
@@ -3182,10 +3387,10 @@ class Smoke:
                      "chip_smoke.example_child(*sys.argv[1:])",
                      name, str(record), *args],
                     cwd=root, env=env, capture_output=True, text=True,
-                    timeout=EXAMPLES[name])
+                    timeout=timeout)
             except subprocess.TimeoutExpired:
                 raise CheckFailed(f"examples/torch_{name}.py ran past "
-                                  f"{EXAMPLES[name]} s")
+                                  f"{timeout} s")
             sec = time.perf_counter() - t0
             for line in res.stdout.splitlines():
                 print(f"  | {line}")
@@ -3436,6 +3641,362 @@ class Smoke:
         return (f"  example serve_dashboard: {sec:.1f} s; "
                 f"{res['jobs_per_s']:.4f} done-jobs/s, measured eta "
                 f"{res['eta']['measured_eta']:.4f}")
+
+    # -- phase 12: LM serving ------------------------------------------------
+
+    def phase_lm(self, card: str):
+        """LM serving through ``repro_torch.configs``, ``build_model`` and
+        ``serve_step`` (``LM_*``): the reduced golden runs, then
+        h2o-danube-1.8b and mamba2-370m at full width, then the serve_lm
+        example; none of the seven hand kernels may launch."""
+        from repro_torch.kernels import _build
+        print("== 12. LM serving (repro_torch.models, serve.serve_step)",
+              flush=True)
+        _build.reset_launch_counts()
+        self.lm_fit()
+        self.lm_golden()
+        self.lm_danube(card)
+        self.lm_mamba2(card)
+        ex = self.lm_example()
+        launched = {k: v for k, v in _build.launch_counts.items() if v}
+        check(not launched and not ex,
+              f"phase 12 launched none of the seven hand kernels (this "
+              f"process {launched or 'none'}, the example "
+              f"{ex or 'none'})")
+
+    def lm_fit(self):
+        """Each LM config's parameters at full width and whether its bf16
+        weights fit the card's memory (weights only: no cache, no
+        activations)."""
+        t = self.torch
+        from repro_torch.configs import list_configs
+        total = t.cuda.get_device_properties(0).total_memory
+        for name, cfg in list_configs().items():
+            if cfg.family == "ising":
+                continue
+            n = lm_param_count(cfg)
+            print(f"  {name}: {n:,} parameters, {2 * n / 1e9:.2f} GB in "
+                  f"bf16: {'fits' if 2 * n < total else 'does not fit'} "
+                  f"the card's {total / 1e9:.1f} GB", flush=True)
+
+    def lm_golden(self):
+        """(a) LM_GOLDEN on the card at reduced widths (f32), and the same
+        runs on the CPU in this process."""
+        t = self.torch
+        from repro_torch.configs import get_config
+        from repro_torch.models.lm import build_model
+        from repro_torch.serve.serve_step import (cache_len_for,
+                                                  greedy_generate,
+                                                  make_prefill_step)
+        B, S = LM_PROMPT
+        for name in LM_GOLDEN_ARCHS:
+            cfg = get_config(name).reduced()
+            s_max = S + LM_MAX_NEW
+            s_max = s_max if cfg.encdec else cache_len_for(cfg, s_max)
+            got = []
+            for dev in (self.dev, t.device("cpu")):
+                model = build_model(cfg, dev)
+                params = model.init(LM_SEED)
+                batch = {k: t.from_numpy(v).to(dev)
+                         for k, v in lm_prompt(cfg).items()}
+                toks = greedy_generate(model, cfg, params, batch, LM_MAX_NEW,
+                                       device=dev)
+                with t.no_grad():
+                    logits, _, _ = make_prefill_step(model, cfg)(
+                        params, batch, model.init_cache(B, s_max,
+                                                        dtype=t.float32))
+                got.append((toks.cpu().numpy(), logits[:, -1].cpu().numpy()))
+            (toks, logits), cpu = got
+            gold, mine = LM_GOLDEN[name], lm_digest(toks, logits)
+            scale = max(gold["absmax"])
+            err = max(abs(a - b) for ra, rb in zip(mine["logits_at"],
+                                                   gold["logits_at"])
+                      for a, b in zip(ra, rb))
+            err = max([err] + [abs(a - b) for a, b in
+                               zip(mine["absmax"], gold["absmax"])])
+            l2 = max(abs(a - b) / b for a, b in zip(mine["l2"], gold["l2"]))
+            check(mine["tokens"] == gold["tokens"]
+                  and err <= LM_LOGIT_TOL * scale and l2 <= LM_LOGIT_TOL,
+                  f"{name} reduced, f32, on the card: {B}x{LM_MAX_NEW} greedy "
+                  f"tokens == the JAX reference's; prefill logits within "
+                  f"{err / scale:.2e} of their largest magnitude, L2 norm "
+                  f"within {l2:.2e} (limit {LM_LOGIT_TOL})")
+            cpu_err = float(np.abs(cpu[1] - logits).max()) / scale
+            check(np.array_equal(cpu[0], toks)
+                  and cpu_err <= LM_LOGIT_TOL,
+                  f"{name}: the same run with device='cpu' gives the card's "
+                  f"tokens, every logit within {cpu_err:.2e}")
+
+    def lm_full(self, name, dtype):
+        """``name`` at its published widths and depth in ``dtype`` on the
+        card: (model, params, seconds of init)."""
+        t = self.torch
+        from repro_torch.configs import get_config
+        from repro_torch.models.lm import build_model
+        cfg = dataclasses.replace(get_config(name), dtype=dtype)
+        model = build_model(cfg)
+        t0 = time.perf_counter()
+        params = model.init(LM_SEED)
+        t.cuda.synchronize()
+        sec = time.perf_counter() - t0
+        n, byts = self.lm_size(params)
+        print(f"  {name}: {cfg.n_layers} layers, d={cfg.d_model}, "
+              f"{n:,} parameters, {byts / 1e9:.3f} GB in {dtype}; init "
+              f"(host numpy, then to the card) {sec:.1f} s", flush=True)
+        return model, params
+
+    @staticmethod
+    def lm_leaves(tree):
+        if isinstance(tree, dict):
+            tree = list(tree.values())
+        if isinstance(tree, (tuple, list)):
+            return [x for v in tree for x in Smoke.lm_leaves(v)]
+        if dataclasses.is_dataclass(tree):
+            return [getattr(tree, f.name) for f in dataclasses.fields(tree)]
+        return [tree]
+
+    def lm_size(self, tree):
+        leaves = self.lm_leaves(tree)
+        return (sum(x.numel() for x in leaves),
+                sum(x.numel() * x.element_size() for x in leaves))
+
+    def lm_decode_vs_forward(self, label, model, params, B, S, smax, steps):
+        """The reference's invariant (tests/test_models.py): prefill
+        S - steps tokens into an f32 ``init_cache(B, smax)``, decode the
+        rest one at a time, and hold the last logits to the full
+        forward's last position."""
+        t = self.torch
+        cfg = model.cfg
+        rng = np.random.default_rng(LM_SEED + S)
+        toks = t.from_numpy(rng.integers(0, cfg.vocab, (B, S)).astype(
+            np.int32)).to(self.dev)
+        t0 = time.perf_counter()
+        with t.no_grad():
+            full, _, _ = model.forward(params, toks)
+            want = full[:, -1].clone()
+            del full
+            caches = model.init_cache(B, smax, dtype=t.float32)
+            _, c, _ = model.forward(params, toks[:, :S - steps], caches=caches)
+            for i in range(S - steps, S):
+                last, c, _ = model.forward(params, toks[:, i:i + 1], caches=c)
+        got = last[:, 0]
+        rel = float((got - want).abs().max()) / float(want.abs().max())
+        check(bool(t.isfinite(got).all()) and rel < LM_REL_TOL,
+              f"{label}: relative difference {rel:.3e} (bound {LM_REL_TOL}; "
+              f"{time.perf_counter() - t0:.1f} s)")
+
+    def lm_danube(self, card: str):
+        """(b) h2o-danube-1.8b at full width in f32: decode == forward and
+        the rolling ring at its full window; (c) the same weights cast
+        to bf16, serving."""
+        t = self.torch
+        name = "h2o-danube-1.8b"
+        model, params = self.lm_full(name, "float32")
+        cfg = model.cfg
+        check((cfg.n_layers, cfg.d_model, cfg.n_heads, cfg.n_kv_heads,
+               cfg.d_head, cfg.d_ff, cfg.vocab, cfg.window)
+              == (24, 2560, 32, 8, 80, 6912, 32000, 4096),
+              f"{name} at its published widths (24 layers, d=2560, 32 "
+              f"heads, 8 KV heads of 80, d_ff 6912, vocab 32000, window "
+              f"4096)")
+        t.cuda.reset_peak_memory_stats()
+        self.lm_decode_vs_forward(f"{name} f32 decode == forward (B=2, "
+                                  f"S=128)", model, params, 2, 128, 136, 1)
+        self.lm_decode_vs_forward(
+            f"{name} f32 rolling ring at the full window (B=1, S=5120: the "
+            f"chunked forward; 5116 tokens prefilled into {cfg.window} "
+            f"slots, 4 decode steps)", model, params, 1, 5120, cfg.window, 4)
+        peak = t.cuda.max_memory_allocated() / 1e9
+        print(f"  {name} f32 checks: peak {peak:.2f} GB allocated on {card}",
+              flush=True)
+        params16 = self.lm_cast(params, t.bfloat16)
+        del params
+        t.cuda.empty_cache()
+        self.lm_serve(name, params16, card)
+
+    def lm_serve(self, name, params, card: str):
+        """(c)/(d) ``greedy_generate`` at LM_SERVE on the bf16 ``params``
+        of ``name`` (its published dtype) after one warm-up call, with
+        bf16 caches; the prefill and the decode step timed alone against
+        the decode step's byte floor (weights and cache read once); the
+        decode step with greedy_generate's default f32 caches; one
+        profiled run of LM_PROFILED_STEPS decode steps."""
+        t = self.torch
+        from repro_torch.configs import get_config
+        from repro_torch.models.lm import build_model
+        from repro_torch.serve.serve_step import (cache_len_for,
+                                                  greedy_generate,
+                                                  make_decode_step,
+                                                  make_prefill_step)
+        cfg = get_config(name)
+        model = build_model(cfg)
+        B, P, M = LM_SERVE["batch"], LM_SERVE["prompt"], LM_SERVE["max_new"]
+        rng = np.random.default_rng(LM_SEED + 1)
+        batch = {"tokens": t.from_numpy(rng.integers(
+            0, cfg.vocab, (B, P)).astype(np.int32)).to(self.dev)}
+        gen = lambda: greedy_generate(  # noqa: E731
+            model, cfg, params, batch, M, cache_dtype=t.bfloat16)
+        gen()
+        t.cuda.synchronize()
+        t.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        out = gen().cpu()
+        wall = time.perf_counter() - t0
+        peak = t.cuda.max_memory_allocated()
+        check(tuple(out.shape) == (B, M) and int(out.min()) >= 0
+              and int(out.max()) < cfg.vocab_padded,
+              f"{name} bf16 greedy_generate: {B} requests of {P} prompt "
+              f"tokens, {M} new tokens each, in {wall:.3f} s "
+              f"({B * M / wall:.1f} generated tokens/s end to end); peak "
+              f"{peak / 1e9:.2f} GB allocated")
+        prefill, decode = make_prefill_step(model, cfg), \
+            make_decode_step(model, cfg)
+        smax = cache_len_for(cfg, P + M)
+
+        def steps(cache_dtype, n):
+            with t.no_grad():
+                caches = model.init_cache(B, smax, dtype=cache_dtype)
+                t.cuda.synchronize()
+                t0 = time.perf_counter()
+                logits, caches, _ = prefill(params, batch, caches)
+                tok = t.argmax(logits[:, -1], dim=-1)[:, None].to(t.int32)
+                t.cuda.synchronize()
+                t1 = time.perf_counter()
+                for _ in range(n):
+                    logits, caches = decode(params, tok, caches)
+                    tok = t.argmax(logits[:, -1], dim=-1)[:, None].to(
+                        t.int32)
+                t.cuda.synchronize()
+                return t1 - t0, (time.perf_counter() - t1) / n, caches
+
+        steps(t.bfloat16, 2)
+        pre_s, dec_s, caches = steps(t.bfloat16, M)
+        w_bytes = self.lm_size(params)[1]
+        c_bytes = self.lm_size(caches)[1]
+        floor = (w_bytes + c_bytes) / HBM_BYTES_PER_S
+        print(f"  {name} bf16 serving, B={B}, prompt {P}, {M} new: prefill "
+              f"{pre_s:.4f} s ({B * P / pre_s:.1f} prompt tokens/s); decode "
+              f"{dec_s * 1e3:.3f} ms per token step ({B / dec_s:.1f} "
+              f"generated tokens/s); byte floor of a step "
+              f"{floor * 1e3:.3f} ms ({w_bytes / 1e9:.3f} GB of weights + "
+              f"{c_bytes / 1e9:.4f} GB of cache over "
+              f"{HBM_BYTES_PER_S / 1e12:.2f} TB/s), the step at "
+              f"{dec_s / floor:.1f}x its floor; on {card}", flush=True)
+        steps(t.float32, 2)
+        _, dec32, _ = steps(t.float32, 16)
+        why = ("an attention layer's f32 output turns the residual stream "
+               "and every later weight read f32" if any(
+                   b.mixer in ("attn", "swa") for b in cfg.group)
+               else "f32 conv window and SSM state")
+        print(f"  {name} bf16 with greedy_generate's default f32 caches: "
+              f"decode {dec32 * 1e3:.3f} ms per token step "
+              f"({dec32 / floor:.1f}x the bf16-cache floor; {why})",
+              flush=True)
+        self.lm_profile(name, model, params, batch, prefill, decode, smax,
+                        card)
+
+    def lm_profile(self, name, model, params, batch, prefill, decode, smax,
+                   card):
+        """LM_PROFILED_STEPS decode steps under the profiler: device busy
+        share, device operations per step, the top five by time."""
+        t = self.torch
+        from torch.autograd import DeviceType
+        from torch.profiler import ProfilerActivity, profile
+        n = LM_PROFILED_STEPS
+        B = batch["tokens"].shape[0]
+        with t.no_grad():
+            caches = model.init_cache(B, smax, dtype=t.bfloat16)
+            logits, caches, _ = prefill(params, batch, caches)
+            tok = t.argmax(logits[:, -1], dim=-1)[:, None].to(t.int32)
+            t.cuda.synchronize()
+            with profile(activities=[ProfilerActivity.CPU,
+                                     ProfilerActivity.CUDA]) as prof:
+                t0 = time.perf_counter()
+                for _ in range(n):
+                    logits, caches = decode(params, tok, caches)
+                    tok = t.argmax(logits[:, -1], dim=-1)[:, None].to(
+                        t.int32)
+                t.cuda.synchronize()
+                wall = time.perf_counter() - t0
+        rows = [(e.key, e.count, e.self_device_time_total)
+                for e in prof.key_averages()
+                if e.device_type == DeviceType.CUDA
+                and e.self_device_time_total > 0]
+        if not rows:
+            print(f"  profile {name} decode: the profiler saw no device "
+                  f"time; device busy share not measured", flush=True)
+            return
+        busy = sum(us for _, _, us in rows) / 1e6
+        ops = sum(c for _, c, _ in rows)
+        print(f"  profile {name} bf16 decode, {n} steps: wall {wall:.4f} s "
+              f"under the profiler, device busy {busy:.4f} s "
+              f"({100 * busy / wall:.1f}%), {ops / n:.0f} device operations "
+              f"per step; top five by device time on {card}:", flush=True)
+        for key, count, us in sorted(rows, key=lambda r: -r[2])[:5]:
+            print(f"    {us / 1e3:10.3f} ms  {count:6d} x  {key[:90]}",
+                  flush=True)
+
+    def lm_mamba2(self, card: str):
+        """(d) mamba2-370m at full width: f32 decode == forward and the
+        SSD's chunk invariance (its first layer, B=2, S=512, chunks 64,
+        128 and 256); then bf16 serving as (c)."""
+        t = self.torch
+        from repro_torch.models.mamba2 import mamba2_fwd
+        name = "mamba2-370m"
+        model, params = self.lm_full(name, "float32")
+        cfg = model.cfg
+        d_inner = 2 * cfg.d_model
+        check((cfg.n_layers, cfg.d_model, cfg.ssm_state,
+               d_inner // cfg.ssm_headdim, cfg.ssm_headdim, cfg.vocab_padded)
+              == (48, 1024, 128, 32, 64, 50304),
+              f"{name} at its published widths (48 SSD layers, d=1024, "
+              f"d_state 128, 32 heads of 64, vocab 50280 padded to 50304)")
+        self.lm_decode_vs_forward(f"{name} f32 decode == forward (B=2, "
+                                  f"S=128)", model, params, 2, 128, 136, 1)
+        p0 = params["groups"][0][0]["mamba"]
+        x = t.from_numpy(np.random.default_rng(LM_SEED).standard_normal(
+            (2, 512, cfg.d_model)).astype(np.float32)).to(self.dev)
+        with t.no_grad():
+            ys = {c: mamba2_fwd(p0, x, d_state=cfg.ssm_state,
+                                headdim=cfg.ssm_headdim, chunk=c)[0]
+                  for c in (64, 128, 256)}
+        worst = max(float(((ys[c] - ys[64]).abs() - LM_CHUNK_TOL
+                           * (1 + ys[64].abs())).max()) for c in (128, 256))
+        diff = max(float((ys[c] - ys[64]).abs().max()) for c in (128, 256))
+        check(worst <= 0,
+              f"{name} SSD chunk invariance at full width (layer 0, B=2, "
+              f"S=512, chunk 64 vs 128 and 256): largest difference "
+              f"{diff:.3e} within rtol = atol = {LM_CHUNK_TOL}")
+        params16 = self.lm_cast(params, t.bfloat16)
+        del params, p0, ys
+        t.cuda.empty_cache()
+        self.lm_serve(name, params16, card)
+
+    def lm_example(self) -> dict:
+        """(e) examples/torch_serve_lm.py at its defaults in a process of
+        its own; returns the kernels it launched."""
+        out, rec, sec = self.run_example("serve_lm",
+                                         timeout=EXAMPLE_SERVE_LM_TIMEOUT)
+        res = rec["result"]
+        lines = [x for x in out.splitlines() if "reduced config" in x]
+        check(len(lines) == 4 and all(v["shape"] == [4, 16]
+                                      for v in res.values()),
+              f"examples/torch_serve_lm.py: one line per architecture, "
+              f"(4, 16) tokens each ({sec:.1f} s): " + ", ".join(
+                  f"{k} {v['tokens_per_s']:.1f} tok/s"
+                  for k, v in res.items()))
+        return {k: v for k, v in rec["launches"].items() if v}
+
+    def lm_cast(self, tree, dtype, key=None):
+        """An f32 parameter tree as ``init`` builds it at ``dtype``: every
+        leaf cast, but the leaves the reference keeps in f32 (the MoE
+        router, Mamba-2's A_log, D and dt_bias)."""
+        if isinstance(tree, dict):
+            return {k: self.lm_cast(v, dtype, k) for k, v in tree.items()}
+        if isinstance(tree, (tuple, list)):
+            return type(tree)(self.lm_cast(v, dtype) for v in tree)
+        return tree if key in ("router", "A_log", "D", "dt_bias") \
+            else tree.to(dtype)
 
     def bound(self, byts, int_ops, f32_ops):
         """(what bounds it, bound ms, {bytes, int32, fp32: ms}): the

@@ -12,6 +12,11 @@ mesh engine's ``shard_state`` cuts one into its bricks, and a
 ``BrickState`` of a one-process mesh is joined back (a distributed DSIM
 over a process group gives its global state through ``global_state``).  The dtypes are the reference's: int8 spins, uint32
 LFSR states and words, f32 couplings, int32 counters.
+
+An LM's parameter tree crosses too (``lm_params_from_numpy``,
+``lm_params_to_numpy``): the reference stacks each group's leaves on a
+leading axis, the port keeps a list of per-group trees.  Caches go out
+the same way (``lm_cache_to_numpy``).
 """
 
 from __future__ import annotations
@@ -30,9 +35,12 @@ from repro_torch.core.lattice import LatticeProblem
 from repro_torch.core.lattice_dsim import (BitplaneLatticeState, BrickState,
                                            LatticeState, join_bricks)
 from repro_torch.core.snapshot import restore_state, snapshot_state
+from repro_torch.models.layers import KVCache
+from repro_torch.models.mamba2 import Mamba2Cache
 
 __all__ = ["graph_from_numpy", "problem_from_numpy", "state_from_numpy",
-           "state_to_numpy"]
+           "state_to_numpy", "lm_params_from_numpy", "lm_params_to_numpy",
+           "lm_cache_to_numpy"]
 
 _PHILOX = ("a rng='philox' state cannot cross between the packages: a "
            "jax.random key and a torch.Generator are different streams; "
@@ -140,3 +148,103 @@ def state_to_numpy(state) -> dict:
         state = join_bricks(state)
     snap = snapshot_state(state)
     return {f.name: getattr(snap, f.name) for f in dataclasses.fields(snap)}
+
+
+# the parameter trees' keys whose values are stacked block groups
+_LM_GROUPS = ("groups", "enc_groups", "dec_groups")
+
+
+def _tensor(a, dev):
+    a = np.asarray(a)
+    if a.dtype.name == "bfloat16":       # ml_dtypes' bfloat16 from JAX
+        return torch.from_numpy(a.astype(np.float32)).to(dev, torch.bfloat16)
+    return torch.from_numpy(np.array(a)).to(dev)
+
+
+def _tree_map(fn, tree):
+    if isinstance(tree, dict):
+        return {k: _tree_map(fn, v) for k, v in tree.items()}
+    if isinstance(tree, (tuple, list)):
+        return type(tree)(_tree_map(fn, v) for v in tree)
+    return fn(tree)
+
+
+def _leaves(tree):
+    if isinstance(tree, dict):
+        tree = list(tree.values())
+    if isinstance(tree, (tuple, list)):
+        return [x for v in tree for x in _leaves(v)]
+    return [tree]
+
+
+def lm_params_from_numpy(cfg, tree, device=None) -> dict:
+    """The reference's LM parameter tree (numpy leaves; each of
+    ``groups``/``enc_groups``/``dec_groups`` a tuple of block trees whose
+    leaves carry the group axis first) -> the port's tree on ``device``
+    (CUDA unless ``device="cpu"``): those values become a list with one
+    tuple of block trees per group.  bf16 leaves stay bf16."""
+    dev = resolve_device(device)
+    want = {"groups": cfg.n_groups, "enc_groups": cfg.enc_layers,
+            "dec_groups": cfg.n_groups}
+    out = {}
+    for key, val in tree.items():
+        if key in _LM_GROUPS:
+            n = int(np.shape(_leaves(val)[0])[0])
+            if n != want[key]:
+                raise ValueError(f"{cfg.name}: {n} {key}, the config has "
+                                 f"{want[key]}")
+            out[key] = [_tree_map(lambda a, g=g: _tensor(np.asarray(a)[g], dev),
+                                  tuple(val)) for g in range(n)]
+        else:
+            out[key] = _tree_map(lambda a: _tensor(a, dev), val)
+    return out
+
+
+def _numpy(t) -> np.ndarray:
+    """Owned host copy; bf16 as f32 (numpy has no bf16)."""
+    t = t.detach()
+    if t.dtype == torch.bfloat16:
+        t = t.float()
+    return t.cpu().numpy().copy()
+
+
+def _stack_groups(groups):
+    """A list of per-group trees -> one tree of numpy leaves stacked on
+    a leading group axis (the reference's layout)."""
+    flat = [_leaves(g) for g in groups]
+    stacked = iter([np.stack(xs) for xs in zip(*flat)])
+    return _tree_map(lambda _: next(stacked), groups[0])
+
+
+def lm_params_to_numpy(params) -> dict:
+    """The port's LM parameter tree -> the reference's, with numpy leaves
+    (bf16 as f32) and each group list stacked on a leading axis."""
+    out = {}
+    for key, val in params.items():
+        if key in _LM_GROUPS:
+            out[key] = _stack_groups(_tree_map(_numpy, val))
+        else:
+            out[key] = _tree_map(_numpy, val)
+    return out
+
+
+def _cache_fields(tree):
+    if isinstance(tree, (KVCache, Mamba2Cache)):
+        return {f.name: _numpy(getattr(tree, f.name))
+                for f in dataclasses.fields(tree)}
+    if isinstance(tree, dict):
+        return {k: _cache_fields(v) for k, v in tree.items()}
+    return type(tree)(_cache_fields(v) for v in tree)
+
+
+def lm_cache_to_numpy(caches) -> dict:
+    """The port's LM caches (``init_cache`` or a step's result) -> the
+    reference's shapes: each ``KVCache``/``Mamba2Cache`` a dict of its
+    fields as numpy, the group list stacked on a leading axis (so every
+    ``pos`` of the groups is one (n_groups,) array)."""
+    out = {}
+    for key, val in caches.items():
+        fields = _cache_fields(val)
+        out[key] = _stack_groups(fields) if isinstance(val, list) and val \
+            else fields
+    return out

@@ -9,7 +9,8 @@
   serving failure taxonomy, and the checkpoint spool behind
   ``SampleServer.recover``.
 
-The reference's LM token steps (``serve_step.py``) are not ported here.
+- serve_step.py — prefill/decode steps for the LM workload family
+  (imported as ``repro_torch.serve.serve_step``, as the reference's).
 """
 
 from .faults import (DeadlineExceeded, FaultPlan, FaultRule,

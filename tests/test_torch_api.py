@@ -42,9 +42,10 @@ NO_COUNTERPART = {
     "compat.py": "jax-version shim",
     "analyze/jaxpr_utils.py": "replaced by analyze/ops_trace.py",
 }
-# the seed's LM scaffolding, ROADMAP queue A item 12 (not yet ported)
-A12_DIRS = ("models/", "train/", "launch/", "sharding/", "configs/")
-A12_FILES = ("serve/serve_step.py",)
+# the seed's LM training scaffolding, ROADMAP queue A item 12b (not yet
+# ported; serving, 12a, is)
+A12_DIRS = ("train/", "launch/", "sharding/")
+A12_FILES = ()
 
 
 def _ref_modules():

@@ -1156,3 +1156,54 @@ def test_cuda_apt_icm_matches_cpu(cuda, rng, packed, draws):
     assert_bitwise((stg.lfsr,), (stc.lfsr,))
     assert int(stc.swaps) == int(stg.swaps) and \
         int(stc.icms) == int(stg.icms) > 0
+
+
+# -- LM serving (repro_torch.models, serve.serve_step): no hand kernel --
+
+LM_CUDA_ARCHS = ["deepseek-7b", "h2o-danube-1.8b", "mamba2-370m",
+                 "jamba-v0.1-52b", "deepseek-moe-16b", "seamless-m4t-medium"]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", LM_CUDA_ARCHS)
+def test_greedy_generate_card_equals_cpu(cuda, name):
+    """Reduced f32 greedy serving on the card gives the CPU's tokens, its
+    prefill logits within 1e-4 of their largest magnitude, and launches
+    none of the hand kernels."""
+    from repro_torch.configs import get_config
+    from repro_torch.models.lm import build_model
+    from repro_torch.serve.serve_step import (cache_len_for, greedy_generate,
+                                              make_prefill_step)
+    cfg = get_config(name).reduced()
+    rng = np.random.default_rng(4)
+    batch = {"tokens": rng.integers(0, cfg.vocab, (2, 12)).astype(np.int32)}
+    if cfg.encdec:
+        batch["frames"] = rng.standard_normal((2, 12, cfg.d_model)).astype(
+            np.float32)
+    s_max = 12 + 6 if cfg.encdec else cache_len_for(cfg, 12 + 6)
+    out = {}
+    _build.reset_launch_counts()
+    for dev in ("cpu", cuda):
+        model = build_model(cfg, dev)
+        params = model.init(0)
+        b = {k: torch.from_numpy(v).to(dev) for k, v in batch.items()}
+        toks = greedy_generate(model, cfg, params, b, 6, device=dev)
+        with torch.no_grad():
+            logits, _, _ = make_prefill_step(model, cfg)(
+                params, b, model.init_cache(2, s_max, dtype=torch.float32))
+        out[str(dev)] = (toks.cpu(), logits.cpu())
+    assert not any(_build.launch_counts.values())
+    (tc, lc), (tg, lg) = out["cpu"], out[str(cuda)]
+    assert tg.dtype == torch.int32 and torch.equal(tc, tg)
+    assert float((lc - lg).abs().max()) <= 1e-4 * float(lc.abs().max())
+
+
+@pytest.mark.cuda
+def test_build_model_defaults_to_the_card(cuda):
+    from repro_torch.configs import get_config
+    from repro_torch.models.lm import build_model
+    model = build_model(get_config("mamba2-370m").reduced())
+    assert model.device.type == "cuda"
+    params = model.init(0)
+    assert all(t.device.type == "cuda" for t in params["groups"][0][0][
+        "mamba"].values() if isinstance(t, torch.Tensor))

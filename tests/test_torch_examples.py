@@ -217,3 +217,40 @@ def test_examples_import_only_the_port():
     src = [(ROOT / "examples" / f"torch_{n}.py").read_text() for n in NAMES]
     assert not any(re.search(r"^\s*(from|import) (jax|repro)\b", s, re.M)
                    for s in src)
+
+
+def test_serve_lm_mirrors_the_reference_example():
+    """examples/torch_serve_lm.py: the reference's architectures and
+    flags (plus ``--device``), its defaults as ``run``'s, no JAX."""
+    import ast
+    import inspect
+    ref_src = (ROOT / "examples" / "serve_lm.py").read_text()
+    tree = ast.parse(ref_src)
+    archs = next(ast.literal_eval(n.value) for n in tree.body
+                 if isinstance(n, ast.Assign)
+                 and getattr(n.targets[0], "id", None) == "ARCHS")
+    flags = {c.args[0].value: ast.literal_eval(
+        next(k.value for k in c.keywords if k.arg == "default"))
+        for c in ast.walk(tree) if isinstance(c, ast.Call)
+        and getattr(c.func, "attr", None) == "add_argument"}
+    mod = load("serve_lm")
+    assert mod.ARCHS == archs
+    sig = inspect.signature(mod.run)
+    assert sig.parameters["device"].default == "cuda"
+    assert {f"--{k.replace('_', '-')}": p.default
+            for k, p in sig.parameters.items() if k != "device"} == flags
+    src = (ROOT / "examples" / "torch_serve_lm.py").read_text()
+    assert not re.search(r"^\s*(from|import) (jax|repro)\b", src, re.M)
+
+
+def test_serve_lm_main_writes_its_record(tmp_path, capsys):
+    """chip_smoke.py phase 12e runs the example through the same child:
+    its result per architecture and no hand kernel launched."""
+    record = tmp_path / "record.json"
+    out = load_chip_smoke().write_example_record(
+        load("serve_lm"), ["--device", "cpu", "--max-new", "2", "--batch",
+                           "1", "--prompt-len", "4"], str(record))
+    rec = json.loads(record.read_text())
+    assert list(rec["result"]) == list(out) and len(out) == 4
+    assert all(v == 0 for v in rec["launches"].values())
+    assert capsys.readouterr().out.count("reduced config") == 4

@@ -287,3 +287,41 @@ def test_apt_golden_values_match_jax(monkeypatch):
                 lfsr_sha256=sha(st.lfsr), swaps=int(st.swaps),
                 icms=int(st.icms), sweeps=ts.tolist(),
                 best=best.tolist()) == smoke.APT_GOLDEN
+
+
+def ref_lm_golden(smoke, name):
+    """The JAX reference's ``greedy_generate`` and prefill logits on the
+    port's ``init(LM_SEED)`` weights of ``name``'s reduced config, as
+    ``chip_smoke.lm_digest`` keeps them."""
+    import jax
+    import jax.numpy as jnp
+    from repro.configs import get_config as ref_get_config
+    from repro.models.lm import build_model as ref_build_model
+    from repro.serve.serve_step import (cache_len_for, greedy_generate,
+                                        make_prefill_step)
+    from repro_torch.configs import get_config
+    from repro_torch.interop import lm_params_to_numpy
+    from repro_torch.models.lm import build_model
+
+    cfg = get_config(name).reduced()
+    params = build_model(cfg, device="cpu").init(smoke.LM_SEED)
+    rcfg = ref_get_config(name).reduced()
+    rmodel = ref_build_model(rcfg)
+    rparams = jax.tree.map(jnp.asarray, lm_params_to_numpy(params))
+    batch = {k: jnp.asarray(v) for k, v in smoke.lm_prompt(cfg).items()}
+    tokens = greedy_generate(rmodel, rcfg, rparams, batch, smoke.LM_MAX_NEW)
+    B, S = smoke.LM_PROMPT
+    s_max = S + smoke.LM_MAX_NEW
+    caches = rmodel.init_cache(B, s_max if rcfg.encdec else cache_len_for(
+        rcfg, s_max), dtype=jnp.float32)
+    logits, _, _ = make_prefill_step(rmodel, rcfg)(rparams, batch, caches)
+    return smoke.lm_digest(np.asarray(tokens), np.asarray(logits[:, -1]))
+
+
+def test_lm_golden_values_match_jax():
+    """``LM_GOLDEN``: the JAX reference's greedy tokens and prefill logits
+    on the port's reduced-width weights, for every ``LM_GOLDEN_ARCHS``
+    config (chip_smoke.py phase 12a holds the card to them)."""
+    smoke = chip_smoke()
+    got = {name: ref_lm_golden(smoke, name) for name in smoke.LM_GOLDEN_ARCHS}
+    assert got == smoke.LM_GOLDEN

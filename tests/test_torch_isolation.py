@@ -112,10 +112,41 @@ def test_chip_smoke_fails_without_cuda_or_outside_the_repo(tmp_path):
 
 
 def test_the_port_has_six_examples():
-    assert [p.name for p in EXAMPLES] == [
+    """The paper's six examples, and the LM serving example beside them."""
+    assert [p.name for p in EXAMPLES if p.name != "torch_serve_lm.py"] == [
         "torch_eta_sweep.py", "torch_maxcut_gset.py", "torch_quickstart.py",
         "torch_sat3_invertible.py", "torch_serve_dashboard.py",
         "torch_serve_sampling.py"]
+    assert (ROOT / "examples" / "torch_serve_lm.py") in EXAMPLES
+
+
+def test_lm_entry_points_raise_without_cuda():
+    code = (
+        "import torch\n"
+        "assert not torch.cuda.is_available()\n"
+        "from repro_torch.configs import get_config\n"
+        "from repro_torch.models.layers import init_kv_cache\n"
+        "from repro_torch.models.lm import build_model\n"
+        "from repro_torch.serve.serve_step import greedy_generate\n"
+        "cfg = get_config('h2o-danube-1.8b').reduced()\n"
+        "m = build_model(cfg, device='cpu')\n"
+        "p = m.init(0)\n"
+        "b = {'tokens': torch.zeros((1, 4), dtype=torch.int32)}\n"
+        "for fn in (lambda: build_model(cfg),\n"
+        "           lambda: build_model(get_config('seamless-m4t-medium')),\n"
+        "           lambda: init_kv_cache(1, 2, 4, 16),\n"
+        "           lambda: greedy_generate(m, cfg, p, b, 2)):\n"
+        "    try:\n"
+        "        fn()\n"
+        "    except RuntimeError as e:\n"
+        "        assert 'CUDA' in str(e), e\n"
+        "    else:\n"
+        "        raise SystemExit('ran without CUDA')\n"
+        "out = greedy_generate(m, cfg, p, b, 2, device='cpu')\n"
+        "print('CPU', tuple(out.shape))\n")
+    out = run_python(code)
+    assert out.returncode == 0, out.stderr
+    assert "CPU (1, 2)" in out.stdout
 
 
 @pytest.mark.parametrize("path", EXAMPLES, ids=lambda p: p.stem)

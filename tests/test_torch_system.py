@@ -6,8 +6,8 @@ is asserted on the port as the reference asserts it on itself, and each
 port statistic is also held to the reference's on the same instance
 (``rng="philox"`` draws cannot cross packages, so only the statistics
 can agree).  The reference file's last two cases (``:97-113``) enumerate
-the LM configurations of ``repro.configs``; they go with that port
-(ROADMAP queue A item 12a).
+the configurations of ``repro_torch.configs`` and its shape cells, and
+hold them to the reference's.
 """
 
 import numpy as np
@@ -16,6 +16,10 @@ from repro.core import dsim as jdsim, gibbs as jgibbs
 from repro.core.annealing import ea_schedule as j_ea
 from repro.core.coloring import lattice3d_coloring as j_lat_col
 from repro.core.graph import ea3d as j_ea3d
+from repro.configs import list_configs as j_list_configs
+from repro.configs.base import SHAPES as J_SHAPES
+from repro_torch.configs import list_configs
+from repro_torch.configs.base import SHAPES
 from repro_torch.core.analysis import fit_kappa, time_to_target
 from repro_torch.core.annealing import ea_schedule
 from repro_torch.core.coloring import lattice3d_coloring
@@ -131,3 +135,30 @@ def test_throughput_accuracy_tradeoff():
                                         pts, sync_every="phase")
         ends.append(float(np.asarray(Es)[-1]))
     assert abs(E_exact[-1] - np.mean(ends)) <= 0.03 * abs(E_exact[-1])
+
+
+def test_all_cells_enumerate_correctly():
+    cfgs = list_configs()
+    lm = {n: c for n, c in cfgs.items() if c.family != "ising"}
+    assert len(lm) == 10
+    long_capable = sorted(n for n, c in lm.items() if c.long_context)
+    assert long_capable == ["h2o-danube-1.8b", "jamba-v0.1-52b",
+                            "mamba2-370m"]
+    cells = sum(len(c.shapes()) for c in lm.values())
+    assert cells == 10 * 3 + 3
+    assert "ea3d-1m" in cfgs
+    # the same registry and cells as the reference's
+    ref = j_list_configs()
+    assert sorted(cfgs) == sorted(ref)
+    assert {n: [s.name for s in c.shapes()] for n, c in lm.items()} == \
+        {n: [s.name for s in ref[n].shapes()] for n in lm}
+
+
+def test_decode_cells_are_serve_shapes():
+    for name in ("decode_32k", "long_500k"):
+        assert SHAPES[name].kind == "decode"
+    assert SHAPES["train_4k"].kind == "train"
+    assert SHAPES["prefill_32k"].kind == "prefill"
+    assert {k: (v.seq_len, v.global_batch, v.kind) for k, v in
+            SHAPES.items()} == {k: (v.seq_len, v.global_batch, v.kind)
+                                for k, v in J_SHAPES.items()}
