@@ -62,7 +62,8 @@ Phases; every check raises on failure and the script then exits non-zero:
    values (dsim int8 on the (2,2,2) brick partition bitwise with its
    spin and LFSR digests, gibbs f32 within 0.5% with its LFSR digest),
    every configuration against the same engine on the CPU over its first
-   8 sweeps (``TWIN_SWEEPS``; int8 bitwise; f32 with each colour phase
+   4 sweeps or its first sync period (``TWIN_SWEEPS``; int8 bitwise; f32
+   with each colour phase
    held to the CPU's:
    LFSR states bitwise, a differing spin only within 8 ulp of its
    boundary; philox within 0.5% and repeatable on the card), then timed
@@ -77,7 +78,8 @@ Phases; every check raises on failure and the script then exits non-zero:
    JAX reference's golden values (int8 R=2 and bit-plane R=32 lanes 0-1
    reproduce ``DSIM_GOLDEN``, f32 R=2 ``DIST_GOLDEN`` within 0.5% with its
    LFSR digest), every ``DIST_RUNS`` configuration against its
-   ``device="cpu"`` twin over 8 sweeps (int8 and bit-plane bitwise, f32
+   ``device="cpu"`` twin over 4 sweeps or its first sync period (int8
+   and bit-plane bitwise, f32
    phase by phase as in phase 6), then timed (two runs each; the
    bit-plane run launches the gather-count once per colour phase, no run
    launches a lattice kernel), the exchange's time per call and the
@@ -154,7 +156,31 @@ Phases; every check raises on failure and the script then exits non-zero:
    chunk invariance, then bf16 serving as (c); (e)
    ``examples/torch_serve_lm.py`` at its defaults in a subprocess; (f)
    none of the hand kernels launched in the phase;
-13. print one JSON line of kernels (``launches`` over the main and mesh
+13. LM training through ``repro_torch.train`` (``make_train_step``,
+   ``AdamW``, ``checkpoint``, ``compression``) and ``launch.train``: (a)
+   the seven ``TRAIN_RUNS`` (``LM_GOLDEN_ARCHS`` reduced in f32, and
+   deepseek-7b with int8 moments) from ``init(LM_SEED)``, four steps on
+   ``train_batches``: each step's loss and gradient norm within 1e-4
+   relative of the JAX reference's (``TRAIN_GOLDEN``, recomputed by
+   ``tests/test_torch_golden.py``) and within 1e-5 of the same runs on the
+   CPU; (b) h2o-danube-1.8b at its published widths in f32 (phase 12's
+   host draw), B=2 x S=512: ``grad_accum=2`` == ``grad_accum=1`` within
+   the reference's bounds (loss 1e-4, parameters 1e-5) and the gradients
+   with remat on == off within 1e-6 of their largest magnitude, with the
+   peak memory of each run; (c) the same weights in bf16 with f32 AdamW
+   moments and remat, B=2 x S=4096 (the train_4k sequence; its global
+   batch of 256 cut to one card) on ``MarkovLM(4096)`` batches through
+   ``prefetch``: 8 timed steps (seconds per step, tokens/s, model FLOPs
+   and their share of the dense bf16 peak, peak memory), one profiled
+   step, then 2 steps with int8 moments and their bytes per parameter;
+   (d) mamba2-370m the same at B=4 x S=2048; (e) (c)'s int8 state saved
+   with ``blocking=False``, restored bitwise, one further step from each
+   equal bitwise; (f) local SGD with 2 replicas in one process against
+   its CPU twin, and the EF all-reduce's mean; (g)
+   ``examples/torch_train_lm.py`` at its defaults in a subprocess (loss
+   falls), and again to 140 steps: it resumes at step 120; (h) none of
+   the hand kernels launched in the phase;
+14. print one JSON line of kernels (``launches`` over the main and mesh
    paths, the bit-plane dist run's and the packed APT run's for the
    gather-count, and the examples'; ``mesh_launches`` the mesh path's,
    ``server_launches`` the server path's, ``apt_launches`` the APT
@@ -172,6 +198,7 @@ import dataclasses
 import hashlib
 import importlib.util
 import inspect
+import io
 import json
 import math
 import os
@@ -287,9 +314,17 @@ GRAPH_RUNS = {
 }
 GRAPH_PROFILED = ("gibbs f32 R=4", "dsim int8 R=4 K=8")
 # phases 6 and 7 hold each configuration to its device="cpu" twin over
-# the first TWIN_SWEEPS sweeps (cut from 16 to keep the whole script under
-# 900 s with phase 12: the CPU twins at L=100 take most of those phases)
-TWIN_SWEEPS = 8
+# the first TWIN_SWEEPS sweeps, or its first sync period where that is
+# longer (cut from 16 to 8 with phase 12, to 4 with phase 13, to keep the
+# whole script under 900 s: the CPU twins at L=100 take most of those
+# phases)
+TWIN_SWEEPS = 4
+
+
+def twin_sweeps(sync) -> int:
+    """Sweeps of a twin comparison's first chunk: TWIN_SWEEPS, or the sync
+    period where that is longer (a chunk ends at an exchange)."""
+    return max(TWIN_SWEEPS, sync) if isinstance(sync, int) else TWIN_SWEEPS
 G81 = dict(rows=100, cols=200, seed=81)
 # The JAX reference's GibbsEngine (f32) and DSIMEngine (int8, K=8,
 # sync_every=SYNC) at L=100, rng="lfsr", R=2, every replica started from
@@ -344,6 +379,12 @@ APT_GOLDEN = {
 # examples/torch_<name>.py`` with its seconds allowed.
 EXAMPLES = {"quickstart": 150, "sat3_invertible": 120, "maxcut_gset": 150,
             "eta_sweep": 300, "serve_sampling": 180, "serve_dashboard": 120}
+# the longest example runs beside the other five (to keep the whole
+# script inside its time with phase 13)
+EXAMPLE_BESIDE = "eta_sweep"
+# a process run beside others drives the card from one host thread: no
+# pool of CPU threads to contend with theirs
+BESIDE_ENV = {"OMP_NUM_THREADS": "1"}
 # The JAX reference's examples/quickstart.py (L=10, budget 2048): its int8
 # lattice's per-replica energies, and its bit-plane lattice's best energy
 # and lane-flips.  tests/test_torch_examples.py recomputes these from the
@@ -472,8 +513,92 @@ LM_GOLDEN = {
 # (tests/test_models.py); SSD chunk invariance: its rtol = atol
 LM_REL_TOL, LM_CHUNK_TOL = 2e-2, 2e-4
 LM_SERVE = dict(batch=4, prompt=512, max_new=64)
+LM_FULL = ("h2o-danube-1.8b", "mamba2-370m")   # at full width, phases 12-13
 LM_PROFILED_STEPS = 8
 EXAMPLE_SERVE_LM_TIMEOUT = 180
+
+# Phase 13 (LM training).  (a) TRAIN_GOLDEN: each TRAIN_RUNS run (name,
+# int8 moments) on its reduced config in f32 from init(LM_SEED) takes
+# TRAIN_STEPS make_train_step steps on train_batches(cfg) with
+# AdamW(lr=TRAIN_LR, warmup=TRAIN_WARMUP): each step's loss and gradient
+# norm from the JAX reference on the port's weights (train_digest),
+# recomputed by tests/test_torch_golden.py.
+TRAIN_RUNS = tuple((n, False) for n in LM_GOLDEN_ARCHS) + \
+    (("deepseek-7b", True),)
+TRAIN_STEPS, TRAIN_BATCH, TRAIN_LR, TRAIN_WARMUP = 4, (8, 32), 3e-3, 5
+TRAIN_GOLDEN_RTOL, TRAIN_CPU_RTOL = 1e-4, 1e-5
+TRAIN_GOLDEN = {
+    "deepseek-7b": {
+        "loss": [6.045444, 5.964139, 5.983004, 6.084452],
+        "grad_norm": [7.218721, 7.473717, 6.78096, 7.068876]},
+    "h2o-danube-1.8b": {
+        "loss": [6.061244, 5.983212, 6.026865, 6.045413],
+        "grad_norm": [7.260598, 7.882169, 7.041128, 7.481542]},
+    "mamba2-370m": {
+        "loss": [5.977046, 6.070703, 5.852524, 5.906239],
+        "grad_norm": [6.780799, 6.88784, 6.63175, 6.851837]},
+    "jamba-v0.1-52b": {
+        "loss": [6.126198, 6.157936, 6.052875, 6.225353],
+        "grad_norm": [27.18451, 26.81006, 24.91469, 28.59667]},
+    "deepseek-moe-16b": {
+        "loss": [6.06565, 6.125332, 6.086535, 6.033928],
+        "grad_norm": [8.061266, 8.532034, 7.485616, 7.827768]},
+    "seamless-m4t-medium": {
+        "loss": [6.147382, 5.983605, 6.022362, 6.049466],
+        "grad_norm": [6.198826, 5.299795, 5.668701, 5.426592]},
+    "deepseek-7b int8": {
+        "loss": [6.045444, 5.964139, 5.983026, 6.083364],
+        "grad_norm": [7.218721, 7.473717, 6.781579, 7.074529]},
+}
+# (b) h2o-danube-1.8b in f32 at full width: grad_accum 2 == 1 within the
+# reference's bounds (tests/test_train.py: loss 1e-4, parameters 1e-5),
+# remat on == off within REMAT_TOL of the gradients' largest magnitude
+TRAIN_CHECK = dict(batch=2, seq=512)
+ACCUM_LOSS_TOL, ACCUM_PARAM_TOL, REMAT_TOL = 1e-4, 1e-5, 1e-6
+# At full width Adam's first step turns a gradient near eps = 1e-8 into
+# an update near lr whatever its rounding, so a gradient's last ulp moves
+# such a parameter by up to lr: the parameter bound holds where |g| >=
+# 1e-6 (m = 0.1 g >= ACCUM_SURE_M), and the clipped gradients themselves
+# within ACCUM_GRAD_TOL of their largest magnitude (f32 sums over 1,024
+# rows against two of 512)
+ACCUM_SURE_M, ACCUM_GRAD_TOL = 1e-7, 1e-5
+# (c)-(d) timed at full width in bf16 with remat; the train_4k cell's
+# sequence, its global batch of 256 cut to fit one card.  Tokens from
+# MarkovLM(TRAIN_DATA_VOCAB): its vocab x vocab f64 table would be 8.2 GB
+# at 32,000, and every id below 4,096 is valid in both vocabularies.
+TRAIN_TIMED = {"h2o-danube-1.8b": dict(batch=2, seq=4096),
+               "mamba2-370m": dict(batch=4, seq=2048)}
+TRAIN_TIMED_STEPS, TRAIN_INT8_STEPS, TRAIN_DATA_VOCAB = 8, 2, 4096
+BF16_PEAK_FLOPS = 989e12     # H100 SXM dense bf16, NVIDIA's data sheet
+# (f) local SGD with its replicas in one process, and the EF all-reduce
+SGD_RUN = dict(name="h2o-danube-1.8b", replicas=2, sync_every=2, outer=3,
+               batch=4, seq=32)
+SGD_RTOL = 1e-5
+EXAMPLE_TRAIN_LM_TIMEOUT = 240
+
+
+def train_batches(cfg) -> list:
+    """Phase 13a's TRAIN_STEPS batches (numpy) for ``cfg``: MarkovLM(256,
+    seed=1) tokens, and standard-normal frames for an encoder-decoder."""
+    from repro_torch.train.data import MarkovLM
+    B, S = TRAIN_BATCH
+    out = []
+    for i, b in zip(range(TRAIN_STEPS), MarkovLM(256, seed=1).batches(B, S)):
+        if cfg.encdec:
+            b["frames"] = np.random.default_rng(LM_SEED + i).standard_normal(
+                (B, S, cfg.d_model)).astype(np.float32)
+        out.append(b)
+    return out
+
+
+def train_digest(losses, norms) -> dict:
+    """Per-step losses and gradient norms to 7 digits (TRAIN_GOLDEN)."""
+    rnd = lambda a: [float(f"{float(v):.7g}") for v in a]  # noqa: E731
+    return {"loss": rnd(losses), "grad_norm": rnd(norms)}
+
+
+def train_key(name: str, int8: bool) -> str:
+    return f"{name} int8" if int8 else name
 
 
 def lm_param_count(cfg) -> int:
@@ -752,7 +877,7 @@ class Smoke:
                 (self.phase_dist, (card,)), (self.phase_degraded, (card,)),
                 (self.phase_server, (card,)), (self.phase_apt, (card,)),
                 (self.phase_audit, (card,)), (self.phase_examples, ()),
-                (self.phase_lm, (card,))):
+                (self.phase_lm, (card,)), (self.phase_train, (card,))):
             phase(*args)
             t1 = time.perf_counter()
             laps.append(f"{phase.__name__[6:]} {t1 - t0:.1f}")
@@ -2150,7 +2275,8 @@ class Smoke:
         (a, ea, fa), (b, eb, fb) = got, want
         if hg.eng.rng_kind == "philox":
             rel = float(((ea.cpu() - eb) / eb).abs().max())
-            check(rel < 0.005, f"{label}: {TWIN_SWEEPS} sweeps on the card "
+            check(rel < 0.005, f"{label}: {twin_sweeps(sync)} sweeps on the "
+                  f"card "
                   f"vs the CPU "
                   f"(another philox stream): energies within 0.5% "
                   f"({rel:.2e})")
@@ -2168,21 +2294,22 @@ class Smoke:
             f"bitwise, each of its {held['phases']} phases held to the CPU's "
             f"({held['differ']} decisions differed, all within {TANH_ULPS} "
             f"ulp of the boundary)")
-        check(same, f"{label}: {TWIN_SWEEPS} sweeps on the card == "
+        check(same, f"{label}: {twin_sweeps(sync)} sweeps on the card == "
               f"device='cpu', {what} (spins, LFSR, flips, energies; E[0]="
               f"{float(ea[0, 0])})")
 
     def first_chunk(self, hh, sync):
-        """The first TWIN_SWEEPS sweeps of the main schedule (one chunk):
-        (state, energies, flips per replica)."""
+        """The first chunk of the main schedule, TWIN_SWEEPS sweeps (or one
+        sync period where that is longer): (state, energies, flips per
+        replica)."""
         from repro_torch.core.annealing import ea_schedule
         cur = hh.start_recorded(hh.init_state(seed=SEED),
                                 ea_schedule(MAIN_SWEEPS),
                                 [TWIN_SWEEPS] + MAIN_POINTS, sync_every=sync)
         cur.advance(1)
-        check(cur.sweeps_done == TWIN_SWEEPS and cur.points_recorded == 1,
-              f"{hh.name} on {hh.device}: first chunk is {TWIN_SWEEPS} "
-              f"sweeps")
+        n = twin_sweeps(sync)
+        check(cur.sweeps_done == n and cur.points_recorded == 1,
+              f"{hh.name} on {hh.device}: first chunk is {n} sweeps")
         return cur.state, cur.record().energies, cur.flips_per_replica()
 
     def hold_phases(self, eng, twin) -> dict:
@@ -2516,7 +2643,7 @@ class Smoke:
             f"bitwise, each of its {held['phases']} phases held to the CPU's "
             f"({held['differ']} decisions differed, all within {TANH_ULPS} "
             f"ulp of the boundary)")
-        check(same, f"{label}: {TWIN_SWEEPS} sweeps on the card == "
+        check(same, f"{label}: {twin_sweeps(sync)} sweeps on the card == "
               f"device='cpu', {what} (spins, ghosts, LFSR, flips, energies; "
               f"E[0]="
               f"{float(ea[0, 0])})")
@@ -3364,50 +3491,72 @@ class Smoke:
               f"({len(failures)} failed to run, {len(bad)} unwaived "
               f"findings; {time.perf_counter() - t0:.1f} s)")
 
-    def run_example(self, name: str, args=(), timeout=None):
-        """``examples/torch_<name>.py``'s ``main`` in a process of its own
-        (``example_child``) with ``timeout`` seconds (``EXAMPLES[name]``
-        by default); returns its stdout, its record (result and launch
-        counts) and its seconds.  A timeout or a non-zero exit fails the
-        phase."""
+    def start_example(self, name: str, args=(), timeout=None, env=None):
+        """Start ``examples/torch_<name>.py``'s ``main`` in a process of its
+        own (``example_child``) with ``timeout`` seconds
+        (``EXAMPLES[name]`` by default); ``finish_example`` waits for it."""
         timeout = timeout or EXAMPLES[name]
         root = Path(__file__).resolve().parent
-        env = dict(os.environ)
+        env = dict(os.environ, **(env or {}))
         env["PYTHONPATH"] = os.pathsep.join(
             [str(root), str(root / "src")] + ([env["PYTHONPATH"]]
                                               if env.get("PYTHONPATH")
                                               else []))
-        with tempfile.TemporaryDirectory() as tmp:
-            record = Path(tmp) / "record.json"
-            t0 = time.perf_counter()
+        tmp = tempfile.TemporaryDirectory()
+        record = Path(tmp.name) / "record.json"
+        proc = subprocess.Popen(
+            [sys.executable, "-c",
+             "import sys, chip_smoke; chip_smoke.example_child(*sys.argv[1:])",
+             name, str(record), *args],
+            cwd=root, env=env, stdout=subprocess.PIPE, stderr=subprocess.PIPE,
+            text=True)
+        return name, proc, tmp, record, time.perf_counter(), timeout
+
+    def finish_example(self, started):
+        """Wait for a ``start_example`` process; returns its stdout, its
+        record (result and launch counts) and its seconds.  A timeout or a
+        non-zero exit fails the phase."""
+        name, proc, tmp, record, t0, timeout = started
+        with tmp:
             try:
-                res = subprocess.run(
-                    [sys.executable, "-c",
-                     "import sys, chip_smoke; "
-                     "chip_smoke.example_child(*sys.argv[1:])",
-                     name, str(record), *args],
-                    cwd=root, env=env, capture_output=True, text=True,
-                    timeout=timeout)
+                out, err = proc.communicate(
+                    timeout=max(1.0, t0 + timeout - time.perf_counter()))
             except subprocess.TimeoutExpired:
+                proc.kill()
+                proc.communicate()
                 raise CheckFailed(f"examples/torch_{name}.py ran past "
                                   f"{timeout} s")
             sec = time.perf_counter() - t0
-            for line in res.stdout.splitlines():
+            for line in out.splitlines():
                 print(f"  | {line}")
-            if res.returncode != 0:
-                print(res.stderr[-4000:], file=sys.stderr)
-            check(res.returncode == 0,
+            if proc.returncode != 0:
+                print(err[-4000:], file=sys.stderr)
+            check(proc.returncode == 0,
                   f"examples/torch_{name}.py exited 0 in {sec:.1f} s")
             rec = json.loads(record.read_text())
-        return res.stdout, rec, sec
+        return out, rec, sec
+
+    def run_example(self, name: str, args=(), timeout=None, env=None):
+        """``start_example`` then ``finish_example``."""
+        return self.finish_example(
+            self.start_example(name, args, timeout, env))
 
     def phase_examples(self, args=()):
         """The paper's six examples on the port, at the reference's
-        defaults, each in its own process (``EXAMPLES``)."""
+        defaults, each in its own process (``EXAMPLES``): the longest,
+        ``EXAMPLE_BESIDE``, runs beside the other five, one at a time (so
+        their seconds are taken two processes to the card); meanwhile
+        this process draws the LM host weights of phases 12 and 13
+        (``lm_prefetch``)."""
         print("== 11. the examples (examples/torch_*.py)", flush=True)
+        self.lm_prefetch()
+        beside = self.start_example(EXAMPLE_BESIDE, args, env=BESIDE_ENV)
+        runs = {name: self.run_example(name, args) for name in EXAMPLES
+                if name != EXAMPLE_BESIDE}
+        runs[EXAMPLE_BESIDE] = self.finish_example(beside)
         self.example_launches, heads = {}, []
         for name in EXAMPLES:
-            out, rec, sec = self.run_example(name, args)
+            out, rec, sec = runs[name]
             res = rec["result"]
             self.example_launches[name] = {k: rec["launches"][k]
                                            for k in KERNELS}
@@ -3727,36 +3876,65 @@ class Smoke:
                   f"{name}: the same run with device='cpu' gives the card's "
                   f"tokens, every logit within {cpu_err:.2e}")
 
+    def lm_prefetch(self):
+        """Draw the host weights of LM_FULL (``lm_host``) and phase 13's
+        Markov table on a thread of this process, while phase 11's
+        examples run in theirs (numpy fills release the GIL)."""
+        import threading
+
+        def draw():
+            for name in LM_FULL:
+                self.lm_host(name)
+            self.train_data()
+        self._lm_draw = threading.Thread(target=draw, daemon=True)
+        self._lm_draw.start()
+
+    def lm_host(self, name):
+        """``name``'s f32 weights at its published widths, ``init(LM_SEED)``
+        drawn on the host once for phases 12 and 13 (the card's ``init``
+        draws the same numbers on the host and copies them over)."""
+        from repro_torch.configs import get_config
+        from repro_torch.models.lm import build_model
+        import threading
+        draw = self.__dict__.get("_lm_draw")
+        if draw is not None and draw is not threading.current_thread():
+            draw.join()
+        cache = self.__dict__.setdefault("lm_host_params", {})
+        if name not in cache:
+            cfg = dataclasses.replace(get_config(name), dtype="float32")
+            t0 = time.perf_counter()
+            cache[name] = build_model(cfg, "cpu").init(LM_SEED)
+            print(f"  {name}: init(LM_SEED) drawn on the host in "
+                  f"{time.perf_counter() - t0:.1f} s (kept for phases 12 "
+                  f"and 13)", flush=True)
+        return cache[name]
+
     def lm_full(self, name, dtype):
         """``name`` at its published widths and depth in ``dtype`` on the
-        card: (model, params, seconds of init)."""
+        card: (model, params); f32 weights are the host draw copied over,
+        others that cast as ``init`` casts (``lm_cast``)."""
         t = self.torch
         from repro_torch.configs import get_config
         from repro_torch.models.lm import build_model
+        from repro_torch.train.tree import tree_map
         cfg = dataclasses.replace(get_config(name), dtype=dtype)
         model = build_model(cfg)
+        host = self.lm_host(name)
         t0 = time.perf_counter()
-        params = model.init(LM_SEED)
+        params = tree_map(lambda x: x.to(self.dev), host)
+        if dtype != "float32":
+            params = self.lm_cast(params, getattr(t, dtype))
         t.cuda.synchronize()
         sec = time.perf_counter() - t0
         n, byts = self.lm_size(params)
         print(f"  {name}: {cfg.n_layers} layers, d={cfg.d_model}, "
-              f"{n:,} parameters, {byts / 1e9:.3f} GB in {dtype}; init "
-              f"(host numpy, then to the card) {sec:.1f} s", flush=True)
+              f"{n:,} parameters, {byts / 1e9:.3f} GB in {dtype}; host to "
+              f"card {sec:.1f} s", flush=True)
         return model, params
 
-    @staticmethod
-    def lm_leaves(tree):
-        if isinstance(tree, dict):
-            tree = list(tree.values())
-        if isinstance(tree, (tuple, list)):
-            return [x for v in tree for x in Smoke.lm_leaves(v)]
-        if dataclasses.is_dataclass(tree):
-            return [getattr(tree, f.name) for f in dataclasses.fields(tree)]
-        return [tree]
-
     def lm_size(self, tree):
-        leaves = self.lm_leaves(tree)
+        from repro_torch.train.tree import tree_leaves
+        leaves = tree_leaves(tree)
         return (sum(x.numel() for x in leaves),
                 sum(x.numel() * x.element_size() for x in leaves))
 
@@ -3997,6 +4175,476 @@ class Smoke:
             return type(tree)(self.lm_cast(v, dtype) for v in tree)
         return tree if key in ("router", "A_log", "D", "dt_bias") \
             else tree.to(dtype)
+
+    # -- phase 13: LM training -----------------------------------------------
+
+    def phase_train(self, card: str):
+        """LM training through ``repro_torch.train``, ``sharding`` and
+        ``launch.train``: TRAIN_GOLDEN at reduced widths, h2o-danube-1.8b
+        at full width in f32 (grad_accum, remat), then timed in bf16 with
+        its checkpoint, mamba2-370m timed, local SGD and the EF all-reduce,
+        the train_lm example; none of the seven hand kernels may launch."""
+        t = self.torch
+        from repro_torch.kernels import _build
+        print("== 13. LM training (repro_torch.train, launch.train)",
+              flush=True)
+        _build.reset_launch_counts()
+        laps, t0 = [], time.perf_counter()
+
+        def lap(what):
+            nonlocal t0
+            t1 = time.perf_counter()
+            laps.append(f"{what} {t1 - t0:.1f}")
+            t0 = t1
+
+        # (g)'s first run, in its own process beside (a) and (b)
+        tmp = tempfile.TemporaryDirectory()
+        child = self.start_example(
+            "train_lm", timeout=EXAMPLE_TRAIN_LM_TIMEOUT,
+            env={"TMPDIR": tmp.name, **BESIDE_ENV})
+        try:
+            self.train_golden()
+            lap("golden")
+            self.train_checks(card)
+            lap("danube f32 checks")
+            ex = self.train_example(child, tmp.name)
+            lap("example")
+        finally:
+            if child[1].poll() is None:
+                child[1].kill()
+                child[1].wait()
+            tmp.cleanup()
+        run = self.train_timed("h2o-danube-1.8b", card)
+        lap("danube bf16")
+        self.train_checkpoint(card, *run)
+        del run
+        t.cuda.empty_cache()
+        lap("checkpoint")
+        self.train_timed("mamba2-370m", card)
+        self.__dict__.pop("lm_host_params", None)
+        t.cuda.empty_cache()
+        lap("mamba2 bf16")
+        self.train_local_sgd()
+        lap("local SGD")
+        print("  phase 13 seconds: " + ", ".join(laps), flush=True)
+        launched = {k: v for k, v in _build.launch_counts.items() if v}
+        check(not launched and not ex,
+              f"phase 13 launched none of the seven hand kernels (this "
+              f"process {launched or 'none'}, the example runs "
+              f"{ex or 'none'})")
+
+    def train_data(self):
+        """MarkovLM(TRAIN_DATA_VOCAB, seed=1), built once (by
+        ``lm_prefetch``'s thread in the whole script)."""
+        import threading
+        draw = self.__dict__.get("_lm_draw")
+        if draw is not None and draw is not threading.current_thread():
+            draw.join()
+        if "_train_data" not in self.__dict__:
+            from repro_torch.train.data import MarkovLM
+            self._train_data = MarkovLM(TRAIN_DATA_VOCAB, seed=1)
+        return self._train_data
+
+    def on_card(self, b, dev=None):
+        t = self.torch
+        return {k: t.from_numpy(np.asarray(v)).to(dev or self.dev)
+                for k, v in b.items()}
+
+    def train_golden(self):
+        """(a) TRAIN_GOLDEN on the card at reduced widths (f32), and each
+        of its steps taken again on the CPU from the card's state before
+        it (a CPU twin per step: four chained steps amplify rounding, and
+        jamba's fourth moves 2.4e-5 when its weights move by an ulp,
+        tests/test_torch_train.py)."""
+        t = self.torch
+        from repro_torch.configs import get_config
+        from repro_torch.models.lm import build_model
+        from repro_torch.train.optimizer import AdamW
+        from repro_torch.train.train_step import TrainState, make_train_step
+        from repro_torch.train.tree import tree_map
+        rel = lambda a, b: max(abs(x - y) / abs(y)  # noqa: E731
+                               for x, y in zip(a, b))
+        cpu = t.device("cpu")
+        for name, int8 in TRAIN_RUNS:
+            cfg = get_config(name).reduced()
+            key = train_key(name, int8)
+            opt = AdamW(lr=TRAIN_LR, warmup=TRAIN_WARMUP, int8_state=int8)
+            model = build_model(cfg, self.dev)
+            twin = build_model(cfg, cpu)
+            params = model.init(LM_SEED)
+            state = TrainState(params, opt.init(params))
+            step, twin_step = make_train_step(model, opt), \
+                make_train_step(twin, opt)
+            got = {"card": [], "twin": []}
+            for b in train_batches(cfg):
+                before = tree_map(lambda x: x.to(cpu), state)
+                state, m = step(state, self.on_card(b))
+                got["card"].append((float(m["loss"]), float(m["grad_norm"])))
+                _, m = twin_step(before, self.on_card(b, cpu))
+                got["twin"].append((float(m["loss"]), float(m["grad_norm"])))
+            col = lambda tag, i: [x[i] for x in got[tag]]  # noqa: E731
+            gold = TRAIN_GOLDEN[key]
+            err = max(rel(col("card", 0), gold["loss"]),
+                      rel(col("card", 1), gold["grad_norm"]))
+            twin_err = max(rel(col("card", i), col("twin", i))
+                           for i in (0, 1))
+            check(err <= TRAIN_GOLDEN_RTOL,
+                  f"{key} reduced, f32, on the card: {TRAIN_STEPS} steps' "
+                  f"loss and gradient norm within {err:.2e} relative of "
+                  f"the JAX reference's (limit {TRAIN_GOLDEN_RTOL}; losses "
+                  + ", ".join(f"{x:.6f}" for x in col("card", 0)) + ")")
+            check(twin_err <= TRAIN_CPU_RTOL,
+                  f"{key}: each step on the CPU from the card's state "
+                  f"within {twin_err:.2e} relative (limit {TRAIN_CPU_RTOL})")
+
+    def grads(self, model, params, batch):
+        """(loss, gradient leaves, peak bytes) of ``model.loss`` with
+        ``train=True``."""
+        t = self.torch
+        from repro_torch.train.tree import tree_flatten
+        leaves, unflatten = tree_flatten(params)
+        xs = [p.detach().requires_grad_() for p in leaves]
+        t.cuda.synchronize()
+        t.cuda.reset_peak_memory_stats()
+        loss = model.loss(unflatten(xs), batch, train=True)
+        g = t.autograd.grad(loss, xs)
+        t.cuda.synchronize()
+        return loss.detach(), g, t.cuda.max_memory_allocated()
+
+    def train_checks(self, card: str):
+        """(b) h2o-danube-1.8b at its published widths in f32, B x S of
+        TRAIN_CHECK: one step with grad_accum=2 against grad_accum=1
+        (AdamW(lr=1e-3, warmup=1), the reference's case), and the
+        gradients with remat on against remat off."""
+        t = self.torch
+        from repro_torch.models.lm import build_model
+        from repro_torch.train.optimizer import AdamW
+        from repro_torch.train.train_step import TrainState, make_train_step
+        from repro_torch.train.tree import tree_leaves
+        name = "h2o-danube-1.8b"
+        model, params = self.lm_full(name, "float32")
+        cfg = model.cfg
+        B, S = TRAIN_CHECK["batch"], TRAIN_CHECK["seq"]
+        toks = self.train_data().sample(B, S)
+        batch = self.on_card({"tokens": toks, "targets": toks,
+                              "mask": np.ones_like(toks)})
+        opt = AdamW(lr=1e-3, warmup=1)
+        b2 = {k: v.reshape(2, B // 2, S) for k, v in batch.items()}
+        runs = []
+        for accum, b in ((1, batch), (2, b2)):
+            t.cuda.synchronize()
+            t.cuda.reset_peak_memory_stats()
+            t0 = time.perf_counter()
+            st, m = make_train_step(model, opt, grad_accum=accum)(
+                TrainState(params, opt.init(params)), b)
+            t.cuda.synchronize()
+            runs.append((float(m["loss"]), t.cuda.max_memory_allocated(),
+                         time.perf_counter() - t0))
+            # after one step from zero moments m = 0.1 g, the clipped
+            # gradient; the first run's waits on the host
+            pm = list(zip(tree_leaves(st.params), tree_leaves(st.opt.m)))
+            if accum == 1:
+                first = [(a.cpu(), g.cpu()) for a, g in pm]
+                pm = None
+            del st, m
+        (l1, pk1, s1), (l2, pk2, s2) = runs
+        scale = max(float(g.abs().max()) for _, g in first)
+        dm = dp = dp_all = 0.0
+        loose = 0
+        for (a, ga), (b, gb) in zip(first, pm):
+            a, ga = a.to(self.dev), ga.to(self.dev)
+            dm = max(dm, float((ga - gb).abs().max()))
+            d = (a - b).abs()
+            sure = (ga.abs() >= ACCUM_SURE_M) & (gb.abs() >= ACCUM_SURE_M)
+            dp_all = max(dp_all, float(d.max()))
+            dp = max(dp, float(t.where(sure, d, 0).max()))
+            loose += int(((d >= ACCUM_PARAM_TOL) & ~sure).sum())
+        del first, pm, a, b, ga, gb, d, sure
+        check(abs(l1 - l2) < ACCUM_LOSS_TOL and dm <= ACCUM_GRAD_TOL * scale
+              and dp < ACCUM_PARAM_TOL,
+              f"{name} f32 at full width, B={B} x S={S}: grad_accum=2 == "
+              f"grad_accum=1 through one AdamW step: loss {l1:.6f} vs "
+              f"{l2:.6f} (difference {abs(l1 - l2):.2e} < {ACCUM_LOSS_TOL}), "
+              f"clipped gradients within {dm / scale:.2e} of their largest "
+              f"magnitude (limit {ACCUM_GRAD_TOL}), parameters within "
+              f"{dp:.2e} < {ACCUM_PARAM_TOL} wherever the gradient is at "
+              f"least {10 * ACCUM_SURE_M:.0e} in both runs (there Adam's "
+              f"first update g / (|g| + eps) is within 1% of sign(g)); "
+              f"over all {self.lm_size(params)[0]:,} parameters within "
+              f"{dp_all:.2e}, {loose:,} of them beyond {ACCUM_PARAM_TOL}, "
+              f"all where |g| < {10 * ACCUM_SURE_M:.0e}; peak "
+              f"{pk1 / 1e9:.2f} and {pk2 / 1e9:.2f} GB allocated, "
+              f"{s1:.2f} and {s2:.2f} s, on {card}")
+        t.cuda.empty_cache()
+        lon, gon, pkon = self.grads(model, params, batch)
+        loff, goff, pkoff = self.grads(
+            build_model(dataclasses.replace(cfg, remat=False)), params,
+            batch)
+        scale = max(float(g.abs().max()) for g in gon)
+        diff = max(float((a - b).abs().max()) for a, b in zip(gon, goff))
+        check(cfg.remat and diff <= REMAT_TOL * scale,
+              f"{name} f32 at full width: gradients with remat on within "
+              f"{diff / scale:.2e} of their largest magnitude of remat off "
+              f"(limit {REMAT_TOL}; loss {float(lon):.6f} and "
+              f"{float(loff):.6f}); peak {pkon / 1e9:.2f} GB allocated "
+              f"with remat, {pkoff / 1e9:.2f} GB without, on {card}")
+        del gon, goff, params
+        t.cuda.empty_cache()
+
+    def train_flops(self, cfg, n, B, S):
+        """(model FLOPs of a step, of it the causal attention's, remat's
+        recomputed forward): 6 N tokens for the weights (N with the
+        embedding), the attention scores and their product with V over
+        the (windowed) causal pairs, 2 FLOP per multiply-add, forward and
+        twice that backward; remat recomputes one forward."""
+        T = B * S
+        blocks = list(cfg.prelude) + list(cfg.group) * cfg.n_groups
+        n_attn = sum(b.mixer in ("attn", "swa") for b in blocks)
+        win = cfg.window if any(b.mixer == "swa" for b in blocks) else None
+        pairs = sum(min(q + 1, win or S) for q in range(S))
+        attn_fwd = n_attn * 2 * 2 * B * pairs * cfg.n_heads * cfg.d_head
+        return 6 * n * T + 3 * attn_fwd, 3 * attn_fwd, 2 * n * T + attn_fwd
+
+    def train_timed(self, name: str, card: str):
+        """(c)/(d) ``name`` at its published widths in bf16, f32 AdamW
+        moments, remat on: TRAIN_TIMED_STEPS steps after one warm-up on
+        MarkovLM(TRAIN_DATA_VOCAB) batches through ``prefetch``, timed
+        (a host read of the loss per step, as the launcher's), model
+        FLOPs against the bf16 peak, peak memory, one profiled step; then
+        TRAIN_INT8_STEPS steps with int8 moments on the weights it
+        reached.  Returns (step, state, batch) of the int8 run."""
+        t = self.torch
+        from repro_torch.train.data import prefetch
+        from repro_torch.train.optimizer import AdamW
+        from repro_torch.train.train_step import TrainState, make_train_step
+        from repro_torch.train.tree import tree_leaves
+        B, S = TRAIN_TIMED[name]["batch"], TRAIN_TIMED[name]["seq"]
+        model, params = self.lm_full(name, "bfloat16")
+        cfg = model.cfg
+        n = sum(x.numel() for x in tree_leaves(params))
+        opt = AdamW()
+        state = TrainState(params, opt.init(params))
+        f32_opt = self.lm_size(state.opt)[1]
+        del params
+        step = make_train_step(model, opt)
+        it = prefetch(self.train_data().batches(B, S), depth=2)
+        state, m = step(state, self.on_card(next(it)))
+        t.cuda.synchronize()
+        t.cuda.reset_peak_memory_stats()
+        losses = []
+        t0 = time.perf_counter()
+        for _ in range(TRAIN_TIMED_STEPS):
+            state, m = step(state, self.on_card(next(it)))
+            losses.append(float(m["loss"]))
+        t.cuda.synchronize()
+        sec = (time.perf_counter() - t0) / TRAIN_TIMED_STEPS
+        peak = t.cuda.max_memory_allocated()
+        flops, attn, rem = self.train_flops(cfg, n, B, S)
+        check(all(math.isfinite(x) for x in losses),
+              f"{name} bf16 at its published widths ({cfg.n_layers} "
+              f"layers, d={cfg.d_model}, {n:,} parameters), f32 AdamW "
+              f"moments, remat: {TRAIN_TIMED_STEPS} finite steps at B={B} x "
+              f"S={S} (one card's cut of the train_4k cell's global batch "
+              f"of 256), losses " + ", ".join(f"{x:.4f}" for x in losses))
+        print(f"  {name} bf16 training, B={B} x S={S}: {sec:.4f} s per "
+              f"step, {B * S / sec:,.0f} tokens/s; model FLOPs per step "
+              f"{flops:.4e} (6 N tokens {6 * n * B * S:.4e} + causal "
+              f"attention {attn:.4e}), {flops / sec / 1e12:.1f} TFLOP/s = "
+              f"{100 * flops / sec / BF16_PEAK_FLOPS:.1f}% of the "
+              f"{BF16_PEAK_FLOPS / 1e12:.0f} TFLOP/s dense bf16 peak; with "
+              f"remat's recomputed forward ({rem:.4e}) "
+              f"{100 * (flops + rem) / sec / BF16_PEAK_FLOPS:.1f}%; peak "
+              f"{peak / 1e9:.2f} GB allocated; optimizer state "
+              f"{f32_opt / n:.4f} B per parameter; on {card}", flush=True)
+        state = self.train_profile(name, step, state,
+                                   self.on_card(next(it)), card)
+        params = state.params
+        del state
+        t.cuda.empty_cache()
+        opt8 = AdamW(int8_state=True)
+        st8 = TrainState(params, opt8.init(params))
+        del params
+        step8 = make_train_step(model, opt8)
+        loss8 = []
+        for _ in range(TRAIN_INT8_STEPS):
+            st8, m = step8(st8, self.on_card(next(it)))
+            loss8.append(float(m["loss"]))
+        byts = self.lm_size(st8.opt)[1]
+        check(all(math.isfinite(x) for x in loss8),
+              f"{name}: {TRAIN_INT8_STEPS} steps with AdamW(int8_state=True) "
+              f"on the same weights, losses " + ", ".join(
+                  f"{x:.4f}" for x in loss8) + f"; optimizer state "
+              f"{byts / n:.4f} B per parameter read from its tensors "
+              f"(f32 moments {f32_opt / n:.4f})")
+        return step8, st8, self.on_card(next(it))
+
+    def train_profile(self, name, step, state, batch, card):
+        """One training step under the profiler (device activity only: a
+        step is tens of thousands of operations): device busy share,
+        device operations, the top five by device time; the new state."""
+        t = self.torch
+        from torch.autograd import DeviceType
+        from torch.profiler import (ProfilerActivity, profile,
+                                    supported_activities)
+        if ProfilerActivity.CUDA not in supported_activities():
+            print(f"  profile {name} training step: no CUDA profiling in "
+                  f"this build; device busy share not measured", flush=True)
+            return step(state, batch)[0]
+        t.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            state, m = step(state, batch)
+            t.cuda.synchronize()
+            wall = time.perf_counter() - t0
+        rows = [(e.key, e.count, e.self_device_time_total)
+                for e in prof.key_averages()
+                if e.device_type == DeviceType.CUDA
+                and e.self_device_time_total > 0]
+        if not rows:
+            print(f"  profile {name} training step: the profiler saw no "
+                  f"device time; device busy share not measured", flush=True)
+            return state
+        busy = sum(us for _, _, us in rows) / 1e6
+        ops = sum(c for _, c, _ in rows)
+        print(f"  profile {name} bf16 training step: wall {wall:.4f} s "
+              f"under the profiler, device busy {busy:.4f} s "
+              f"({100 * busy / wall:.1f}%), {ops} device operations; top "
+              f"five by device time on {card}:", flush=True)
+        for key, count, us in sorted(rows, key=lambda r: -r[2])[:5]:
+            print(f"    {us / 1e3:10.3f} ms  {count:6d} x  {key[:90]}",
+                  flush=True)
+        return state
+
+    def train_checkpoint(self, card, step, state, batch):
+        """(e) ``checkpoint.save(blocking=False)`` of (c)'s int8 state,
+        ``wait_pending``, ``restore`` into a fresh template: bitwise; then
+        one further step from each, with deterministic algorithms: the
+        same loss and state bitwise."""
+        t = self.torch
+        import shutil
+        from repro_torch.train import checkpoint as ckpt
+        from repro_torch.train.tree import tree_leaves, tree_map
+        k = int(state.opt.step)
+        with tempfile.TemporaryDirectory() as d:
+            free = shutil.disk_usage(d).free
+            t0 = time.perf_counter()
+            ckpt.save(d, k, state, meta={"phase": 13}, blocking=False)
+            t1 = time.perf_counter()
+            ckpt.wait_pending()
+            t2 = time.perf_counter()
+            restored = ckpt.restore(d, tree_map(t.empty_like, state))
+            t.cuda.synchronize()
+            t3 = time.perf_counter()
+            on_disk = sum(f.stat().st_size for f in Path(d).rglob("*")
+                          if f.is_file())
+        pairs = list(zip(tree_leaves(state), tree_leaves(restored)))
+        same = all(a.dtype == b.dtype and a.device == b.device
+                   and self.same(a, b) for a, b in pairs)
+        check(same,
+              f"checkpoint of the h2o-danube-1.8b int8 state at step {k} "
+              f"({len(pairs)} tensors, {on_disk / 1e9:.3f} GB on disk of "
+              f"{free / 1e9:.0f} GB free): save(blocking=False) returned "
+              f"in {t1 - t0:.2f} s, wait_pending {t2 - t1:.2f} s, restore "
+              f"{t3 - t2:.2f} s; restored == saved bitwise")
+        t.use_deterministic_algorithms(True, warn_only=True)
+        try:
+            a, ma = step(state, batch)
+            del state
+            b, mb = step(restored, batch)
+        finally:
+            t.use_deterministic_algorithms(False)
+        same = float(ma["loss"]) == float(mb["loss"]) and all(
+            self.same(x, y) for x, y in zip(tree_leaves(a), tree_leaves(b)))
+        check(same, f"one further step from the restored state == one "
+                    f"from the live state bitwise (loss "
+                    f"{float(ma['loss']):.6f}; deterministic algorithms)")
+
+    def train_local_sgd(self):
+        """(f) local SGD with SGD_RUN's replicas in one process on the card
+        against its device='cpu' twin (losses within SGD_RTOL, the
+        replicas equal after each sync), and the EF all-reduce's mean
+        (tests/test_dist.py's check)."""
+        t = self.torch
+        from repro_torch.configs import get_config
+        from repro_torch.core.mesh import make_mesh
+        from repro_torch.models.lm import build_model
+        from repro_torch.train.compression import make_ef_allreduce
+        from repro_torch.train.data import MarkovLM
+        from repro_torch.train.optimizer import AdamW
+        from repro_torch.train.train_step import (TrainState,
+                                                  make_local_sgd_step)
+        from repro_torch.train.tree import tree_leaves
+        r = SGD_RUN
+        R, sync, B, S = r["replicas"], r["sync_every"], r["batch"], r["seq"]
+        cfg = get_config(r["name"]).reduced()
+        runs = []
+        for dev in (self.dev, t.device("cpu")):
+            model = build_model(cfg, dev)
+            params = model.init(LM_SEED)
+            opt = AdamW(lr=3e-3, warmup=5)
+            outer, repl = make_local_sgd_step(
+                model, opt, make_mesh((R,), ("data",)), "data",
+                sync_every=sync)
+            st = repl(TrainState(params, opt.init(params)))
+            data = MarkovLM(cfg.vocab, seed=2)
+            losses, synced = [], True
+            for _ in range(r["outer"]):
+                tk = data.sample(R * sync * B, S).reshape(R, sync, B, S)
+                st, m = outer(st, self.on_card(
+                    {"tokens": tk, "targets": tk, "mask": np.ones_like(tk)},
+                    dev))
+                losses.append(float(m["loss"]))
+                synced &= all(self.same(x[0], x[j])
+                              for x in tree_leaves(st.params)
+                              for j in range(1, R))
+            runs.append((losses, synced))
+        (loss, synced), (cpu, cpu_synced) = runs
+        err = max(abs(a - b) / abs(b) for a, b in zip(loss, cpu))
+        check(synced and cpu_synced and err <= SGD_RTOL,
+              f"local SGD, {cfg.name} reduced, R={R} replicas in one "
+              f"process on the card, sync_every={sync}, {r['outer']} outer "
+              f"steps: the replicas equal after every sync, losses "
+              + ", ".join(f"{x:.6f}" for x in loss) + f" within {err:.2e} "
+              f"of the device='cpu' twin's (limit {SGD_RTOL})")
+        ef = make_ef_allreduce(make_mesh((4,), ("data",)))
+        g = {"w": t.stack([t.full((256,), float(i), device=self.dev)
+                           for i in range(4)])}
+        avg, _ = ef(g, {"w": t.zeros_like(g["w"])})
+        dev = float((avg["w"] - 1.5).abs().max())
+        check(dev < 0.05, f"EF int8 all-reduce of rows 0..3 on the card: "
+                          f"every replica's mean within {dev:.2e} of 1.5")
+
+    def train_example(self, child, tmp: str) -> dict:
+        """(g) examples/torch_train_lm.py at its defaults in a process of
+        its own (``child``, started with TMPDIR ``tmp``, a fresh
+        directory, so its checkpoints start there), then its ``main``
+        again in this process to 140 steps: it resumes at step 120.
+        Returns the kernels the child launched (this process's launches
+        are counted with the phase's)."""
+        out, rec, sec = self.finish_example(child)
+        losses = rec["result"]["losses"]
+        first, last = np.mean(losses[:10]), np.mean(losses[-10:])
+        check(len(losses) == 120 and last < first and "final loss" in out,
+              f"examples/torch_train_lm.py at its defaults (mamba2-370m "
+              f"reduced, 120 steps, {sec:.1f} s beside (a) and (b)): final "
+              f"loss {last:.4f} < start {first:.4f}")
+        args = ["--arch", "mamba2-370m", "--reduced", "--steps", "140",
+                "--batch", "8", "--seq", "64", "--ckpt",
+                os.path.join(tmp, "repro_torch_ck"), "--ckpt-every", "60"]
+        out2 = io.StringIO()
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(out2):
+            res = load_example("train_lm").main(args)
+        sec2 = time.perf_counter() - t0
+        for line in out2.getvalue().splitlines():
+            print(f"  | {line}")
+        check(res["start_step"] == 120 and len(res["losses"]) == 20
+              and "restored checkpoint at step 120" in out2.getvalue()
+              and all(math.isfinite(x) for x in res["losses"]),
+              f"a second invocation (in this process) to 140 steps resumed "
+              f"from the checkpoint at step 120 and took 20 finite steps "
+              f"({sec2:.1f} s)")
+        return {k: v for k, v in rec["launches"].items() if v}
 
     def bound(self, byts, int_ops, f32_ops):
         """(what bounds it, bound ms, {bytes, int32, fp32: ms}): the

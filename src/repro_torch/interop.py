@@ -16,7 +16,10 @@ LFSR states and words, f32 couplings, int32 counters.
 An LM's parameter tree crosses too (``lm_params_from_numpy``,
 ``lm_params_to_numpy``): the reference stacks each group's leaves on a
 leading axis, the port keeps a list of per-group trees.  Caches go out
-the same way (``lm_cache_to_numpy``).
+the same way (``lm_cache_to_numpy``), and a training state crosses both
+ways (``train_state_from_numpy``, ``train_state_to_numpy``): its
+parameters, and its optimizer's step, moments (f32, or int8 codes) and
+block scales.
 """
 
 from __future__ import annotations
@@ -37,10 +40,14 @@ from repro_torch.core.lattice_dsim import (BitplaneLatticeState, BrickState,
 from repro_torch.core.snapshot import restore_state, snapshot_state
 from repro_torch.models.layers import KVCache
 from repro_torch.models.mamba2 import Mamba2Cache
+from repro_torch.train.optimizer import OptState
+from repro_torch.train.train_step import TrainState
+from repro_torch.train.tree import tree_leaves, tree_map
 
 __all__ = ["graph_from_numpy", "problem_from_numpy", "state_from_numpy",
            "state_to_numpy", "lm_params_from_numpy", "lm_params_to_numpy",
-           "lm_cache_to_numpy"]
+           "lm_cache_to_numpy", "train_state_from_numpy",
+           "train_state_to_numpy"]
 
 _PHILOX = ("a rng='philox' state cannot cross between the packages: a "
            "jax.random key and a torch.Generator are different streams; "
@@ -161,22 +168,6 @@ def _tensor(a, dev):
     return torch.from_numpy(np.array(a)).to(dev)
 
 
-def _tree_map(fn, tree):
-    if isinstance(tree, dict):
-        return {k: _tree_map(fn, v) for k, v in tree.items()}
-    if isinstance(tree, (tuple, list)):
-        return type(tree)(_tree_map(fn, v) for v in tree)
-    return fn(tree)
-
-
-def _leaves(tree):
-    if isinstance(tree, dict):
-        tree = list(tree.values())
-    if isinstance(tree, (tuple, list)):
-        return [x for v in tree for x in _leaves(v)]
-    return [tree]
-
-
 def lm_params_from_numpy(cfg, tree, device=None) -> dict:
     """The reference's LM parameter tree (numpy leaves; each of
     ``groups``/``enc_groups``/``dec_groups`` a tuple of block trees whose
@@ -189,14 +180,14 @@ def lm_params_from_numpy(cfg, tree, device=None) -> dict:
     out = {}
     for key, val in tree.items():
         if key in _LM_GROUPS:
-            n = int(np.shape(_leaves(val)[0])[0])
+            n = int(np.shape(tree_leaves(val)[0])[0])
             if n != want[key]:
                 raise ValueError(f"{cfg.name}: {n} {key}, the config has "
                                  f"{want[key]}")
-            out[key] = [_tree_map(lambda a, g=g: _tensor(np.asarray(a)[g], dev),
+            out[key] = [tree_map(lambda a, g=g: _tensor(np.asarray(a)[g], dev),
                                   tuple(val)) for g in range(n)]
         else:
-            out[key] = _tree_map(lambda a: _tensor(a, dev), val)
+            out[key] = tree_map(lambda a: _tensor(a, dev), val)
     return out
 
 
@@ -211,9 +202,9 @@ def _numpy(t) -> np.ndarray:
 def _stack_groups(groups):
     """A list of per-group trees -> one tree of numpy leaves stacked on
     a leading group axis (the reference's layout)."""
-    flat = [_leaves(g) for g in groups]
+    flat = [tree_leaves(g) for g in groups]
     stacked = iter([np.stack(xs) for xs in zip(*flat)])
-    return _tree_map(lambda _: next(stacked), groups[0])
+    return tree_map(lambda _: next(stacked), groups[0])
 
 
 def lm_params_to_numpy(params) -> dict:
@@ -222,9 +213,9 @@ def lm_params_to_numpy(params) -> dict:
     out = {}
     for key, val in params.items():
         if key in _LM_GROUPS:
-            out[key] = _stack_groups(_tree_map(_numpy, val))
+            out[key] = _stack_groups(tree_map(_numpy, val))
         else:
-            out[key] = _tree_map(_numpy, val)
+            out[key] = tree_map(_numpy, val)
     return out
 
 
@@ -248,3 +239,41 @@ def lm_cache_to_numpy(caches) -> dict:
         out[key] = _stack_groups(fields) if isinstance(val, list) and val \
             else fields
     return out
+
+
+_OPT_TREES = ("m", "v", "m_scale", "v_scale")
+
+
+def _field(tree, name):
+    return tree[name] if isinstance(tree, dict) else getattr(tree, name)
+
+
+def train_state_from_numpy(cfg, tree, device=None) -> TrainState:
+    """The reference's ``TrainState`` with numpy leaves (or a dict
+    ``{"params": ..., "opt": {"step", "m", "v", "m_scale", "v_scale"}}``
+    of them) -> the port's on ``device`` (CUDA unless ``device="cpu"``):
+    every tree of the parameters' structure goes through
+    ``lm_params_from_numpy``; ``m_scale``/``v_scale`` are ``None`` for
+    f32 moments."""
+    dev = resolve_device(device)
+    opt = _field(tree, "opt")
+    trees = {k: (None if _field(opt, k) is None else
+                 lm_params_from_numpy(cfg, _field(opt, k), dev))
+             for k in _OPT_TREES}
+    step = torch.tensor(int(np.asarray(_field(opt, "step"))),
+                        dtype=torch.int32, device=dev)
+    return TrainState(
+        params=lm_params_from_numpy(cfg, _field(tree, "params"), dev),
+        opt=OptState(step=step, **trees))
+
+
+def train_state_to_numpy(state: TrainState) -> dict:
+    """The port's ``TrainState`` -> ``{"params": ..., "opt": {"step", "m",
+    "v", "m_scale", "v_scale"}}`` in the reference's layout (numpy
+    leaves, groups stacked; bf16 as f32)."""
+    opt = state.opt
+    return {"params": lm_params_to_numpy(state.params),
+            "opt": dict({"step": _numpy(opt.step)}, **{
+                k: (None if getattr(opt, k) is None else
+                    lm_params_to_numpy(getattr(opt, k)))
+                for k in _OPT_TREES})}

@@ -6,14 +6,20 @@ Pure functional: ``init_*`` build parameter trees (dict leaves) on the
 host from a seeded numpy generator, ``*_fwd`` apply them to tensors on
 any device.  The arithmetic is the reference's, in plain PyTorch, with
 JAX's type promotion made explicit where ``torch.einsum`` would refuse
-mixed dtypes (``_einsum``).  The reference's mesh hints (``shard_hint``,
-``batch_hint``, ``residual_hint``) are no-ops on one device and are not
-ported.  A cache write returns new tensors: a cache given to a call is
-never changed.
+mixed dtypes (``_einsum``).  A cache write returns new tensors: a cache
+given to a call is never changed.
+
+The mesh hints (``shard_hint``, ``batch_hint``, ``residual_hint``) act
+against the ambient mesh that ``set_mesh`` enters (a ``torch.distributed``
+``DeviceMesh`` with named dimensions; the counterpart of JAX's
+``set_mesh``): under it a hint redistributes a DTensor activation to the
+hinted placements.  With no mesh, or on a plain tensor, a hint is a no-op,
+so the model code stays mesh-agnostic.
 """
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import functools
 from typing import Optional
@@ -26,7 +32,8 @@ from repro_torch.core.device import resolve_device
 __all__ = ["rms_norm", "init_rms", "init_dense", "dense",
            "rope_freqs", "apply_rope", "apply_mrope",
            "init_attention", "attention_fwd", "init_mlp", "mlp_fwd",
-           "KVCache", "init_kv_cache"]
+           "KVCache", "init_kv_cache", "set_mesh", "ambient_mesh",
+           "shard_hint", "batch_hint", "residual_hint", "BATCH_AXES"]
 
 # ---------------------------------------------------------------------------
 # basics
@@ -147,20 +154,112 @@ def init_attention(rng, d_model: int, n_heads: int, n_kv: int, d_head: int,
     }
 
 
+# ---------------------------------------------------------------------------
+# the ambient mesh and the sharding hints
+# ---------------------------------------------------------------------------
+
+_MESHES: list = []
+
+
+@contextlib.contextmanager
+def set_mesh(mesh):
+    """Within the scope ``mesh`` (a ``DeviceMesh`` with named dimensions)
+    is the ambient mesh of the hints and of the MoE dispatch."""
+    _MESHES.append(mesh)
+    try:
+        yield mesh
+    finally:
+        _MESHES.pop()
+
+
+def ambient_mesh():
+    return _MESHES[-1] if _MESHES else None
+
+
+def _is_dtensor(x) -> bool:
+    from torch.distributed.tensor import DTensor
+    return isinstance(x, DTensor)
+
+
+def shard_hint(x, *spec):
+    """Best-effort layout constraint against the ambient mesh.
+
+    Entries name mesh axes (or tuples of axes); axes missing from the
+    ambient mesh or not dividing the dim are dropped; every other dim is
+    unconstrained (it keeps its placement, unless a hinted dim needs its
+    mesh axis).  A no-op outside ``set_mesh`` or on a plain tensor."""
+    mesh = ambient_mesh()
+    if mesh is None or not _is_dtensor(x):
+        return x
+    from torch.distributed.tensor import Replicate, Shard
+    from repro_torch.sharding.rules import mesh_sizes
+    sizes = mesh_sizes(mesh)
+    target = {}                         # mesh axis -> tensor dim
+    for i, a in enumerate(spec):
+        if a is None:
+            continue
+        axes = (a,) if isinstance(a, str) else tuple(
+            ax for ax in a if ax in sizes)
+        if axes and all(ax in sizes for ax in axes):
+            k = int(np.prod([sizes[ax] for ax in axes]))
+            if k > 1 and x.shape[i] % k == 0:
+                target.update({ax: i for ax in axes})
+    if not target:
+        return x
+    pinned = set(target.values())
+    placements = []
+    for name, cur in zip(mesh.mesh_dim_names, x.placements):
+        if name in target:
+            placements.append(Shard(target[name]))
+        elif cur.is_shard() and cur.dim in pinned:
+            placements.append(Replicate())
+        else:
+            placements.append(cur)
+    if tuple(placements) == tuple(x.placements):
+        return x
+    return x.redistribute(mesh, placements)
+
+
+BATCH_AXES = ("pod", "data")
+
+
+def batch_hint(x):
+    """Pin the leading (batch) dim of an activation to the data axes."""
+    if x.dim() < 2:
+        return x
+    return shard_hint(x, BATCH_AXES, *([None] * (x.dim() - 1)))
+
+
+def residual_hint(x, seq_parallel: bool = False):
+    """Residual-stream layout at layer boundaries: batch on the data axes
+    and, when ``seq_parallel``, the sequence dim on 'model' (Megatron-SP
+    style)."""
+    if x.dim() != 3:
+        return batch_hint(x)
+    if seq_parallel:
+        return shard_hint(x, BATCH_AXES, "model", None)
+    return batch_hint(x)
+
+
 def _sdpa(q, k, v, mask, d_head):
     """q (B,S,H,Dh), k/v (B,Skv,Hkv,Dh); mask (B,1,S,Skv) bool.
 
     GQA repeats each K/V head ``H // Hkv`` times in place
     (``jnp.repeat``'s order: head h reads K/V head h // rep).  A fully
     masked row fills with -1e30, not -inf, and so gets uniform
-    probabilities rather than NaN."""
+    probabilities rather than NaN.  Under a mesh the heads are hinted onto
+    'model', as the reference hints them."""
     B, S, H, Dh = q.shape
     Hkv = k.shape[2]
     if Hkv != H:
         rep = H // Hkv
         k = k.repeat_interleave(rep, dim=2)
         v = v.repeat_interleave(rep, dim=2)
+    q = shard_hint(q, None, None, "model", None)
+    k = shard_hint(k, None, None, "model", None)
+    v = shard_hint(v, None, None, "model", None)
     logits = _einsum("bshd,bthd->bhst", q, k)          # (B,H,S,Skv)
+    logits = shard_hint(logits, None, "model", None, None)
     logits = logits.float() / float(np.sqrt(d_head))
     logits = torch.where(mask, logits, -1e30)
     probs = torch.softmax(logits, dim=-1).to(q.dtype)
@@ -173,17 +272,33 @@ def _sdpa(q, k, v, mask, d_head):
 Q_CHUNK = 1024
 
 
+def remat(fn):
+    """``fn`` with its activations recomputed in the backward pass
+    (``jax.checkpoint``): ``torch.utils.checkpoint`` without reentry."""
+    from torch.utils.checkpoint import checkpoint
+    return functools.wraps(fn)(
+        lambda *a: checkpoint(fn, *a, use_reentrant=False))
+
+
 def _chunked_causal_sdpa(q, k, v, positions, window, d_head, q_chunk):
+    """Attention one query chunk at a time; where gradients flow, each
+    chunk is rematerialised in the backward pass (the reference's
+    ``jax.checkpoint`` on its scan body), so what is kept per layer is one
+    chunk's f32 probabilities, not S^2 of them."""
     B, S, H, Dh = q.shape
     kp = positions[:, None, :]                      # (B, 1, Skv)
-    outs = []
-    for c in range(S // q_chunk):
-        qc = q[:, c * q_chunk:(c + 1) * q_chunk]
-        pqc = positions[:, c * q_chunk:(c + 1) * q_chunk]
+
+    def body(qc, pqc, k, v):
         valid = kp <= pqc[:, :, None]
         if window is not None:
             valid &= kp > pqc[:, :, None] - window
-        outs.append(_sdpa(qc, k, v, valid[:, None], d_head))
+        return _sdpa(qc, k, v, valid[:, None], d_head)
+
+    if torch.is_grad_enabled():
+        body = remat(body)
+    outs = [body(q[:, c * q_chunk:(c + 1) * q_chunk],
+                 positions[:, c * q_chunk:(c + 1) * q_chunk], k, v)
+            for c in range(S // q_chunk)]
     return torch.cat(outs, dim=1)
 
 

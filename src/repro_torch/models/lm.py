@@ -14,8 +14,13 @@ convert).  Caches follow the same layout.
 seed)`` at the reference's scales (f32, then cast to the compute dtype),
 so the CPU and the card get the same weights; the reference's
 ``jax.random`` draws cannot be reproduced, and parity goes through carried
-weights.  ``train`` is accepted and changes nothing: rematerialisation is
-a training concern.
+weights.
+
+``train=True`` with ``cfg.remat`` rematerialises each group in the
+backward pass (``layers.remat``, the reference's ``jax.checkpoint`` on its
+scan body), and each block of a one-block group as well (its nested
+remat); the values are the same either way.  Under ``layers.set_mesh``
+the batch and logits hints of the reference lay out DTensor activations.
 """
 
 from __future__ import annotations
@@ -25,8 +30,8 @@ import torch
 
 from repro_torch.core.device import resolve_device
 from .blocks import BlockSpec, block_fwd, init_block, init_block_cache
-from .layers import KVCache, dense, init_dense, init_rms, normal, rms_norm, \
-    rope_freqs
+from .layers import BATCH_AXES, KVCache, batch_hint, dense, init_dense, \
+    init_rms, normal, remat, rms_norm, rope_freqs, shard_hint
 
 __all__ = ["CausalLM", "EncDecLM", "build_model", "cross_entropy"]
 
@@ -41,12 +46,25 @@ def _to(tree, device):
 
 
 def cross_entropy(logits, targets, mask):
-    """Mean next-token CE over masked positions; logits (B,S,V) any dtype."""
+    """Mean next-token CE over masked positions; logits (B,S,V) any dtype.
+    A DTensor's vocabulary dim is gathered first: DTensor has no sharding
+    rule for ``gather`` along a sharded dim."""
+    if hasattr(logits, "placements"):
+        logits = _replicate_dim(logits, logits.dim() - 1)
     logits = logits.float()
     lse = torch.logsumexp(logits, dim=-1)
     tgt = torch.gather(logits, -1, targets[..., None].long())[..., 0]
     nll = (lse - tgt) * mask
     return nll.sum() / torch.clamp(mask.sum(), min=1.0)
+
+
+def _replicate_dim(x, dim: int):
+    """A DTensor with every mesh axis that shards ``dim`` replicated."""
+    from torch.distributed.tensor import Replicate
+    pl = [Replicate() if p.is_shard() and p.dim == dim else p
+          for p in x.placements]
+    return x if tuple(pl) == tuple(x.placements) else \
+        x.redistribute(x.device_mesh, pl)
 
 
 def _embed(params, tokens):
@@ -114,10 +132,12 @@ class CausalLM(torch.nn.Module):
             x = _embed(params, tokens)
         else:
             x = embeds.to(cfg.compute_dtype)
+        x = batch_hint(x)
         B, S = x.shape[:2]
         if positions is None:
             positions = _positions(caches, B, S, x.device)
         aux = torch.zeros((), dtype=torch.float32, device=x.device)
+        rm = train and cfg.remat
 
         new_pre = []
         for i, spec in enumerate(cfg.prelude):
@@ -127,25 +147,40 @@ class CausalLM(torch.nn.Module):
             new_pre.append(c)
             aux = aux + a
 
-        new_gc, auxs = [], []
-        for g, gp in enumerate(params["groups"]):
-            gc = None if caches is None else caches["groups"][g]
+        def group_body(x, gp, gc):
+            x = batch_hint(x)   # keep batch on the data axes
             a_sum = torch.zeros((), dtype=torch.float32, device=x.device)
             new_cs = []
             for b, spec in enumerate(cfg.group):
                 c = None if gc is None else gc[b]
-                x, c, a = block_fwd(gp[b], spec, cfg, x, positions,
-                                    self.freqs, cache=c,
-                                    positions3=positions3)
+
+                def one_block(x, c, gpb=gp[b], spec=spec):
+                    return block_fwd(gpb, spec, cfg, x, positions,
+                                     self.freqs, cache=c,
+                                     positions3=positions3)
+                if rm and len(cfg.group) == 1:
+                    # nested remat: backward holds one block's internals
+                    # at a time instead of the whole layer's
+                    one_block = remat(one_block)
+                x, c, a = one_block(x, c)
                 new_cs.append(c)
                 a_sum = a_sum + a
-            new_gc.append(tuple(new_cs))
+            return x, tuple(new_cs), a_sum
+
+        body = remat(group_body) if rm else group_body
+        new_gc, auxs = [], []
+        for g, gp in enumerate(params["groups"]):
+            gc = None if caches is None else caches["groups"][g]
+            x, new_cs, a_sum = body(x, gp, gc)
+            new_gc.append(new_cs)
             auxs.append(a_sum)
         if auxs:
             aux = aux + torch.stack(auxs).sum()
 
-        x = rms_norm(params["final_norm"], x)
+        x = batch_hint(rms_norm(params["final_norm"], x))
         logits = dense(params["lm_head"], x)
+        # logits: batch on data axes, padded vocab on model
+        logits = shard_hint(logits, BATCH_AXES, None, "model")
         new_caches = None
         if caches is not None:
             new_caches = {"prelude": tuple(new_pre), "groups": new_gc}
@@ -228,10 +263,17 @@ class EncDecLM(torch.nn.Module):
         x = frames.to(cfg.compute_dtype)
         B, S = x.shape[:2]
         positions = _positions(None, B, S, x.device)
-        for gp in params["enc_groups"]:
+
+        def body(x, gp):
+            x = batch_hint(x)
             for b, spec in enumerate(self.enc_group):
                 x, _, _ = block_fwd(gp[b], spec, cfg, x, positions, self.freqs,
                                     causal=False)
+            return x
+
+        bodyf = remat(body) if (train and cfg.remat) else body
+        for gp in params["enc_groups"]:
+            x = bodyf(x, gp)
         return rms_norm(params["enc_norm"], x)
 
     def decode(self, params, tokens, enc_out, caches=None, train: bool = False):
@@ -239,18 +281,26 @@ class EncDecLM(torch.nn.Module):
         x = _embed(params, tokens)
         B, S = x.shape[:2]
         positions = _positions(caches, B, S, x.device)
-        new_gc = []
-        for g, gp in enumerate(params["dec_groups"]):
-            gc = None if caches is None else caches["groups"][g]
+
+        def body(x, gp, gc):
+            x = batch_hint(x)
             new_cs = []
             for b, spec in enumerate(self.dec_group):
                 c = None if gc is None else gc[b]
                 x, c, _ = block_fwd(gp[b], spec, cfg, x, positions, self.freqs,
                                     cache=c, enc_out=enc_out)
                 new_cs.append(c)
-            new_gc.append(tuple(new_cs))
-        x = rms_norm(params["final_norm"], x)
+            return x, tuple(new_cs)
+
+        bodyf = remat(body) if (train and cfg.remat) else body
+        new_gc = []
+        for g, gp in enumerate(params["dec_groups"]):
+            gc = None if caches is None else caches["groups"][g]
+            x, new_cs = bodyf(x, gp, gc)
+            new_gc.append(new_cs)
+        x = batch_hint(rms_norm(params["final_norm"], x))
         logits = dense(params["lm_head"], x)
+        logits = shard_hint(logits, BATCH_AXES, None, "model")
         return logits, (None if caches is None else {"groups": new_gc})
 
     def loss(self, params, batch, train: bool = True):

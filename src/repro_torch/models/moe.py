@@ -1,12 +1,16 @@
 """Mixture-of-experts FFN: top-k routing, sort-based capacity dispatch,
 optional shared experts (DeepSeekMoE-style fine-grained + shared); port of
-``repro.models.moe``'s one-device path.
+``repro.models.moe``.
 
-Dispatch is token-local (sort by expert id into an (E, C, d) buffer).
-Over-capacity tokens are dropped (standard GShard/Switch semantics,
-capacity_factor 1.25 by default).  The reference's ``shard_map`` path
-under a multi-device mesh (``_moe_fwd_dist``) is not ported: one device
-runs the local path, which is all the reference runs there too.
+Dispatch is token-local (sort by expert id into an (E, C, d) buffer), so no
+all-to-all is required when expert weights are tensor-parallel over the
+'model' mesh axis and tokens stay on 'data'.  Over-capacity tokens are
+dropped (standard GShard/Switch semantics, capacity_factor 1.25 by
+default).  Under an ambient mesh (``layers.set_mesh``) with DTensor
+activations, ``_moe_fwd_dist`` is the reference's ``shard_map`` dispatch
+written with ``to_local``: each data rank routes its own tokens against
+its F shard of the expert weights, the partial sums are all-reduced over
+'model' and the auxiliary loss is averaged over the batch axes.
 """
 
 from __future__ import annotations
@@ -16,7 +20,9 @@ from typing import Optional, Tuple
 import numpy as np
 import torch
 
-from .layers import _einsum, init_mlp, mlp_fwd, normal, silu
+from repro_torch.sharding.rules import mesh_sizes
+from .layers import (_einsum, _is_dtensor, ambient_mesh, init_mlp, mlp_fwd,
+                     normal, silu)
 
 __all__ = ["init_moe", "moe_fwd"]
 
@@ -41,8 +47,108 @@ def init_moe(rng, d_model: int, d_ff_expert: int, n_experts: int,
 
 def moe_fwd(p, x, *, top_k: int, capacity_factor: float = 1.25
             ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """x (B, S, D) -> (out, aux_loss)."""
+    """x (B, S, D) -> (out, aux_loss).
+
+    Under a multi-device ambient mesh this dispatches token-locally: the
+    argsort-based capacity dispatch is not a sharded global op, so each
+    rank routes its own tokens against the F-sharded expert weights and
+    one all-reduce over 'model' replaces the dense-FFN TP reduction."""
+    dist = _dist_plan(x)
+    if dist is not None:
+        return _moe_fwd_dist(p, x, top_k=top_k,
+                             capacity_factor=capacity_factor, plan=dist)
     return _moe_fwd_local(p, x, top_k=top_k, capacity_factor=capacity_factor)
+
+
+def _dist_plan(x):
+    """(mesh, batch_axes, model_axis?) if a usable ambient mesh is present
+    and ``x`` is a DTensor on it."""
+    mesh = ambient_mesh()
+    if mesh is None or not _is_dtensor(x):
+        return None
+    sizes = mesh_sizes(mesh)
+    baxes = tuple(a for a in ("pod", "data") if sizes.get(a, 1) > 1)
+    if not baxes:
+        return None
+    nb = int(np.prod([sizes[a] for a in baxes]))
+    if x.shape[0] % nb != 0:
+        return None
+    m_ax = "model" if sizes.get("model", 1) > 1 else None
+    return (mesh, baxes, m_ax)
+
+
+def _moe_fwd_dist(p, x, *, top_k, capacity_factor, plan):
+    """The reference's ``shard_map`` block on this rank's pieces.
+
+    Each operand is laid out as the reference's ``in_specs`` lay it out
+    and taken with ``to_local``; the gradient placements said there make
+    autograd sum what the reference's transpose sums: over 'model' the
+    partial F-contractions (when F is split), over the batch axes the
+    per-rank routing.  The output is a Partial over 'model' turned
+    Replicate (the all-reduce of the F-contraction partial sums); the
+    auxiliary loss is each rank's share of the batch-axes mean, summed."""
+    from torch.distributed.tensor import DTensor, Partial, Replicate, Shard
+    mesh, baxes, m_ax = plan
+    names = mesh.mesh_dim_names
+    sizes = mesh_sizes(mesh)
+    F = p["wi"].shape[-1]
+    f_ok = m_ax is not None and F % sizes[m_ax] == 0
+    has_shared = "shared" in p
+    s_ok = has_shared and f_ok and \
+        p["shared"]["wi"]["w"].shape[-1] % sizes[m_ax] == 0
+    # over 'model' a gradient is a sum of F-partials when F is split, else
+    # every model rank holds the whole of it
+    m_grad = Partial() if f_ok else Replicate()
+
+    def take(t, fwd, grad):
+        if not _is_dtensor(t):
+            t = DTensor.from_local(t, mesh, [Replicate()] * len(names),
+                                   run_check=False)
+        return t.redistribute(mesh, fwd).to_local(grad_placements=grad)
+
+    def lay(f):
+        return [f(n) for n in names]
+
+    def weight(t, dim, split):
+        """An expert or shared weight, its dim ``dim`` over 'model' when
+        ``split``."""
+        fwd = lay(lambda n: Shard(dim) if split and n == m_ax
+                  else Replicate())
+        grad = lay(lambda n: Partial() if n in baxes else
+                   (Shard(dim) if split and n == m_ax else
+                    (m_grad if n == m_ax else Replicate())))
+        return take(t, fwd, grad)
+
+    xb = lay(lambda n: Shard(0) if n in baxes else Replicate())
+    xl = take(x, xb, lay(lambda n: Shard(0) if n in baxes else
+                         (m_grad if n == m_ax else Replicate())))
+    pp = {"router": take(p["router"], lay(lambda n: Replicate()),
+                         lay(lambda n: Partial() if n in baxes else
+                             (m_grad if n == m_ax else Replicate()))),
+          "wi": weight(p["wi"], 2, f_ok), "wg": weight(p["wg"], 2, f_ok),
+          "wo": weight(p["wo"], 1, f_ok)}
+    if has_shared:
+        sh = p["shared"]
+        pp["shared"] = {"wi": {"w": weight(sh["wi"]["w"], 1, s_ok)},
+                        "wg": {"w": weight(sh["wg"]["w"], 1, s_ok)},
+                        "wo": {"w": weight(sh["wo"]["w"], 0, s_ok)}}
+    out, aux = _moe_fwd_local(pp, xl, top_k=top_k,
+                              capacity_factor=capacity_factor)
+    # F-contraction partial sums: a Partial over 'model', all-reduced
+    out = DTensor.from_local(
+        out, mesh, lay(lambda n: Shard(0) if n in baxes else
+                       (m_grad if n == m_ax else Replicate())),
+        run_check=False, shape=x.shape, stride=x.stride())
+    out = out.redistribute(mesh, xb)
+    # aux: the mean over the batch axes, as a sum of each rank's share
+    # (model ranks hold the same aux; with F split they share it too)
+    share = int(np.prod([sizes[a] for a in baxes])) * \
+        (sizes[m_ax] if f_ok else 1)
+    aux = DTensor.from_local(
+        aux / share, mesh, lay(lambda n: Partial() if n in baxes or
+                               (f_ok and n == m_ax) else Replicate()),
+        run_check=False, shape=(), stride=())
+    return out, aux.redistribute(mesh, lay(lambda n: Replicate()))
 
 
 def _top_k(probs, k: int):

@@ -42,10 +42,12 @@ NO_COUNTERPART = {
     "compat.py": "jax-version shim",
     "analyze/jaxpr_utils.py": "replaced by analyze/ops_trace.py",
 }
-# the seed's LM training scaffolding, ROADMAP queue A item 12b (not yet
-# ported; serving, 12a, is)
-A12_DIRS = ("train/", "launch/", "sharding/")
-A12_FILES = ()
+# the TPU dry-run tools, ROADMAP queue A item 12c (the next slice; the
+# LM's serving, 12a, and training, 12b, are ported): they lower a chunk
+# through XLA on 512 placeholder devices and parse its HLO against TPU
+# constants; their counterpart is a trace of the port's own
+A12_DIRS = ()
+A12_FILES = ("launch/dryrun.py", "launch/roofline.py")
 
 
 def _ref_modules():

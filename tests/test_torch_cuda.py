@@ -1207,3 +1207,94 @@ def test_build_model_defaults_to_the_card(cuda):
     params = model.init(0)
     assert all(t.device.type == "cuda" for t in params["groups"][0][0][
         "mamba"].values() if isinstance(t, torch.Tensor))
+
+
+# -- LM training (repro_torch.train): no hand kernel ----------------------
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name,int8", [("deepseek-7b", False),
+                                       ("deepseek-moe-16b", False),
+                                       ("mamba2-370m", False),
+                                       ("jamba-v0.1-52b", False),
+                                       ("deepseek-7b", True)])
+def test_train_steps_card_equal_cpu(cuda, name, int8):
+    """Four reduced f32 ``make_train_step`` steps on the card: each loss
+    and gradient norm within 1e-5 relative of the CPU's, the parameters
+    within 1e-3, and none of the hand kernels launched."""
+    from repro_torch.configs import get_config
+    from repro_torch.models.lm import build_model
+    from repro_torch.train.data import MarkovLM
+    from repro_torch.train.optimizer import AdamW
+    from repro_torch.train.train_step import TrainState, make_train_step
+    from repro_torch.train.tree import tree_leaves
+    cfg = get_config(name).reduced()
+    batches = [b for _, b in zip(range(4), MarkovLM(cfg.vocab, seed=1)
+                                 .batches(8, 32))]
+    out = {}
+    _build.reset_launch_counts()
+    for dev in ("cpu", cuda):
+        model = build_model(cfg, dev)
+        params = model.init(0)
+        opt = AdamW(lr=3e-3, warmup=5, int8_state=int8)
+        st = TrainState(params, opt.init(params))
+        step = make_train_step(model, opt)
+        ms = []
+        for b in batches:
+            st, m = step(st, {k: torch.from_numpy(v).to(dev)
+                              for k, v in b.items()})
+            ms.append((float(m["loss"]), float(m["grad_norm"])))
+        out[str(dev)] = (ms, [x.cpu() for x in tree_leaves(st.params)])
+    assert not any(_build.launch_counts.values())
+    (mc, pc), (mg, pg) = out["cpu"], out[str(cuda)]
+    for a, b in zip(mc, mg):
+        assert all(abs(x - y) <= 1e-5 * abs(x) for x, y in zip(a, b))
+    assert max(float((a - b).abs().max()) for a, b in zip(pc, pg)) < 1e-3
+
+
+@pytest.mark.cuda
+def test_remat_and_checkpoint_on_the_card(cuda, tmp_path):
+    """Remat on == off on the card (within 1e-6 of the gradients' largest
+    magnitude), and a checkpoint of a bf16 state restores bitwise."""
+    import dataclasses
+    from repro_torch.configs import get_config
+    from repro_torch.models.lm import build_model
+    from repro_torch.train import checkpoint as ckpt
+    from repro_torch.train.optimizer import AdamW
+    from repro_torch.train.train_step import TrainState
+    from repro_torch.train.tree import tree_flatten, tree_leaves, tree_map
+    cfg = get_config("h2o-danube-1.8b").reduced()
+    params = build_model(cfg, cuda).init(0)
+    toks = torch.from_numpy(np.random.default_rng(2).integers(
+        0, cfg.vocab, (2, 2048)).astype(np.int32)).to(cuda)
+    batch = {"tokens": toks, "targets": toks, "mask": torch.ones_like(toks)}
+    grads = []
+    for c in (cfg, dataclasses.replace(cfg, remat=False)):
+        leaves, unflatten = tree_flatten(params)
+        xs = [p.detach().requires_grad_() for p in leaves]
+        loss = build_model(c, cuda).loss(unflatten(xs), batch, train=True)
+        grads.append(torch.autograd.grad(loss, xs))
+    scale = max(float(g.abs().max()) for g in grads[0])
+    assert max(float((a - b).abs().max())
+               for a, b in zip(*grads)) <= 1e-6 * scale
+    p16 = tree_map(lambda x: x.to(torch.bfloat16), params)
+    st = TrainState(p16, AdamW(int8_state=True).init(p16))
+    ckpt.save(str(tmp_path), 1, st, blocking=False)
+    ckpt.wait_pending()
+    back = ckpt.restore(str(tmp_path), tree_map(torch.empty_like, st))
+    assert all(a.dtype == b.dtype and b.device == a.device
+               and torch.equal(a, b)
+               for a, b in zip(tree_leaves(st), tree_leaves(back)))
+
+
+@pytest.mark.cuda
+def test_train_launcher_defaults_to_the_card(cuda, tmp_path, capsys):
+    from repro_torch.launch.train import main
+    res = main(["--arch", "mamba2-370m", "--reduced", "--steps", "12",
+                "--batch", "4", "--seq", "32", "--log-every", "4",
+                "--ckpt", str(tmp_path), "--ckpt-every", "6"])
+    assert len(res["losses"]) == 12 and res["start_step"] == 0
+    again = main(["--arch", "mamba2-370m", "--reduced", "--steps", "14",
+                  "--batch", "4", "--seq", "32", "--ckpt", str(tmp_path)])
+    assert again["start_step"] == 12 and len(again["losses"]) == 2
+    assert "restored checkpoint at step 12" in capsys.readouterr().out

@@ -254,3 +254,61 @@ def test_serve_lm_main_writes_its_record(tmp_path, capsys):
     assert list(rec["result"]) == list(out) and len(out) == 4
     assert all(v == 0 for v in rec["launches"].values())
     assert capsys.readouterr().out.count("reduced config") == 4
+
+
+def _flags(src):
+    """{flag: default} of every ``add_argument`` call in ``src``."""
+    import ast
+    out = {}
+    for c in ast.walk(ast.parse(src)):
+        if isinstance(c, ast.Call) and getattr(c.func, "attr", None) == \
+                "add_argument":
+            kw = {k.arg: k.value for k in c.keywords}
+            out[c.args[0].value] = (ast.literal_eval(kw["default"])
+                                    if "default" in kw else None)
+    return out
+
+
+def test_train_lm_mirrors_the_reference_example():
+    """examples/torch_train_lm.py and repro_torch.launch.train: the
+    reference's flags and defaults (plus ``--device``, default cuda), the
+    reference example's default arguments but for the checkpoint's
+    directory (the temp directory, not /tmp), no JAX."""
+    import ast
+    ref = (ROOT / "src" / "repro" / "launch" / "train.py").read_text()
+    mine = (ROOT / "src" / "repro_torch" / "launch" / "train.py").read_text()
+    want = _flags(ref)
+    got = _flags(mine)
+    assert got.pop("--device") == "cuda" and got == want
+    tree = ast.parse((ROOT / "examples" / "train_lm.py").read_text())
+    ref_argv = next(ast.literal_eval(n.value) for n in ast.walk(tree)
+                    if isinstance(n, ast.AugAssign))
+    mod = load("train_lm")
+    i = ref_argv.index("--ckpt")
+    assert mod.DEFAULTS[:i + 1] == ref_argv[:i + 1]
+    assert mod.DEFAULTS[i + 2:] == ref_argv[i + 2:]
+    assert mod.DEFAULTS[i + 1].startswith(__import__("tempfile")
+                                          .gettempdir())
+    src = (ROOT / "examples" / "torch_train_lm.py").read_text()
+    assert not re.search(r"^\s*(from|import) (jax|repro)\b", src, re.M)
+
+
+def test_train_lm_main_writes_its_record(tmp_path, capsys):
+    """chip_smoke.py phase 13g runs the example through the same child:
+    its losses, the step it started from, and no hand kernel launched;
+    a second run resumes from the newest checkpoint."""
+    args = ["--arch", "mamba2-370m", "--reduced", "--steps", "6", "--batch",
+            "2", "--seq", "16", "--ckpt", str(tmp_path / "ck"),
+            "--ckpt-every", "3", "--log-every", "3", "--device", "cpu"]
+    record = tmp_path / "record.json"
+    out = load_chip_smoke().write_example_record(load("train_lm"), args,
+                                                 str(record))
+    rec = json.loads(record.read_text())
+    assert rec["result"]["losses"] == out["losses"] and len(out["losses"]) == 6
+    assert rec["result"]["start_step"] == 0
+    assert all(v == 0 for v in rec["launches"].values())
+    args[args.index("--steps") + 1] = "8"
+    again = load("train_lm").main(args)
+    assert again["start_step"] == 6 and len(again["losses"]) == 2
+    text = capsys.readouterr().out
+    assert "restored checkpoint at step 6" in text and "final loss" in text

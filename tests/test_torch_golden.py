@@ -325,3 +325,44 @@ def test_lm_golden_values_match_jax():
     smoke = chip_smoke()
     got = {name: ref_lm_golden(smoke, name) for name in smoke.LM_GOLDEN_ARCHS}
     assert got == smoke.LM_GOLDEN
+
+
+def ref_train_golden(smoke, name, int8):
+    """The JAX reference's ``make_train_step`` on the port's reduced-width
+    ``init(LM_SEED)`` weights of ``name`` over ``chip_smoke.train_batches``:
+    each step's loss and gradient norm, as ``chip_smoke.train_digest``
+    keeps them."""
+    import jax
+    import jax.numpy as jnp
+    from repro.configs import get_config as ref_get_config
+    from repro.models.lm import build_model as ref_build_model
+    from repro.train.optimizer import AdamW
+    from repro.train.train_step import TrainState, make_train_step
+    from repro_torch.configs import get_config
+    from repro_torch.interop import lm_params_to_numpy
+    from repro_torch.models.lm import build_model
+
+    cfg = get_config(name).reduced()
+    params = build_model(cfg, device="cpu").init(smoke.LM_SEED)
+    rmodel = ref_build_model(ref_get_config(name).reduced())
+    rparams = jax.tree.map(jnp.asarray, lm_params_to_numpy(params))
+    opt = AdamW(lr=smoke.TRAIN_LR, warmup=smoke.TRAIN_WARMUP,
+                int8_state=int8)
+    state = TrainState(params=rparams, opt=opt.init(rparams))
+    step = jax.jit(make_train_step(rmodel, opt))
+    losses, norms = [], []
+    for b in smoke.train_batches(cfg):
+        state, m = step(state, {k: jnp.asarray(v) for k, v in b.items()})
+        losses.append(m["loss"])
+        norms.append(m["grad_norm"])
+    return smoke.train_digest(losses, norms)
+
+
+def test_train_golden_values_match_jax():
+    """``TRAIN_GOLDEN``: the JAX reference's per-step loss and gradient
+    norm on the port's reduced-width weights, for every ``TRAIN_RUNS``
+    run (chip_smoke.py phase 13a holds the card to them)."""
+    smoke = chip_smoke()
+    got = {smoke.train_key(n, i): ref_train_golden(smoke, n, i)
+           for n, i in smoke.TRAIN_RUNS}
+    assert got == smoke.TRAIN_GOLDEN

@@ -111,13 +111,17 @@ def test_chip_smoke_fails_without_cuda_or_outside_the_repo(tmp_path):
     assert out.returncode != 0 and '"ok"' not in out.stdout
 
 
+LM_EXAMPLES = ("torch_serve_lm.py", "torch_train_lm.py")
+
+
 def test_the_port_has_six_examples():
-    """The paper's six examples, and the LM serving example beside them."""
-    assert [p.name for p in EXAMPLES if p.name != "torch_serve_lm.py"] == [
+    """The paper's six examples, and the LM serving and training examples
+    beside them."""
+    assert [p.name for p in EXAMPLES if p.name not in LM_EXAMPLES] == [
         "torch_eta_sweep.py", "torch_maxcut_gset.py", "torch_quickstart.py",
         "torch_sat3_invertible.py", "torch_serve_dashboard.py",
         "torch_serve_sampling.py"]
-    assert (ROOT / "examples" / "torch_serve_lm.py") in EXAMPLES
+    assert all(ROOT / "examples" / n in EXAMPLES for n in LM_EXAMPLES)
 
 
 def test_lm_entry_points_raise_without_cuda():
@@ -132,10 +136,14 @@ def test_lm_entry_points_raise_without_cuda():
         "m = build_model(cfg, device='cpu')\n"
         "p = m.init(0)\n"
         "b = {'tokens': torch.zeros((1, 4), dtype=torch.int32)}\n"
+        "from repro_torch.launch.mesh import make_production_mesh\n"
+        "from repro_torch.launch.train import main\n"
         "for fn in (lambda: build_model(cfg),\n"
         "           lambda: build_model(get_config('seamless-m4t-medium')),\n"
         "           lambda: init_kv_cache(1, 2, 4, 16),\n"
-        "           lambda: greedy_generate(m, cfg, p, b, 2)):\n"
+        "           lambda: greedy_generate(m, cfg, p, b, 2),\n"
+        "           lambda: main(['--arch', 'mamba2-370m', '--reduced']),\n"
+        "           lambda: make_production_mesh()):\n"
         "    try:\n"
         "        fn()\n"
         "    except RuntimeError as e:\n"

@@ -4,9 +4,10 @@ The port of the sampler cases of ``tests/test_property.py`` on the CPU:
 gauge and global-flip invariance of the energy, the 1-bit packing round
 trip, chunk planning, the fixed-point grid and greedy colouring.  Each
 example also runs the reference's function on the same numpy inputs and
-holds the port to it.  The ``q8_*`` and HLO-parser cases test the LM
-scaffolding (``repro.train``, ``repro.launch``) and go with its port
-(ROADMAP queue A item 12).
+holds the port to it.  The ``q8_*`` case tests the optimizer's int8
+moments (``repro_torch.train.optimizer``), its codes and scales bitwise to
+the reference's; the HLO-parser case goes with ``launch/roofline.py``
+(ROADMAP queue A item 12c).
 """
 
 import jax.numpy as jnp
@@ -23,6 +24,7 @@ from repro_torch.core.gibbs import chunk_plan
 from repro_torch.core.graph import from_edges, random_regular
 from repro_torch.core.packing import pack_pm1, unpack_pm1
 from repro_torch.core.pbit import FixedPoint, quantize
+from repro_torch.train.optimizer import q8_decode, q8_encode
 
 SET = dict(deadline=None, max_examples=20,
            suppress_health_check=[HealthCheck.too_slow])
@@ -131,3 +133,24 @@ def test_greedy_coloring_always_valid(n, d, seed):
     np.testing.assert_array_equal(
         col.colors, jcol.greedy_coloring(np.asarray(jg.idx),
                                          np.asarray(jg.w)).colors)
+
+
+@given(st.integers(1, 400), st.integers(0, 10 ** 6))
+@settings(**SET)
+def test_q8_error_bound(n, seed):
+    from repro.train.optimizer import q8_decode as j_decode
+    from repro.train.optimizer import q8_encode as j_encode
+    x = np.random.default_rng(seed).normal(0, 3, n).astype(np.float32)
+    q, s = q8_encode(torch.from_numpy(x))
+    y = q8_decode(q, s, (n,)).numpy()
+    # blockwise absmax: per-block error <= blockmax/127 (+eps)
+    pad = (-n) % 128
+    xp = np.pad(x, (0, pad)).reshape(-1, 128)
+    bm = np.abs(xp).max(axis=1)
+    err = np.abs(np.pad(x, (0, pad)).reshape(-1, 128) -
+                 np.pad(y, (0, pad)).reshape(-1, 128))
+    assert (err <= bm[:, None] / 127.0 + 1e-5).all()
+    jq, js = j_encode(jnp.asarray(x))
+    assert np.array_equal(q.numpy(), np.asarray(jq))
+    assert np.array_equal(s.numpy(), np.asarray(js))
+    assert np.array_equal(y, np.asarray(j_decode(jq, js, (n,))))
