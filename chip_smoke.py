@@ -72,21 +72,26 @@ Phases; every check raises on failure and the script then exits non-zero:
    busy share, device operations and time per colour phase beside the
    phase's byte floor);
 7. drive the distributed DSIM, ``make_engine("dsim_dist", partitioned)``
-   with every one of the K=8 partitions on the card: the ELL word
-   gather-count kernel against its plain version bitwise (at the L=100
-   operands of each colour, and at D = 3, 4 and 12 on random rows), the
+   with every one of the K=8 partitions on the card: B7's two routes
+   against their plain versions bitwise, the standalone ELL word
+   gather-count (at the L=100 operands of each colour, and at D = 3, 4
+   and 12 on random rows) and the fused colour phase (words, LFSR states
+   and flips: at the L=100 operands of each colour from the initial state
+   and after 16 sweeps, at D = 3, 4 and 12 on random rows with the odd
+   partitions padded, and at R=40), the
    JAX reference's golden values (int8 R=2 and bit-plane R=32 lanes 0-1
    reproduce ``DSIM_GOLDEN``, f32 R=2 ``DIST_GOLDEN`` within 0.5% with its
    LFSR digest), every ``DIST_RUNS`` configuration against its
    ``device="cpu"`` twin over 4 sweeps or its first sync period (int8
    and bit-plane bitwise, f32
    phase by phase as in phase 6), then timed (two runs each; the
-   bit-plane run launches the gather-count once per colour phase, no run
-   launches a lattice kernel), the exchange's time per call and the
-   measured eta (``dist_eta_meter``) at ``sync_every`` 1 and 8, one
-   profiled bit-plane run (device busy share, the gather-count's share of
-   the device time) and the gather-count timed against its plain version
-   and its bound;
+   bit-plane run launches the fused colour phase once per colour phase
+   and the standalone gather-count never, no run launches a lattice
+   kernel), the exchange's time per call and the measured eta
+   (``dist_eta_meter``) at ``sync_every`` 1 and 8, one profiled bit-plane
+   run (device busy share, device time per colour phase, the fused
+   kernel's share of the device time) and both routes timed against
+   their plain versions and their bounds;
 8. the degraded mesh and the sampling server: (a) both mesh engines'
    checked exchange at L=100 (``degrade=``): the lattice's ``MESH_RUNS``
    under ``stale_hold:8`` with no faults bitwise the unchecked run (and
@@ -106,17 +111,20 @@ Phases; every check raises on failure and the script then exits non-zero:
    ``failed`` with ``StateCorruption``), every job equal to a direct
    ``make_engine`` run of its seeds, the packed job equal to its solo
    run, the launch counters (0 just before the server is driven) showing
-   kernels #1-#4 and the gather-count launched from within it, and the
+   kernels #1-#4 and B7 (as the fused colour phase) launched from within
+   it, and the
    server's jobs/s and flips/s beside the direct runs';
 9. APT+ICM (``repro_torch.core.apt_icm.APTICM``) on the G81 shape
    (N=20,000, 2 chains x 64 temperatures): with ``HostDraws`` the card
    reproduces ``APT_GOLDEN`` (the JAX reference's digests, recomputed by
    ``tests/test_torch_golden.py``) in ``rng="lfsr"`` and packed mode and
-   equals its ``device="cpu"`` twin bitwise over 16 sweeps; the
-   gather-count kernel against its plain version at the packed shape
-   (K=1, W=4); ``philox`` f32, ``lfsr`` and packed (W=4) timed over 256
+   equals its ``device="cpu"`` twin bitwise over 16 sweeps; the fused
+   colour phase against its plain version at the packed shape (K=1, W=4,
+   words, LFSR states and energies bitwise, from the initial state and
+   after 16 sweeps), timed beside its bound and the standalone
+   gather-count; ``philox`` f32, ``lfsr`` and packed (W=4) timed over 256
    sweeps with an ICM every 10th (sweeps/s, p-bit updates/s, best cut;
-   packed launches the gather-count once per colour phase, the others no
+   packed launches the fused phase once per colour phase, the others no
    kernel), packed == lfsr bitwise with the card's generator, the ICM's
    share of the time and host syncs per ICM, one profiled packed run, and
    one ``adapt_ladder`` call;
@@ -130,11 +138,11 @@ Phases; every check raises on failure and the script then exits non-zero:
    record file (``example_child``): quickstart's int8 per-replica
    energies and its bit-plane best energy and lane-flips equal the JAX
    reference's exactly (``QUICKSTART_GOLDEN``), and it launches kernels
-   #1-#4 and the gather-count; sat3 satisfies at least 90% of its
+   #1-#4 and B7's fused colour phase; sat3 satisfies at least 90% of its
    clauses; maxcut prints a cut per trial and the hex line; eta_sweep a
    finite kappa in every row; serve_sampling's recovered jobs are
    bitwise its uninterrupted ones; the dashboard's degraded job has a
-   detection and a held exchange, its probe launches the gather-count,
+   detection and a held exchange, its probe launches the fused phase,
    and its Prometheus head is not empty; one line per example of its
    seconds and headline rate; then, in this process, quickstart's three
    lattice runs and packed APT+ICM and the dashboard's eta probe again
@@ -181,8 +189,10 @@ Phases; every check raises on failure and the script then exits non-zero:
    falls), and again to 140 steps: it resumes at step 120; (h) none of
    the hand kernels launched in the phase;
 14. print one JSON line of kernels (``launches`` over the main and mesh
-   paths, the bit-plane dist run's and the packed APT run's for the
-   gather-count, and the examples'; ``mesh_launches`` the mesh path's,
+   paths, the bit-plane dist run's and the packed APT run's for B7's
+   fused colour phase, whose entry also holds its times at the APT shape
+   (``apt``) and the standalone gather-count's route (``count``), and the
+   examples'; ``mesh_launches`` the mesh path's,
    ``server_launches`` the server path's, ``apt_launches`` the APT
    path's, ``example_launches`` each example's), the card's name and
    power limit, and last ``{"ok": true, "device": {...}}``.
@@ -233,8 +243,9 @@ PROFILED = ("int8 R=4", "bitplane R=64", "f32 R=4", "f32 s41 R=4",
 LATTICE_KERNELS = ("pbit_brick_sweep_int", "pbit_bitplane_sweep",
                    "brick_energy", "pbit_brick_sweep", "pbit_brick_update_int",
                    "pbit_brick_update")
-# the kernels line: the six lattice kernels and the ELL word gather-count
-# of the distributed DSIM's bit-plane path (phase 7)
+# the kernels line: the six lattice kernels and B7, the ELL word
+# gather-count of the bit-plane general-graph path, whose main-path route
+# is the fused colour phase (phases 7 and 9)
 KERNELS = LATTICE_KERNELS + ("bitplane_gather_count",)
 # an f32 site may be decided differently from the plain version only
 # within this many ulp of tanh(act) of its boundary
@@ -812,6 +823,8 @@ class Smoke:
         self.torch = torch
         self.dev = torch.device("cuda", 0)
         self.results = {}     # kernel name -> dict of measured fields
+        # B7's standalone gather-count route (the kernels line's "count")
+        self.gather_count = {"max_abs_err": 0.0}
         self.inputs_energy = {}   # R -> the energy's +-J inputs
 
     # -- helpers ---------------------------------------------------------
@@ -2435,8 +2448,8 @@ class Smoke:
 
     def phase_dist(self, card: str):
         """The distributed DSIM at L=100 through make_engine("dsim_dist"),
-        all K partitions on the card: the gather-count kernel against its
-        plain version, the JAX golden values, every DIST_RUNS
+        all K partitions on the card: B7's two routes against their plain
+        versions, the JAX golden values, every DIST_RUNS
         configuration against its device="cpu" twin over the first
         TWIN_SWEEPS sweeps, then timed over MAIN_SWEEPS with the launches
         counted, the
@@ -2466,17 +2479,19 @@ class Smoke:
                 t.cuda.synchronize()
                 walls.append(time.perf_counter() - t0)
             counts = {k: v for k, v in _build.launch_counts.items() if v}
-            gathers = counts.pop("bitplane_gather_count", 0)
+            gathers, fused, alone = self.pop_b7(counts)
             if hh.precision == "bitplane":
-                self.launches["bitplane_gather_count"] = gathers
-                check(gathers == phases and not counts,
-                      f"{label}: the gather-count kernel launched {gathers} "
-                      f"times, once per colour phase ({phases}); no lattice "
+                self.launches["bitplane_gather_count"] = fused
+                check(gathers == fused == phases and alone == 0
+                      and not counts,
+                      f"{label}: the fused colour-phase kernel launched "
+                      f"{fused} times, once per colour phase ({phases}); the "
+                      f"standalone gather-count {alone} times; no lattice "
                       f"kernel ({counts})")
             else:
                 check(gathers == 0 and not counts,
                       f"{label}: plain PyTorch operations, no kernel "
-                      f"launched ({counts}, gather-count {gathers})")
+                      f"launched ({counts}, B7 {gathers})")
             e = rec.energies
             per_spin = (e[-1] / n).cpu()
             check(tuple(e.shape) == (len(MAIN_POINTS), R) and
@@ -2497,6 +2512,7 @@ class Smoke:
         self.dist_eta(card)
         self.profile_dist(card)
         self.time_gather_count(card)
+        self.time_phase(card)
 
     def dist_engine(self, kw, device=None):
         """(handle, sync_every) of a DIST_RUNS configuration on the K=8
@@ -2545,7 +2561,8 @@ class Smoke:
         mext = t.cat([st.m.view(t.int32), st.ghosts.view(t.int32)],
                      dim=2).view(t.uint32)
         K, W, n_ext = (int(d) for d in mext.shape)
-        cases = [(f"colour {c}", (mext, col.idx, col.signs, col.nz))
+        cases = [(f"colour {c}", (mext, col.sites.idx, col.sites.signs,
+                                  col.sites.nz))
                  for c, col in enumerate(hh.eng._colors)]
         nc = int(cases[0][1][1].shape[1])
         rng = np.random.default_rng(7)
@@ -2569,8 +2586,134 @@ class Smoke:
                   f"bitplane_gather_count at L={L}, {what}: K={K}, W={W}, "
                   f"nc={nc}, n_ext={n_ext}, D={D}: its {len(got)} planes "
                   f"== the plain version's, bitwise")
-        self.results["bitplane_gather_count"] = {"max_abs_err": max(errs)}
+        self.results["bitplane_gather_count"] = {"max_abs_err": 0.0}
+        self.gather_count = {"max_abs_err": max(errs)}
         self.gather_inputs = cases[0][1]
+        self.dist_phase_kernel()
+
+    @staticmethod
+    def pop_b7(counts):
+        """(B7's launches, the fused phase's, the standalone
+        gather-count's), popped from a dict of launch counts."""
+        return tuple(counts.pop(k, 0) for k in (
+            "bitplane_gather_count", "bitplane_gather_count:phase",
+            "bitplane_gather_count:count"))
+
+    def hold_phase(self, what, kernel, plain, mutable, consts):
+        """One fused colour-phase launch against its plain version on
+        copies of the same inputs: ``kernel`` and ``plain`` take the
+        mutable tensors then ``consts``; every mutable tensor (words, LFSR
+        states, flips or energies) must come out bitwise equal.  Returns
+        the largest difference."""
+        t = self.torch
+        from repro_torch.kernels import _build
+        got = [x.clone() for x in mutable]
+        want = [x.clone() for x in mutable]
+        before = dict(_build.launch_counts)
+        kernel(*got, *consts)
+        plain(*want, *consts)
+        t.cuda.synchronize()
+        n = {k: _build.launch_counts[k] - before[k] for k in (
+            "bitplane_gather_count", "bitplane_gather_count:phase")}
+        err = max(self.max_abs(a, b) for a, b in zip(got, want))
+        moved = [not self.same(a, b) for a, b in zip(want, mutable)]
+        check(all(self.same(a, b) for a, b in zip(got, want))
+              and all(moved),
+              f"{what}: fused colour phase == its plain version bitwise "
+              f"(every output changed by the phase)")
+        check(set(n.values()) == {1}, f"{what}: one launch ({n})")
+        return err
+
+    def dist_phase_kernel(self):
+        """The fused dsim_dist colour phase against its plain version on
+        the card, bitwise (words, LFSR states, flips): the bit-plane run's
+        L=100 operands of each colour from its initial state and from its
+        state after 16 sweeps; at D in GATHER_DEGREES on random rows of
+        the same sites with every odd partition padded (colour 0 holds
+        slot 0: its real slot-0 entries are lost; colour 1 does not: its
+        padding steps slot 0's states); and at R=40 (two words, the last
+        half empty)."""
+        t = self.torch
+        from repro_torch.core.annealing import beta_table, ea_schedule
+        from repro_torch.core.bits import u32_from_numpy, u32_to_i64
+        from repro_torch.kernels import ops
+        from repro_torch.kernels.bitplane_phase import (bitplane_phase,
+                                                        phase_sites)
+        rng = np.random.default_rng(11)
+        errs = []
+
+        def run(hh, st, what, colors=None):
+            e = hh.eng
+            lut = u32_to_i64(e._lut_for(beta_table(
+                ea_schedule(MAIN_SWEEPS).beta_array())))
+            row = int(lut.shape[0]) // 2
+            mw, gh = st.m.view(t.int32), st.ghosts.view(t.int32)
+            s = u32_to_i64(st.rng)
+            flips = t.zeros(hh.replicas, dtype=t.int64, device=self.dev)
+            for c, sites in enumerate(colors or [c.sites for c in
+                                                 e._colors]):
+                errs.append(self.hold_phase(
+                    f"dsim_dist bit-plane at L={L}, {what}, colour {c}: "
+                    f"K={int(mw.shape[0])}, W={int(mw.shape[1])}, "
+                    f"R={hh.replicas}, nc={int(sites.idx.shape[1])}, "
+                    f"D={int(sites.idx.shape[2])}",
+                    lambda m, s_, f: bitplane_phase(m, gh, s_, sites, lut,
+                                                    row, e.f_max, f),
+                    lambda m, s_, f: ops.bitplane_phase_op(
+                        m, gh, s_, sites, lut, row, e.f_max, f,
+                        impl="ref"), (mw, s, flips), ()))
+
+        hh, sync = self.dist_engine(DIST_RUNS[DIST_PROFILED])
+        st0 = hh.init_state(seed=SEED)
+        run(hh, st0, "initial state")
+        st16, _ = hh.run_recorded(st0, ea_schedule(16), [16],
+                                  sync_every=sync)
+        run(hh, st16, "after 16 sweeps")
+        self.phase_inputs = (hh, st0)
+        # random rows over the other colour's slots and the ghosts, odd
+        # partitions padded
+        e = hh.eng
+        p = e.p
+        K, n_max, g_max = p.K, p.n_max, p.g_max
+        ones = np.uint32(0xFFFFFFFF)
+        for D in GATHER_DEGREES:
+            colors = []
+            for c, col in enumerate(e._colors):
+                other = e._colors[1 - c].sites.slots.cpu().numpy()
+                sl = col.sites.slots.cpu().numpy().copy()
+                nc = sl.shape[1]
+                mask = np.ones((K, nc), bool)
+                for k in range(1, K, 2):
+                    cut = nc - min(97 * k, nc // 2)
+                    sl[k, cut:], mask[k, cut:] = 0, False
+                lost = (sl == 0) & mask & ~mask.all(1, keepdims=True)
+                pick = rng.integers(0, other.shape[1] + g_max, (K, nc, D))
+                idx = np.where(pick < other.shape[1], np.take_along_axis(
+                    other, np.minimum(pick, other.shape[1] - 1).reshape(
+                        K, -1), 1).reshape(K, nc, D), n_max + pick
+                    - other.shape[1])
+                zero = rng.random((K, nc, D)) < 0.1
+                idx = np.where(zero, 0, idx).astype(np.int32)
+                nz = np.where(zero, 0, ones).astype(np.uint32)
+                signs = np.where(rng.random((K, nc, D)) < 0.5, ones,
+                                 0).astype(np.uint32)
+                base = col.sites.base.cpu().numpy() + rng.integers(
+                    -2, 3, (K, nc))
+                on = lambda a: t.from_numpy(a).to(self.dev)  # noqa: E731
+                colors.append(phase_sites(
+                    on(sl), on(mask), on(lost) if lost.any() else None,
+                    on(idx), u32_from_numpy(signs, self.dev),
+                    u32_from_numpy(nz, self.dev), on(base)))
+            check(colors[0].lost is not None and colors[1].lost is None
+                  and bool((colors[1].flags == 4).any()),
+                  f"random rows D={D}: colour 0 has lost slot-0 entries, "
+                  f"colour 1's padding owns slot 0")
+            run(hh, st16, f"random rows D={D}, odd partitions padded",
+                colors)
+        hh40, _ = self.dist_engine(dict(DIST_RUNS[DIST_PROFILED],
+                                        replicas=40))
+        run(hh40, hh40.init_state(seed=SEED), "R=40")
+        self.results["bitplane_gather_count"]["max_abs_err"] = max(errs)
 
     def dist_golden(self):
         """The JAX reference's L=100 dist runs from graph_m0: int8 R=2 and
@@ -2690,8 +2833,9 @@ class Smoke:
 
     def profile_dist(self, card: str):
         """One profiled run of DIST_PROFILED: the device's busy share of
-        the wall time and the gather-count kernel's launches, time per
-        launch and share of the device time."""
+        the wall time, the device time per colour phase and the fused
+        colour-phase kernel's launches, time per launch and share of the
+        device time."""
         t = self.torch
         from torch.autograd import DeviceType
         from torch.profiler import ProfilerActivity, profile
@@ -2716,47 +2860,146 @@ class Smoke:
             return
         busy = sum(us for _, _, us in rows) / 1e6
         hits = [(c, us) for key, c, us in rows
-                if "bitplane_gather_count" in key]
+                if "bitplane_phase_kernel" in key]
         count, us = sum(c for c, _ in hits), sum(u for _, u in hits)
         phases = MAIN_SWEEPS * self.col.n_colors
+        n, R = hh.n_sites, hh.replicas
         print(f"  profile {DIST_PROFILED}: wall {wall:.4f} s under the "
               f"profiler, device busy {busy:.4f} s ({100 * busy / wall:.1f}"
               f"%), device time per colour phase "
-              f"{busy / phases * 1e3:.4f} ms; gather-count kernel {count} "
-              f"launches, {us / max(count, 1):.1f} us per launch, "
-              f"{100 * us / 1e6 / busy:.1f}% of the device time; on {card}",
-              flush=True)
+              f"{busy / phases * 1e3:.4f} ms; fused colour-phase kernel "
+              f"{count} launches, {us / max(count, 1):.1f} us per launch, "
+              f"{100 * us / 1e6 / busy:.1f}% of the device time; "
+              f"{n * R * MAIN_SWEEPS / wall:.4e} lane-flips/s under the "
+              f"profiler; on {card}", flush=True)
         for key, count, us in sorted(rows, key=lambda r: -r[2])[:8]:
             print(f"    {us / 1e3:10.3f} ms  {count:6d} x  {key[:90]}",
                   flush=True)
 
     def time_gather_count(self, card: str):
-        """The gather-count wrapper against its plain version at one
-        colour of the bit-plane run; bound: every input read once (the
-        rows' D indices, signs and nonzero masks, and of the word pool
-        only the words the rows reach with a nonzero mask: the distinct
-        slots per partition), every output plane written once, and per
-        (partition, word, site) the XOR and AND of each neighbour plus 2
-        ops per slice it ripples through."""
+        """The standalone gather-count wrapper (B7's first route, which no
+        engine launches any more) against its plain version at one colour
+        of the bit-plane run; bound: every input read once (the rows' D
+        indices, signs and nonzero masks, and of the word pool only the
+        words the rows reach with a nonzero mask: the distinct slots per
+        partition), every output plane written once, and per (partition,
+        word, site) the XOR and AND of each neighbour plus 2 ops per slice
+        it ripples through.  Kept under the B7 entry's "count"."""
         from repro_torch.kernels import ref
         from repro_torch.kernels.bitplane_gather import bitplane_gather_count
         args = self.gather_inputs
         K, W, n_ext = (int(d) for d in args[0].shape)
         nc, D = int(args[1].shape[1]), int(args[1].shape[2])
         byts, int_ops, reached = self.gather_work(args)
+        by, _, times = self.bound(byts, int_ops, 0)
+        r = self.gather_count
+        r.update({
+            "name": "bitplane_gather_count:count", "route": "cuda",
+            "source": "src/repro_torch/kernels/csrc/bitplane_gather.cu",
+            "replaces": "src/repro/kernels/ops.py:120", "launches": 0,
+            "ms": self.time_ms(lambda: bitplane_gather_count(*args),
+                               reps=50),
+            "plain_ms": self.time_ms(
+                lambda: ref.bitplane_gather_count_ref(*args), reps=3,
+                warm=1),
+            "bound_ms": times[by],
+            "bound_by": "bytes" if by == "bytes" else "operations",
+            "library_ms": None})
+        print(f"  bitplane_gather_count (standalone): {r['ms']:.4f} ms (one "
+              f"colour, K={K}, W={W}, nc={nc}, D={D}, {reached} of "
+              f"{K * n_ext} pool slots reached, 1 launch), plain "
+              f"{r['plain_ms']:.4f} ms, bound {r['bound_ms']:.4f} ms by "
+              f"{by} (" + ", ".join(f"{k} {v:.4f} ms" for k, v in
+                                   times.items()) + f"); on {card}",
+              flush=True)
+
+    def phase_work(self, sites, W: int, R: int, lut_bytes: int):
+        """(bytes, INT32 operations, what) of one fused colour phase on
+        ``sites``: every input read once and every output written once
+        (the LFSR states of every owned slot's R lanes as int64, read and
+        written; the own words of real entries read and, where not lost,
+        written; the neighbour and ghost words the rows reach through a
+        nonzero mask, once per word plane; per real entry its D indices,
+        signs and masks and its base, per entry its slot and flags; the
+        LUT row or rows; the R flip or energy sums), and per real
+        (partition, word, site) the gather-count's operations
+        (``gather_work``) plus per real lane 6 for the LFSR step, 3 per
+        slice to read its count and 5 for the column, clamp and accept,
+        and per padding owner's lane 6."""
+        t = self.torch
+        fl = sites.flags.cpu().numpy()
+        K, nc, D = (int(d) for d in sites.idx.shape)
+        real = int((fl & 1).sum())
+        keep = int(((fl & 1) & ~(fl >> 1) & 1).sum())
+        owners = int(((fl >> 2) & 1).sum())
+        live = sites.nz.view(t.int32) != 0
+        reached = sum(int(t.unique(sites.idx[k][live[k] & sites.mask[k][
+            :, None]]).numel()) for k in range(K))
+        byts = 16 * R * owners + 4 * W * (real + keep) + 4 * W * reached \
+            + real * (12 * D + 4) + nc * K * 5 + 16 * R + lut_bytes
+        P = D.bit_length()
+        gather = sum(2 + 2 * (n - 1).bit_length() for n in range(1, D + 1))
+        ops_ = real * W * gather + real * R * (11 + 3 * P) \
+            + (owners - real) * R * 6
+        what = (f"K={K}, W={W}, R={R}, nc={nc}, D={D}: {real} real entries, "
+                f"{owners} owners, {reached} neighbour slots reached")
+        return byts, ops_, what
+
+    def time_phase(self, card: str):
+        """The fused colour phase (B7's route on the main path) against
+        its plain version at colour 0 of the bit-plane run (CUDA events
+        over 50 launches, in place: the work per launch does not depend
+        on the data), beside its bound (``phase_work``)."""
+        t = self.torch
+        from repro_torch.core.annealing import beta_table, ea_schedule
+        from repro_torch.core.bits import u32_to_i64
+        from repro_torch.kernels import ops
+        from repro_torch.kernels.bitplane_phase import (bitplane_phase,
+                                                        phase_sites)
+        hh, st = self.phase_inputs
+        e = hh.eng
+        lut = u32_to_i64(e._lut_for(beta_table(
+            ea_schedule(MAIN_SWEEPS).beta_array())))
+        row = int(lut.shape[0]) // 2
+        mw, gh = st.m.view(t.int32).clone(), st.ghosts.view(t.int32)
+        s = u32_to_i64(st.rng)
+        flips = t.zeros(hh.replicas, dtype=t.int64, device=self.dev)
+        sites = e._colors[0].sites
+        W, R = int(mw.shape[1]), hh.replicas
+        byts, int_ops, what = self.phase_work(sites, W, R,
+                                              8 * int(lut.shape[1]))
         self._timed("bitplane_gather_count", "src/repro_torch/kernels/csrc/"
-                    "bitplane_gather.cu", "src/repro/kernels/ops.py:120",
-                    lambda: bitplane_gather_count(*args),
-                    lambda: ref.bitplane_gather_count_ref(*args), byts,
-                    int_ops, 0,
-                    f"one colour, K={K}, W={W}, nc={nc}, D={D}, {reached} of "
-                    f"{K * n_ext} pool slots reached, 1 launch")
+                    "bitplane_phase.cu", "src/repro/kernels/ops.py:120",
+                    lambda: bitplane_phase(mw, gh, s, sites, lut, row,
+                                           e.f_max, flips),
+                    lambda: ops.bitplane_phase_op(mw, gh, s, sites, lut, row,
+                                                  e.f_max, flips,
+                                                  impl="ref"),
+                    byts, int_ops, 0, f"one colour, {what}, 1 launch")
         r = self.results["bitplane_gather_count"]
-        print(f"  bitplane_gather_count: {r['ms']:.4f} ms ({r['work']}), "
-              f"plain {r['plain_ms']:.4f} ms, bound {r['bound_ms']:.4f} ms "
-              f"by {r['bound_by']} ({r['bounds']}); {r['launches']} "
-              f"launches on the bit-plane dist run; on {card}", flush=True)
+        print(f"  bitplane_gather_count (fused colour phase): "
+              f"{r['ms']:.4f} ms ({r['work']}), plain {r['plain_ms']:.4f} "
+              f"ms, bound {r['bound_ms']:.4f} ms by {r['bound_by']} "
+              f"({r['bounds']}; {byts} bytes); {r['launches']} launches on "
+              f"the bit-plane dist run; on {card}", flush=True)
         del r["work"], r["bounds"]
+        r["count"] = self.gather_count
+        # the cost of the colour's interleaved slots: the same launch with
+        # its entries on slots 0 .. nc-1 of each partition (a timing probe
+        # only: those slots overlap the neighbours it reads)
+        K, nc = (int(d) for d in sites.slots.shape)
+        contig = phase_sites(
+            t.arange(nc, device=self.dev).expand(K, nc),
+            t.ones((K, nc), dtype=t.bool, device=self.dev), None,
+            sites.idx, sites.signs, sites.nz, sites.base)
+        ms = self.time_ms(lambda: bitplane_phase(mw, gh, s, contig, lut, row,
+                                                 e.f_max, flips), reps=50)
+        r["contiguous_ms"] = ms
+        print(f"  the same launch on slots 0..{nc - 1} of each partition "
+              f"(whole 32 B sectors of LFSR states and words): {ms:.4f} ms; "
+              f"the colour's interleaved slots cost {r['ms'] - ms:.4f} ms "
+              f"({100 * (r['ms'] - ms) / r['ms']:.1f}% of the launch); on "
+              f"{card}", flush=True)
 
     def gather_work(self, args):
         """(bytes, INT32 operations, pool slots reached) of one
@@ -3107,10 +3350,12 @@ class Smoke:
         out = {label: srv.result(j) for label, j in ids.items()}
         for name in ("pbit_brick_sweep_int", "pbit_bitplane_sweep",
                      "pbit_brick_sweep", "brick_energy",
-                     "bitplane_gather_count"):
+                     "bitplane_gather_count", "bitplane_gather_count:phase"):
             check(self.server_launches[name] > 0,
                   f"server path launched {name} "
                   f"{self.server_launches[name]} times")
+        check(self.server_launches["bitplane_gather_count:count"] == 0,
+              "server path: B7 only as the fused colour phase")
         bad = out.pop("failing")
         check(bad["status"] == "failed" and
               "StateCorruption" in (bad["error"] or "") and
@@ -3241,7 +3486,7 @@ class Smoke:
     def phase_apt(self, card: str):
         """APT+ICM (repro_torch.core.apt_icm) on the G81 shape at full
         width: APT_GOLDEN and the device="cpu" twin with HostDraws, the
-        gather-count kernel against its plain version at the packed
+        fused colour phase against its plain version at the packed
         shape, the three modes timed over APT_SWEEPS sweeps with the
         launches counted, packed == lfsr with the card's generator, the
         ICM's share of the time and its host syncs, one profiled packed
@@ -3268,6 +3513,8 @@ class Smoke:
                     check(apt.device.type == "cuda" and
                           st.m.device.type == "cuda",
                           f"APT {mode} runs on {apt.device}")
+                    if mode == "packed":
+                        self.apt_golden_state = st
                 got[dev] = (self.apt_digest(apt, st, ts, best),
                             time.perf_counter() - t0)
             check(got[None][0] == APT_GOLDEN,
@@ -3279,7 +3526,7 @@ class Smoke:
                   f"APT {mode}: card == device='cpu' twin bitwise over "
                   f"{APT_GOLDEN_SWEEPS} sweeps ({got[None][1]:.2f} s on the "
                   f"card, {got['cpu'][1]:.2f} s on the CPU)")
-        self.apt_kernel(card)
+        self.apt_kernel(card, self.apt_golden_state)
         runs = {}
         for mode in APT_MODES:
             runs[mode] = self.apt_main(mode, card)
@@ -3337,62 +3584,100 @@ class Smoke:
         t.cuda.synchronize()
         wall = time.perf_counter() - t0
         counts = {k: v for k, v in _build.launch_counts.items() if v}
-        gathers = counts.pop("bitplane_gather_count", 0)
+        gathers, fused, alone = self.pop_b7(counts)
         phases = APT_SWEEPS * self.col81.n_colors
         if mode == "packed":
-            self.apt_launches = gathers
-            check(gathers == phases and not counts,
-                  f"APT packed: the gather-count kernel launched {gathers} "
-                  f"times, once per colour phase ({phases}); no other "
-                  f"kernel ({counts})")
+            self.apt_launches = fused
+            check(gathers == fused == phases and alone == 0 and not counts,
+                  f"APT packed: the fused colour-phase kernel launched "
+                  f"{fused} times, once per colour phase ({phases}); the "
+                  f"standalone gather-count {alone} times; no other kernel "
+                  f"({counts})")
         else:
             check(gathers == 0 and not counts,
                   f"APT {mode}: plain PyTorch operations, no kernel "
                   f"launched ({counts})")
-        return apt, st, best, wall, gathers
+        return apt, st, best, wall, fused
 
-    def apt_kernel(self, card):
-        """The gather-count kernel against its plain version at the packed
-        APT shape (K=1, W=4, every colour), bitwise, and timed."""
+    def apt_kernel(self, card, st16):
+        """The fused colour phase against its plain version at the packed
+        APT shape (K=1, W=4, every colour), bitwise (words, LFSR states,
+        energies), from the initial state and from ``st16`` (the golden
+        run's state after APT_GOLDEN_SWEEPS sweeps); then timed beside its
+        bound, and the standalone gather-count at the same shape."""
         t = self.torch
         from repro_torch.core.bits import u32_to_i64
-        from repro_torch.kernels import ref
+        from repro_torch.kernels import ops, ref
         from repro_torch.kernels.bitplane_gather import bitplane_gather_count
+        from repro_torch.kernels.bitplane_phase import bitplane_phase_apt
         apt = self.apt("packed")
-        st = apt.init_state(seed=SEED)
         errs = []
-        for c in range(self.col81.n_colors):
-            args = (st.m[None], apt._idx32[c], apt._signs[c], apt._nz[c])
-            got = bitplane_gather_count(*args)
-            want = ref.bitplane_gather_count_ref(*args)
-            t.cuda.synchronize()
-            errs += [self.max_abs(a, b) for a, b in zip(got, want)]
-            K, nc, D = (int(d) for d in args[1].shape)
-            check(len(got) == len(want) and
-                  all(self.same(a, b) for a, b in zip(got, want)),
-                  f"bitplane_gather_count at the APT shape, colour {c}: "
-                  f"K={K}, W={apt.words}, nc={nc}, n_ext={apt.n}, D={D}: "
-                  f"== the plain version bitwise")
+        for label, st in (("initial state", apt.init_state(seed=SEED)),
+                          (f"after {APT_GOLDEN_SWEEPS} sweeps", st16)):
+            mw, s = st.m, u32_to_i64(st.lfsr)
+            E = st.E.reshape(-1).clone()
+            for c, sites in enumerate(apt._sites):
+                consts = (sites, apt._thr_lanes, apt.f_max, apt._scale_f32)
+                errs.append(self.hold_phase(
+                    f"APT packed, {label}, colour {c}: W={apt.words}, "
+                    f"L={apt.L}, nc={int(sites.idx.shape[1])}, "
+                    f"D={int(sites.idx.shape[2])}",
+                    lambda m, s_, e, *k: bitplane_phase_apt(m, s_, k[0], k[1],
+                                                            k[2], e, k[3]),
+                    lambda m, s_, e, *k: ops.bitplane_phase_apt_op(
+                        m, s_, k[0], k[1], k[2], e, k[3], impl="ref"),
+                    (mw, s, E), consts))
         r = self.results["bitplane_gather_count"]
         r["max_abs_err"] = max([r["max_abs_err"]] + errs)
-        args = (st.m[None], apt._idx32[0], apt._signs[0], apt._nz[0])
-        ms = self.time_ms(lambda: bitplane_gather_count(*args), reps=50)
-        plain = self.time_ms(lambda: ref.bitplane_gather_count_ref(*args),
-                             reps=3, warm=1)
-        byts, int_ops, _ = self.gather_work(args)
-        bound = self.bound(byts, int_ops, 0)
-        # the whole packed sweep, to see what the per-lane tail costs
+        st = apt.init_state(seed=SEED)
+        for c, sites in enumerate(apt._sites):
+            garg = (st.m[None], sites.idx, sites.signs, sites.nz)
+            got = bitplane_gather_count(*garg)
+            want = ref.bitplane_gather_count_ref(*garg)
+            t.cuda.synchronize()
+            err = max(self.max_abs(a, b) for a, b in zip(got, want))
+            self.gather_count["max_abs_err"] = max(
+                self.gather_count["max_abs_err"], err)
+            check(len(got) == len(want) and
+                  all(self.same(a, b) for a, b in zip(got, want)),
+                  f"bitplane_gather_count (standalone) at the APT shape, "
+                  f"colour {c}: K=1, W={apt.words}, "
+                  f"nc={int(sites.idx.shape[1])}, n_ext={apt.n}, "
+                  f"D={int(sites.idx.shape[2])}: == the plain version "
+                  f"bitwise")
+        mw, s, E = st.m.clone(), u32_to_i64(st.lfsr), st.E.reshape(-1)
+        sites = apt._sites[0]
+        args = (mw, s, sites, apt._thr_lanes, apt.f_max, E.clone(),
+                apt._scale_f32)
+        ms = self.time_ms(lambda: bitplane_phase_apt(*args), reps=50)
+        plain = self.time_ms(lambda: ops.bitplane_phase_apt_op(
+            *args, impl="ref"), reps=3, warm=1)
+        lw = int(apt._thr_lanes.shape[1])
+        byts, int_ops, what = self.phase_work(sites, apt.words, apt.L,
+                                              8 * apt.L * lw + 8 * apt.L)
+        by, bound, _ = self.bound(byts, int_ops, 0)
+        garg = (st.m[None], sites.idx, sites.signs, sites.nz)
+        gms = self.time_ms(lambda: bitplane_gather_count(*garg), reps=50)
+        gplain = self.time_ms(lambda: ref.bitplane_gather_count_ref(*garg),
+                              reps=3, warm=1)
+        gbyts, gops, _ = self.gather_work(garg)
+        gby, gbound, _ = self.bound(gbyts, gops, 0)
+        # the whole packed sweep, to see what the phases cost in it
         lfsr = u32_to_i64(st.lfsr)
         sweep = self.time_ms(lambda: apt._gibbs_sweep_packed(
-            st.m, st.E, lfsr.clone()), reps=10)
+            st.m, st.E, lfsr), reps=10)
         n_col = self.col81.n_colors
-        print(f"  bitplane_gather_count at the APT shape: {ms:.4f} ms per "
-              f"colour (plain {plain:.4f} ms, bound {bound[1]:.4f} ms by "
-              f"{bound[0]}: {byts} bytes, {int_ops} INT32 ops); one "
-              f"packed sweep "
-              f"{sweep:.4f} ms, of which the {n_col} gather-counts "
-              f"{100 * n_col * ms / sweep:.1f}% and the per-lane tail the "
-              f"rest; on {card}", flush=True)
+        r["apt"] = {"ms": ms, "plain_ms": plain, "bound_ms": bound,
+                    "bound_by": "bytes" if by == "bytes" else "operations",
+                    "count_ms": gms, "count_plain_ms": gplain,
+                    "count_bound_ms": gbound}
+        print(f"  fused colour phase at the APT shape: {ms:.4f} ms per "
+              f"colour ({what}; plain {plain:.4f} ms, bound {bound:.4f} ms "
+              f"by {by}: {byts} bytes, {int_ops} INT32 ops); the standalone "
+              f"gather-count there {gms:.4f} ms (plain {gplain:.4f} ms, "
+              f"bound {gbound:.4f} ms by {gby}); one packed sweep "
+              f"{sweep:.4f} ms, of which the {n_col} fused phases "
+              f"{100 * n_col * ms / sweep:.1f}%; on {card}", flush=True)
 
     def apt_shares(self, card):
         """Per mode, one run with every ICM bracketed by synchronises: the
@@ -3426,7 +3711,7 @@ class Smoke:
 
     def profile_apt(self, card):
         """One profiled APT_PROFILED run: device busy share and the
-        gather-count kernel's share of the device time."""
+        fused colour-phase kernel's share of the device time."""
         t = self.torch
         from torch.autograd import DeviceType
         from torch.profiler import ProfilerActivity, profile
@@ -3451,11 +3736,12 @@ class Smoke:
             return
         busy = sum(us for _, _, us in rows) / 1e6
         hits = [(c, us) for key, c, us in rows
-                if "bitplane_gather_count" in key]
+                if "bitplane_phase_kernel" in key]
         count, us = sum(c for c, _ in hits), sum(u for _, u in hits)
         print(f"  profile APT {APT_PROFILED}: wall {wall:.4f} s under the "
               f"profiler, device busy {busy:.4f} s "
-              f"({100 * busy / wall:.1f}%); gather-count {count} launches, "
+              f"({100 * busy / wall:.1f}%); fused colour phase {count} "
+              f"launches, "
               f"{us / max(count, 1):.1f} us each, "
               f"{100 * us / 1e6 / busy:.1f}% of the device time; on {card}",
               flush=True)
@@ -3554,12 +3840,15 @@ class Smoke:
         runs = {name: self.run_example(name, args) for name in EXAMPLES
                 if name != EXAMPLE_BESIDE}
         runs[EXAMPLE_BESIDE] = self.finish_example(beside)
-        self.example_launches, heads = {}, []
+        self.example_launches, self.example_b7, heads = {}, {}, []
         for name in EXAMPLES:
             out, rec, sec = runs[name]
             res = rec["result"]
             self.example_launches[name] = {k: rec["launches"][k]
                                            for k in KERNELS}
+            self.example_b7[name] = {k: rec["launches"][k] for k in (
+                "bitplane_gather_count:phase",
+                "bitplane_gather_count:count")}
             heads.append(getattr(self, f"check_{name}")(out, res, sec))
         for line in heads:
             print(line, flush=True)
@@ -3622,17 +3911,18 @@ class Smoke:
 
     @contextlib.contextmanager
     def held_kernels(self):
-        """Within the scope every launch of a lattice kernel or the
-        gather-count first runs its plain version on the same inputs and
-        is held to it: the f32 sweep's LFSR states bitwise and its spins
+        """Within the scope every launch of a lattice kernel or of B7
+        (the gather-count, or the fused colour phase on copies of what it
+        updates in place) first runs its plain version on the same inputs
+        and is held to it: the f32 sweep's LFSR states bitwise and its spins
         bitwise or, where they differ, phase by phase within TANH_ULPS ulp
         of the boundary (``f32_steps``); every other kernel bitwise.
         Yields ({kernel: [calls held, largest difference]}, the launch
         counters' increments made within the held calls, comparisons
         included)."""
         from repro_torch.kernels import (_build, bitplane_gather,
-                                         lattice_energy, pbit_bitplane,
-                                         pbit_lattice, ref)
+                                         bitplane_phase, lattice_energy, ops,
+                                         pbit_bitplane, pbit_lattice, ref)
         tally, busy, saved = {}, [], []
         covered = dict.fromkeys(_build.launch_counts, 0)
 
@@ -3685,6 +3975,36 @@ class Smoke:
              lambda *a, bx=None: ref.brick_energy_words_ref(*a))
         hold(bitplane_gather, "bitplane_gather_count",
              "bitplane_gather_count", ref.bitplane_gather_count_ref)
+
+        def hold_inplace(attr, mut, plain):
+            """The fused colour phases update the arguments at positions
+            ``mut`` in place: the plain version runs on copies of them,
+            the kernel on the caller's tensors, and those are compared."""
+            kernel = getattr(bitplane_phase, attr)
+
+            def held(*args):
+                b0 = dict(_build.launch_counts)
+                copies = [a.clone() if i in mut else a
+                          for i, a in enumerate(args)]
+                plain(*copies, impl="ref")
+                out = kernel(*args)
+                pair = [(args[i], copies[i]) for i in mut]
+                t = tally.setdefault("bitplane_gather_count", [0, 0.0])
+                if not all(self.same(g, w) for g, w in pair):
+                    raise CheckFailed(f"{attr} launch {t[0]} differs from "
+                                      f"its plain version")
+                for k, v in _build.launch_counts.items():
+                    covered[k] += v - b0[k]
+                t[0] += 1
+                t[1] = max([t[1]] + [self.max_abs(g, w) for g, w in pair])
+                return out
+
+            saved.append((bitplane_phase, attr, kernel))
+            setattr(bitplane_phase, attr, held)
+
+        hold_inplace("bitplane_phase", (0, 2, 7), ops.bitplane_phase_op)
+        hold_inplace("bitplane_phase_apt", (0, 1, 5),
+                     ops.bitplane_phase_apt_op)
         try:
             yield tally, covered
         finally:
@@ -3724,9 +4044,14 @@ class Smoke:
         want = ("pbit_brick_sweep_int", "pbit_bitplane_sweep",
                 "pbit_brick_sweep", "brick_energy", "bitplane_gather_count")
         got = self.example_launches["quickstart"]
-        check(all(got[k] > 0 for k in want),
-              "quickstart launched #1, #2, #3, #4 and the gather-count: "
-              + ", ".join(f"{k} {got[k]}" for k in want))
+        b7 = self.example_b7["quickstart"]
+        check(all(got[k] > 0 for k in want)
+              and b7["bitplane_gather_count:phase"] == got[
+                  "bitplane_gather_count"]
+              and b7["bitplane_gather_count:count"] == 0,
+              "quickstart launched #1, #2, #3, #4 and B7 as the fused "
+              "colour phase (packed APT): "
+              + ", ".join(f"{k} {got[k]}" for k in want) + f", {b7}")
         return (f"  example quickstart: {sec:.1f} s; int8 lattice "
                 f"{res['int8']['updates_per_s']:.4e} p-bit updates/s, "
                 f"bit-plane {res['bitplane']['lane_updates_per_s']:.4e} "
@@ -3785,8 +4110,11 @@ class Smoke:
         check(len(head) == 2 and head[1].strip() != "",
               "serve_dashboard: the Prometheus head is not empty")
         n = self.example_launches["serve_dashboard"]["bitplane_gather_count"]
-        check(n > 0, f"serve_dashboard's eta probe launched the "
-                     f"gather-count {n} times")
+        b7 = self.example_b7["serve_dashboard"]
+        check(n > 0 and b7["bitplane_gather_count:phase"] == n
+              and b7["bitplane_gather_count:count"] == 0,
+              f"serve_dashboard's eta probe launched B7 {n} times, as the "
+              f"fused colour phase ({b7})")
         return (f"  example serve_dashboard: {sec:.1f} s; "
                 f"{res['jobs_per_s']:.4f} done-jobs/s, measured eta "
                 f"{res['eta']['measured_eta']:.4f}")

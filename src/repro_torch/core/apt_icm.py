@@ -19,10 +19,10 @@ Three modes, as the reference's:
   temperature.
 * ``packed=True`` (needs ``rng="lfsr"``): the (chains x temperatures) grid
   rides the bit lanes of W = ceil(P*T/32) uint32 word planes, lane
-  l = p*T + t at word l // 32, bit l % 32.  A colour phase counts each
-  lane's +1 contributions with the ELL word gather-count
-  (``kernels.ops.bitplane_gather_count_op``: the CUDA kernel on the card,
-  its plain version on a CPU tensor), exchanges are lane permutations
+  l = p*T + t at word l // 32, bit l % 32.  A colour phase is one fused
+  gather-count and per-lane tail (``kernels.ops.bitplane_phase_apt_op``:
+  the CUDA kernel on the card, its plain version on a CPU tensor),
+  exchanges are lane permutations
   (``packing.lane_permute``) and the ICM disagreement set is a bit
   extraction per pair.  Packed runs equal unpacked ``rng="lfsr"`` runs
   bitwise.
@@ -59,19 +59,19 @@ from typing import Callable, Optional, Tuple
 import numpy as np
 import torch
 
-from .bits import i64_to_i32, i64_to_u32, u32_from_numpy, u32_to_i64
+from .bits import i64_to_u32, u32_from_numpy, u32_to_i64
 from .coloring import Coloring
 from .device import as_numpy, resolve_device
 from .energy import energy as direct_energy
 from .gibbs import color_fields, init_spins
 from .graph import IsingGraph
-from .packing import (LANE_WIDTH, lane_coords, lane_permute, pack_lanes,
-                      unpack_lanes)
+from .packing import LANE_WIDTH, lane_permute, pack_lanes, unpack_lanes
 from .pbit import (FixedPoint, bitplane_planes, field_bound, lfsr_init,
                    lfsr_next, pbit_update, philox_init, quantize_couplings,
                    threshold_lut)
 from repro_torch.engines.base import check_lanes
-from repro_torch.kernels.ops import bitplane_gather_count_op
+from repro_torch.kernels.bitplane_phase import phase_sites
+from repro_torch.kernels.ops import bitplane_phase_apt_op
 
 __all__ = ["APTICM", "APTState", "HostDraws", "adapt_ladder"]
 
@@ -171,18 +171,19 @@ class APTICM:
         if packed:
             signs, nz, base, _ = bitplane_planes(h_q, dirs)
             signs_nd, nz_nd = np.stack(signs, -1), np.stack(nz, -1)
-            # the gather-count's operands at K=1: (1, nc, D)
-            self._idx32 = [self.g.idx.index_select(0, nd)[None].contiguous()
-                           for nd in self._nodes]
-            self._signs = [u32_from_numpy(signs_nd[grp][None], dev)
-                           for grp in groups]
-            self._nz = [u32_from_numpy(nz_nd[grp][None], dev)
-                        for grp in groups]
-            self._base = [_long(base[grp], dev) for grp in groups]
+            # the fused colour phase's entries at K=1: every node real
+            self._sites = [phase_sites(
+                nd[None], torch.ones((1, len(nd)), dtype=torch.bool,
+                                     device=dev), None,
+                self.g.idx.index_select(0, nd)[None],
+                u32_from_numpy(signs_nd[grp][None], dev),
+                u32_from_numpy(nz_nd[grp][None], dev),
+                _long(base[grp][None], dev))
+                for nd, grp in zip(self._nodes, groups)]
             # per-lane LUT-row fan: lane l = p*T + t reads row t
             lane_rows = _long(np.tile(np.arange(self.T), self.P), dev)
-            self._thr_lanes = self._lut[lane_rows][:, None, :]
-            self._lane_w, self._lane_b = lane_coords(self.L, 1, dev)
+            self._thr_lanes = self._lut[lane_rows].contiguous()  # (L, lw)
+            self._scale_f32 = float(np.float32(self.q_scale))
             # ICM pair anchors lane(2p, t) and lane(2p+1, t) = that + T;
             # a pair may straddle word planes
             even = np.asarray([[2 * p * self.T + t for t in range(self.T)]
@@ -274,31 +275,15 @@ class APTICM:
         return m, E
 
     def _gibbs_sweep_packed(self, mw, E, lfsr):
-        """Word sweep: the gather-count's bit-slice planes give each lane's
-        field, then the per-lane tail (LFSR, LUT-row fan, accept, energy,
-        word scatter).  ``mw`` (W, N) uint32, ``lfsr`` (L, N) int64-carried,
-        updated in place."""
-        wl, bl = self._lane_w, self._lane_b                  # (L,), (L, 1)
-        Ef = E.reshape(-1)
-        for c, nodes in enumerate(self._nodes):
-            counts = bitplane_gather_count_op(mw[None], self._idx32[c],
-                                              self._signs[c], self._nz[c])
-            s = lfsr_next(lfsr.index_select(1, nodes))
-            lfsr.index_copy_(1, nodes, s)
-            cnt = torch.zeros(s.shape, dtype=torch.int64, device=s.device)
-            for i, b in enumerate(counts):                   # (1, W, nc)
-                cnt += ((u32_to_i64(b[0])[wl] >> bl) & 1) << i
-            field = self._base[c] - self.f_max + 2 * cnt
-            accept = self._accept_rows(self._thr_lanes, field, s >> 8)
-            mwn = u32_to_i64(mw.index_select(1, nodes))      # (W, nc)
-            old = torch.where(((mwn[wl] >> bl) & 1) != 0, 1, -1)
-            new = torch.where(accept, 1, -1)
-            Ef = Ef - ((new - old).to(torch.float32)
-                       * field.to(torch.float32)).sum(-1) * self._scale
-            upd = torch.zeros_like(mwn).index_add_(0, wl,
-                                                    accept.long() << bl)
-            mw = mw.view(torch.int32).index_copy(
-                1, nodes, i64_to_i32(upd)).view(torch.uint32)
+        """Word sweep: per colour one fused phase (``ops.
+        bitplane_phase_apt_op``: the gather-count's bit-slice planes give
+        each lane's field, then the per-lane LFSR, LUT-row fan, accept,
+        energy and word write).  ``mw`` (W, N) uint32 and ``E`` (P, T) are
+        copied, ``lfsr`` (L, N) int64-carried is updated in place."""
+        mw, Ef = mw.clone(), E.reshape(-1).clone()
+        for sites in self._sites:
+            bitplane_phase_apt_op(mw, lfsr, sites, self._thr_lanes,
+                                  self.f_max, Ef, self._scale_f32)
         return mw, Ef.reshape(self.P, self.T)
 
     # -- replica exchange -------------------------------------------------------

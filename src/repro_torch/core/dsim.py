@@ -43,6 +43,7 @@ from .pbit import (FixedPoint, bitplane_planes, field_bound, flips_publish,
                    quantize, quantize_couplings, threshold_lut_cached)
 from repro_torch.engines.base import (RecordedCursor, run_recorded_driver,
                                       spawn_seeds, stack_states)
+from repro_torch.kernels.bitplane_phase import PhaseSites, phase_sites
 
 __all__ = ["PartitionedProblem", "build_partitioned", "ColorPhases",
            "DSIMEngine", "DSIMState"]
@@ -224,11 +225,8 @@ class _Color:
     nbr: Optional[torch.Tensor] = None  # (.., nc * D) int64 into n_max + g_max
     h: Optional[torch.Tensor] = None    # f32, or int32 on the int8 path
     w: Optional[torch.Tensor] = None    # (.., nc, D) f32 | int32
-    # the bit-plane path: the gather-count kernel's operands and the base
-    idx: Optional[torch.Tensor] = None    # (Kl, nc, D) int32
-    signs: Optional[torch.Tensor] = None  # (Kl, nc, D) uint32
-    nz: Optional[torch.Tensor] = None     # (Kl, nc, D) uint32
-    base: Optional[torch.Tensor] = None   # int64
+    # the bit-plane path: the fused colour phase's (Kl, nc) entries
+    sites: Optional[PhaseSites] = None
 
 
 class ColorPhases:
@@ -298,9 +296,10 @@ class ColorPhases:
             def at(w):      # uint32 has no indexing on CUDA: int32 views
                 return w.view(torch.int32)[rows, slots][held] \
                     .contiguous().view(torch.uint32)
-            col.idx = local[held].contiguous()
-            col.signs, col.nz = at(signs), at(nz)
-            col.base = lane(base[rows, slots])
+            col.sites = phase_sites(
+                slots[held], mask[held],
+                None if col.lost is None else lost, local[held],
+                at(signs), at(nz), base[rows, slots][held])
         else:
             col.nbr = lane(local.reshape(K, -1).long())
             col.h = lane(h_src[rows, slots])
@@ -375,13 +374,16 @@ class ColorPhases:
         cmft = self.mode == "cmft"
         flips = None
         for b in sched_S:
-            thr = None if lut is None else lut[int(b)]
+            thr = None if lut is None or word else lut[int(b)]
             beta = None if lut is not None else float(b)
             for col in self._colors:
                 if sync == "phase":
                     ghosts = self._refresh(m)
-                f = self._phase_w(col, m, ghosts, s, thr) if word else \
-                    self._phase(col, m, ghosts, s, gens, beta, thr)
+                if word:
+                    flips = self._phase_w(col, m, ghosts, s, lut, int(b),
+                                          flips)
+                    continue
+                f = self._phase(col, m, ghosts, s, gens, beta, thr)
                 flips = f if flips is None else flips + f
             if cmft:
                 # dsim mode never reads the window accumulator

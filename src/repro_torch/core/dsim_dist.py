@@ -38,8 +38,9 @@ accept of the raw 24-bit LFSR draw; replica r seeded by
 ``spawn_seeds(seed, R)[r]`` alone, so it is replica r of the stacked int8
 engine and prefix-stable in R) and ``"bitplane"`` (the int8 pipeline on
 32 lanes per word: the field's +1-contribution count from the ELL word
-gather-count kernel, ``kernels/bitplane_gather.py``, then per-lane LFSR
-draws and the same LUT accept; lane r is bitwise int8 replica r).
+gather-count, the per-lane LFSR draws and the same LUT accept in one
+fused colour phase, ``kernels/bitplane_phase.py``; lane r is bitwise int8
+replica r).
 """
 
 from __future__ import annotations
@@ -58,12 +59,11 @@ from .device import as_numpy, resolve_device
 from .dsim import ColorPhases, DSIMState, PartitionedProblem, SyncSpec, _Color
 from .gibbs import init_spins
 from .mesh import make_mesh
-from .packing import (LANE_WIDTH, lane_coords, pack_lanes, pack_pm1,
-                      pad_to_multiple, unpack_lanes, unpack_pm1)
-from .pbit import (FixedPoint, flips_publish, lfsr_init, lfsr_next,
-                   lut_accept, philox_init)
+from .packing import (pack_lanes, pack_pm1, pad_to_multiple, unpack_lanes,
+                      unpack_pm1)
+from .pbit import FixedPoint, flips_publish, lfsr_init, philox_init
 from repro_torch.engines.base import check_lanes, spawn_seeds
-from repro_torch.kernels.ops import bitplane_gather_count_op
+from repro_torch.kernels.ops import bitplane_phase_op
 
 __all__ = ["DistDSIMEngine"]
 
@@ -145,9 +145,6 @@ class DistDSIMEngine(ColorPhases):
     def _constants(self):
         p, dev = self.p, self.device
         self._init_colors()
-        if self.precision == "bitplane":
-            wl, bl = lane_coords(self.replicas, 1, dev)
-            self._lane_w, self._lane_b = wl, bl[None]       # (R,), (1, R, 1)
         held = self._held
         bs = torch.zeros((p.K, self.b_pad), dtype=torch.int64, device=dev)
         bs[:, :p.b_max] = p.bnd_slots.long()
@@ -412,41 +409,19 @@ class DistDSIMEngine(ColorPhases):
 
     # -- one colour phase ----------------------------------------------------------
 
-    def _phase_w(self, col: _Color, mw, ghosts_w, s, thr):
+    def _phase_w(self, col: _Color, mw, ghosts_w, s, lut, row: int, flips):
         """One colour phase on word planes, in place: mw (Kl, W, n_max) and
         ghosts_w (Kl, W, g_max) int32 views of the words, s (Kl, R, n_max)
-        int64-carried LFSR states, ``thr`` the LUT row.  The field of
-        lane l is ``(base - f_max) + 2 * count`` with count read from the
-        gather-count planes at word ``l // 32``, bit ``l % 32``; the
-        accepted bits go back per word (disjoint bits, so their sum is an
-        OR).  Returns the flips (R,)."""
-        Kl, W = int(mw.shape[0]), int(mw.shape[1])
-        R, nc = self.replicas, int(col.slots.shape[-1])
-        mext = torch.cat([mw, ghosts_w], dim=2).view(torch.uint32)
-        counts = bitplane_gather_count_op(mext, col.idx, col.signs, col.nz)
-        wl, bl = self._lane_w, self._lane_b
-        idx = col.slots.expand(Kl, R, nc)
-        sc = lfsr_next(torch.gather(s, 2, idx))
-        s.scatter_(2, idx, sc)
-        cnt = None
-        for i, b in enumerate(counts):
-            bit = ((b.view(torch.int32).index_select(1, wl) >> bl) & 1) << i
-            cnt = bit if cnt is None else cnt + bit
-        field = col.base - self.f_max + 2 * cnt               # (Kl, R, nc)
-        accept = lut_accept(thr, field, self.f_max, sc >> 8)
-        bits = accept.to(torch.int64) << bl
-        if W * LANE_WIDTH > R:
-            bits = torch.cat([bits, bits.new_zeros(
-                (Kl, W * LANE_WIDTH - R, nc))], dim=1)
-        upd = i64_to_i32(bits.reshape(Kl, W, LANE_WIDTH, nc).sum(2))
-        widx = col.slots.expand(Kl, W, nc)
-        old = torch.gather(mw, 2, widx)
-        new = torch.where(col.mask, upd, old)
-        flips = (((old ^ new).index_select(1, wl) >> bl) & 1).sum((0, 2))
-        if col.lost is not None:
-            new = torch.where(col.lost, old, new)
-        mw.scatter_(2, widx, new)
-        return flips
+        int64-carried LFSR states, ``lut[row]`` the LUT row; one fused
+        launch on the card (``ops.bitplane_phase_op``: the gather-count,
+        then per lane the field ``(base - f_max) + 2 * count``, the LFSR
+        draw, the accept and the word write).  Adds each lane's flips to
+        ``flips`` (R,) int64 (made here when None) and returns it."""
+        if flips is None:
+            flips = torch.zeros(self.replicas, dtype=torch.int64,
+                                device=self.device)
+        return bitplane_phase_op(mw, ghosts_w, s, col.sites, lut, row,
+                                 self.f_max, flips)
 
     # -- runners -------------------------------------------------------------------
 

@@ -55,4 +55,5 @@ def bitplane_gather_count(mext_w, idx_c, signs_c, nz_c):
                 _build.stream_of(mext_w))
         _build.check_launch("bitplane_gather_count", err)
         _build.launch_counts["bitplane_gather_count"] += 1
+        _build.launch_counts["bitplane_gather_count:count"] += 1
     return list(out.unbind(0))

@@ -12,13 +12,16 @@ from __future__ import annotations
 
 from typing import Optional
 
+import torch
+
 from repro_torch.core.pbit import FixedPoint
-from . import _build, bitplane_gather, lattice_energy, pbit_bitplane, \
-    pbit_lattice, ref as _ref
+from . import _build, bitplane_gather, bitplane_phase, lattice_energy, \
+    pbit_bitplane, pbit_lattice, ref as _ref
 
 __all__ = ["IMPLS", "resolve_impl", "pbit_update_op", "pbit_sweep_op",
            "pbit_update_int_op", "pbit_sweep_int_op",
            "pbit_bitplane_sweep_op", "bitplane_gather_count_op",
+           "bitplane_phase_op", "bitplane_phase_apt_op",
            "brick_energy_op", "brick_energy_words_op"]
 
 IMPLS = ("auto", "cuda", "ref")
@@ -115,6 +118,38 @@ def bitplane_gather_count_op(mext_w, idx_c, signs_c, nz_c,
         return _ref.bitplane_gather_count_ref(mext_w, idx_c, signs_c, nz_c)
     return bitplane_gather.bitplane_gather_count(mext_w, idx_c, signs_c,
                                                  nz_c)
+
+
+def bitplane_phase_op(mw, ghosts_w, s, sites, lut, row: int, f_max: int,
+                      flips, impl: str = "auto"):
+    """One bit-plane colour phase of ``dsim_dist``, in place on the words
+    ``mw`` (K, W, n_max) (int32 view) and the LFSR states ``s`` (K, R,
+    n_max): the gather-count fused with the per-lane tail
+    (:func:`repro_torch.kernels.bitplane_phase.bitplane_phase`; ``sites``
+    a ``PhaseSites``, ``lut[row]`` the LUT row); each lane's flips are
+    added to ``flips`` (R,) int64, which is returned.  Port-internal: the
+    reference computes the phase with ``jnp`` around its gather-count."""
+    if resolve_impl(impl, mw.is_cuda) == "ref":
+        return _ref.bitplane_phase_ref(
+            mw, ghosts_w, s, sites.slots, sites.mask, sites.lost, sites.idx,
+            sites.signs, sites.nz, sites.base, lut[row], f_max, flips)
+    return bitplane_phase.bitplane_phase(mw, ghosts_w, s, sites, lut, row,
+                                         f_max, flips)
+
+
+def bitplane_phase_apt_op(mw, s, sites, thr, f_max: int, E, scale: float,
+                          impl: str = "auto"):
+    """One colour phase of packed APT+ICM, in place on the words ``mw``
+    (W, N), the LFSR states ``s`` (L, N) and the energies ``E`` (L,)
+    (:func:`repro_torch.kernels.bitplane_phase.bitplane_phase_apt`; ``thr``
+    (L, lw) one LUT row per lane).  Returns ``E``."""
+    if resolve_impl(impl, mw.is_cuda) == "ref":
+        return _ref.bitplane_phase_apt_ref(
+            mw, s, sites.slots[0], sites.idx, sites.signs, sites.nz,
+            sites.base[0], thr, f_max, E,
+            torch.tensor(scale, dtype=torch.float32, device=E.device))
+    return bitplane_phase.bitplane_phase_apt(mw, s, sites, thr, f_max, E,
+                                             scale)
 
 
 def brick_energy_op(m, active, h, w6, halos, bx: Optional[int] = None,

@@ -23,16 +23,17 @@ from typing import Optional
 import torch
 
 from repro_torch.core.bits import MASK32, i64_to_i32, i64_to_u32, u32_to_i64
-from repro_torch.core.packing import LANE_WIDTH, unpack_lanes
+from repro_torch.core.packing import LANE_WIDTH, lane_coords, unpack_lanes
 from repro_torch.core.pbit import (FixedPoint, lfsr_next, lfsr_uniform,
-                                   pbit_update, quantize)
+                                   lut_accept, pbit_update, quantize)
 
 __all__ = ["neighbor_sums_ref", "int_field_ref", "pbit_brick_update_ref",
            "pbit_brick_sweep_ref", "decision_ulps_ref",
            "pbit_brick_update_int_ref", "pbit_brick_sweep_int_ref",
            "add_phase_flips_ref",
            "bitplane_ones_count_ref", "bitplane_count_planes_ref",
-           "bitplane_gather_count_ref", "pbit_bitplane_sweep_ref",
+           "bitplane_gather_count_ref", "bitplane_phase_ref",
+           "bitplane_phase_apt_ref", "pbit_bitplane_sweep_ref",
            "brick_energy_sites_ref", "brick_energy_ref",
            "brick_energy_words_ref"]
 
@@ -271,6 +272,93 @@ def bitplane_gather_count_ref(mext_w, idx_c, signs_c, nz_c):
     planes = [(nbr[..., d] ^ sg[..., d]) & nz[..., d] for d in range(D)]
     return [p.contiguous().view(torch.uint32)
             for p in bitplane_count_planes_ref(planes)]
+
+
+def bitplane_phase_ref(mw, ghosts_w, s, slots, mask, lost, idx, signs, nz,
+                       base, thr, f_max: int, flips=None):
+    """One colour phase of the distributed DSIM's bit-plane path, in place
+    (``DistDSIMEngine``'s colour phase as whole-tensor PyTorch): the
+    gather-count planes of the colour's sites over [local words | ghost
+    words], then per lane its LFSR step, its count read from the planes
+    at word ``l // 32``, bit ``l % 32``, the field ``(base - f_max) + 2 *
+    count``, the LUT accept and the accepted bits back per word (disjoint
+    bits, so their sum is an OR); lanes >= R of the last word are 0.
+
+    mw (K, W, n_max) and ghosts_w (K, W, g_max) int32 views of the words
+    (mw updated); s (K, R, n_max) int64-carried LFSR states (updated);
+    slots (K, nc) int64 (padding entries: slot 0 with ``mask`` False),
+    mask and ``lost`` (K, nc) bool (``lost`` None where no update is
+    undone); idx (K, nc, D) int32 into [0, n_max + g_max); signs, nz
+    (K, nc, D) uint32; base (K, nc) int64; thr one LUT row (lw,) int64.
+    Padding steps slot 0's states once from their value before the phase
+    (every duplicate writes the same value) and keeps its word; a
+    ``lost`` entry keeps its word and its flip still counts.  Returns the
+    flips per lane (R,) int64, added in place to ``flips`` when given."""
+    K, W = int(mw.shape[0]), int(mw.shape[1])
+    R, nc = int(s.shape[1]), int(slots.shape[-1])
+    wl, bl = lane_coords(R, 1, mw.device)
+    bl = bl[None]                                        # (1, R, 1)
+    slots, mask, base = slots[:, None], mask[:, None], base[:, None]
+    mext = torch.cat([mw, ghosts_w], dim=2).view(torch.uint32)
+    counts = bitplane_gather_count_ref(mext, idx, signs, nz)
+    sidx = slots.expand(K, R, nc)
+    sc = lfsr_next(torch.gather(s, 2, sidx))
+    s.scatter_(2, sidx, sc)
+    cnt = None
+    for i, b in enumerate(counts):
+        bit = ((b.view(torch.int32).index_select(1, wl) >> bl) & 1) << i
+        cnt = bit if cnt is None else cnt + bit
+    field = base - f_max + 2 * cnt                       # (K, R, nc)
+    accept = lut_accept(thr, field, f_max, sc >> 8)
+    bits = accept.to(torch.int64) << bl
+    if W * LANE_WIDTH > R:
+        bits = torch.cat([bits, bits.new_zeros(
+            (K, W * LANE_WIDTH - R, nc))], dim=1)
+    upd = i64_to_i32(bits.reshape(K, W, LANE_WIDTH, nc).sum(2))
+    widx = slots.expand(K, W, nc)
+    old = torch.gather(mw, 2, widx)
+    new = torch.where(mask, upd, old)
+    f = (((old ^ new).index_select(1, wl) >> bl) & 1).sum((0, 2))
+    if lost is not None:
+        new = torch.where(lost[:, None], old, new)
+    mw.scatter_(2, widx, new)
+    return f if flips is None else flips.add_(f)
+
+
+def bitplane_phase_apt_ref(mw, s, nodes, idx, signs, nz, base, thr,
+                           f_max: int, E, scale):
+    """One colour phase of packed APT+ICM, in place (the colour loop's
+    body of ``APTICM``'s packed sweep): the gather-count planes of the
+    colour's nodes, then per lane l (word l // 32, bit l % 32) its LFSR
+    step, field, the accept against its own LUT row and its energy
+    change; the words of the nodes are rewritten (lanes >= L zero).
+
+    mw (W, N) uint32 words, s (L, N) int64-carried LFSR states, E (L,) f32
+    energies (all updated); nodes (nc,) int64; idx (1, nc, D) int32 into
+    [0, N); signs, nz (1, nc, D) uint32; base (nc,) int64; thr (L, lw)
+    int64, lane l's LUT row; scale the f32 coupling scale (0-dim).
+    ``E -= sum_i (new - old) * field * scale``, the sum in f32."""
+    L = int(s.shape[0])
+    wl, bl = lane_coords(L, 1, mw.device)                # (L,), (L, 1)
+    counts = bitplane_gather_count_ref(mw[None], idx, signs, nz)
+    sc = lfsr_next(s.index_select(1, nodes))
+    s.index_copy_(1, nodes, sc)
+    cnt = torch.zeros(sc.shape, dtype=torch.int64, device=sc.device)
+    for i, b in enumerate(counts):                       # (1, W, nc)
+        cnt += ((u32_to_i64(b[0])[wl] >> bl) & 1) << i
+    field = base - f_max + 2 * cnt
+    lw = int(thr.shape[-1])
+    col = torch.clamp(field + f_max, 0, lw - 1)
+    rows = thr[:, None, :].expand(*sc.shape, lw)
+    accept = (sc >> 8) >= torch.gather(rows, -1, col[..., None].long())[..., 0]
+    mwn = u32_to_i64(mw.index_select(1, nodes))          # (W, nc)
+    old = torch.where(((mwn[wl] >> bl) & 1) != 0, 1, -1)
+    new = torch.where(accept, 1, -1)
+    E.sub_(((new - old).to(torch.float32)
+            * field.to(torch.float32)).sum(-1) * scale)
+    upd = torch.zeros_like(mwn).index_add_(0, wl, accept.long() << bl)
+    mw.view(torch.int32).index_copy_(1, nodes, i64_to_i32(upd))
+    return E
 
 
 def pbit_bitplane_sweep_ref(mw, s, rows, masks_w, signs6, nz6, base,

@@ -28,6 +28,9 @@ from repro_torch.kernels.pbit_lattice import (pbit_brick_sweep,
                                               pbit_brick_sweep_int,
                                               pbit_brick_update,
                                               pbit_brick_update_int)
+from repro_torch.kernels import ops
+from test_torch_bitplane_phase import DIST_GRID, apt_case, as_tensors, \
+    dist_case
 
 
 def T(a):
@@ -926,12 +929,99 @@ def test_cuda_gather_count_matches_plain(cuda, D, W, K):
             np.where(rng.random((K, nc, D)) < 0.8, ones, 0).astype(np.uint32))
     args = tuple(T(a) for a in args)
     want = t_ref.bitplane_gather_count_ref(*args)
-    before = _build.launch_counts["bitplane_gather_count"]
+    before = dict(_build.launch_counts)
     got = bitplane_gather_count(*to(cuda, args))
     torch.cuda.synchronize()
-    assert _build.launch_counts["bitplane_gather_count"] == before + 1
+    assert phase_launches(before) == (1, 0, 1)
     assert len(got) == len(want) == D.bit_length()
     assert_bitwise(got, want)
+
+
+def sites_on(dev, sites):
+    """A PhaseSites built again from ``sites``' tensors moved to dev."""
+    from repro_torch.kernels.bitplane_phase import phase_sites
+    return phase_sites(*(None if x is None else to(dev, x) for x in (
+        sites.slots, sites.mask, sites.lost, sites.idx, sites.signs,
+        sites.nz, sites.base)))
+
+
+def phase_launches(before):
+    """Launch-count increments of the B7 key and its two sub-keys."""
+    return tuple(_build.launch_counts[k] - before[k] for k in (
+        "bitplane_gather_count", "bitplane_gather_count:phase",
+        "bitplane_gather_count:count"))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("K,D,R,slot0", DIST_GRID)
+def test_cuda_bitplane_phase_matches_plain(cuda, K, D, R, slot0):
+    """The fused dsim_dist colour phase == its plain version bitwise
+    (words, LFSR states, flips) on padded partitions with lost entries,
+    one launch counted under the B7 key and ":phase"."""
+    from repro_torch.kernels.bitplane_phase import bitplane_phase
+    c = dist_case(K, D, R, slot0, seed=K * 1000 + D * 10 + R + slot0)
+    mw, gh, s, sites, lut = as_tensors(c)
+    flips = torch.full((R,), 3, dtype=torch.int64)
+    g = to(cuda, (mw, gh, s, flips, lut))
+    gsites = sites_on(cuda, sites)
+    ops.bitplane_phase_op(mw, gh, s, sites, lut, 1, c["f_max"], flips)
+    before = dict(_build.launch_counts)
+    out = bitplane_phase(g[0], g[1], g[2], gsites, g[4], 1, c["f_max"], g[3])
+    torch.cuda.synchronize()
+    assert out is g[3] and phase_launches(before) == (1, 1, 0)
+    assert_bitwise((g[0], g[2], g[3]), (mw, s, flips))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("L,D", [(5, 4), (40, 3), (128, 6), (128, 12)])
+def test_cuda_bitplane_phase_apt_matches_plain(cuda, L, D):
+    """The fused packed-APT colour phase == its plain version bitwise
+    (words, LFSR states, energies), twice in a row (the energy sums and
+    the last-block ticket are left zero for the next launch)."""
+    from repro_torch.kernels.bitplane_phase import (bitplane_phase_apt,
+                                                    phase_sites)
+    c = apt_case(L, D, seed=L + D)
+    mw = u32_from_numpy(c["mw"][0], "cpu")
+    s = torch.from_numpy(c["s"][0].copy())
+    nodes = torch.from_numpy(c["slots"][0])
+    sites = phase_sites(nodes[None], torch.ones((1, nodes.numel()),
+                                                dtype=torch.bool), None,
+                        torch.from_numpy(c["idx"]),
+                        u32_from_numpy(c["signs"], "cpu"),
+                        u32_from_numpy(c["nz"], "cpu"),
+                        torch.from_numpy(c["base"]))
+    thr = torch.from_numpy(c["thr"])
+    E = torch.from_numpy(c["E"].copy())
+    g = to(cuda, (mw, s, thr, E))
+    gsites = sites_on(cuda, sites)
+    for _ in range(2):
+        ops.bitplane_phase_apt_op(mw, s, sites, thr, c["f_max"], E,
+                                  float(c["scale"]))
+        before = dict(_build.launch_counts)
+        bitplane_phase_apt(g[0], g[1], gsites, g[2], c["f_max"], g[3],
+                           float(c["scale"]))
+        torch.cuda.synchronize()
+        assert phase_launches(before) == (1, 1, 0)
+        assert_bitwise((g[0], g[1], g[3]), (mw, s, E))
+    assert not bool(gsites.scratch.any())
+
+
+@pytest.mark.cuda
+def test_cuda_bitplane_phase_raises_on_bad_operands(cuda):
+    """No clamp and no fallback: operands the kernel does not take raise."""
+    from repro_torch.kernels.bitplane_phase import bitplane_phase
+    c = dist_case(8, 4, 40, True, seed=3)
+    mw, gh, s, sites, lut = to(cuda, as_tensors(c)[:3]) + (
+        sites_on(cuda, as_tensors(c)[3]), to(cuda, as_tensors(c)[4]))
+    flips = torch.zeros(40, dtype=torch.int64, device=cuda)
+    with pytest.raises(TypeError):
+        bitplane_phase(mw, gh, s.to(torch.int32), sites, lut, 0, c["f_max"],
+                       flips)
+    with pytest.raises(ValueError, match="LUT row"):
+        bitplane_phase(mw, gh, s, sites, lut, 3, c["f_max"], flips)
+    with pytest.raises(ValueError):
+        bitplane_phase(mw, gh, s[:, :33], sites, lut, 0, c["f_max"],
+                       flips[:33])
 
 
 def dist_runs(kind, sync, devices, replicas, **kw):
@@ -970,6 +1060,8 @@ def test_cuda_dsim_dist_fixed_point_matches_cpu_bitwise(cuda, kind, prec, R,
         rg.flips == rc.flips
     gathers = counts.pop("bitplane_gather_count")
     assert (gathers > 0) == (prec == "bitplane")
+    assert counts.pop("bitplane_gather_count:phase") == gathers
+    assert counts.pop("bitplane_gather_count:count") == 0
     assert not any(counts.values())
 
 
@@ -1145,6 +1237,8 @@ def test_cuda_apt_icm_matches_cpu(cuda, rng, packed, draws):
     (sc, stc, bc, _), (sg, stg, bg, counts) = out["cpu"], out[str(cuda)]
     gathers = counts.pop("bitplane_gather_count", 0)
     assert gathers == (12 * col.n_colors if packed else 0)
+    assert counts.pop("bitplane_gather_count:phase") == gathers
+    assert counts.pop("bitplane_gather_count:count") == 0
     assert not any(counts.values())
     if not draws:
         return
