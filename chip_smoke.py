@@ -188,14 +188,26 @@ Phases; every check raises on failure and the script then exits non-zero:
    ``examples/torch_train_lm.py`` at its defaults in a subprocess (loss
    falls), and again to 140 steps: it resumes at step 120; (h) none of
    the hand kernels launched in the phase;
-14. print one JSON line of kernels (``launches`` over the main and mesh
+14. the dry run (``python -m repro_torch.launch.dryrun``): kernel #3 held
+   to its plain version (as in phase 2) at the dry run's bricks, rank
+   17's 7x7x100 (16x16 mesh) and 7x7x50 (2x16x16) and rank 255's
+   all-padding 7x7x100, and timed there beside its bound; then ``--all``
+   (both meshes) and rank 255 alone, each a subprocess with its own
+   timeout on a "fake" process group of 256 or 512 ranks: every record
+   ``ok`` on the card with the reference's chips, extras and wire bytes
+   per rank (``collective-permute`` 704.0 and 380.0, rank 255 its two
+   faces), #3 launched once per iteration, ``chunk_s`` no less than the
+   roofline's bound / 1.05, the memory within the card's, one line per
+   record;
+15. print one JSON line of kernels (``launches`` over the main and mesh
    paths, the bit-plane dist run's and the packed APT run's for B7's
    fused colour phase, whose entry also holds its times at the APT shape
-   (``apt``) and the standalone gather-count's route (``count``), and the
-   examples'; ``mesh_launches`` the mesh path's,
+   (``apt``) and the standalone gather-count's route (``count``), the
+   examples' and the dry run's; ``mesh_launches`` the mesh path's,
    ``server_launches`` the server path's, ``apt_launches`` the APT
-   path's, ``example_launches`` each example's), the card's name and
-   power limit, and last ``{"ok": true, "device": {...}}``.
+   path's, ``example_launches`` each example's, ``dryrun_launches`` the
+   dry run's records'), the card's name and power limit, and last
+   ``{"ok": true, "device": {...}}``.
 
 It exits non-zero, printing no result, where CUDA is absent or the
 script stands outside a checkout of the repository.
@@ -734,14 +746,27 @@ def graph_m0(n: int) -> np.ndarray:
         np.array([-1, 1], np.int8), size=n)
 
 
-# H100 SXM published HBM3 bandwidth (NVIDIA data sheet).  The operation
-# peaks are taken from the card in the run: Hopper issues 64 INT32 and
-# 128 FP32 lane operations per SM per clock (no FMA here: the library
-# builds with --fmad=false), at the SM count PyTorch reports and the
-# maximum SM clock nvidia-smi reports.
+# Phase 14, the dry run: its records of rank 17 on the two production
+# meshes (the wire per rank is the JAX reference's, which
+# tests/test_torch_dryrun.py holds on the CPU), and rank 255, whose brick
+# is all padding (x and y from 105 to 111) and which has two neighbours.
+DRYRUN_TIMEOUT = 180
+DRYRUN_MESHES = {
+    "single_pod_16x16": dict(chips=256, permute=704.0, brick=[7, 7, 100]),
+    "multi_pod_2x16x16": dict(chips=512, permute=380.0, brick=[7, 7, 50])}
+DRYRUN_PADDING = dict(rank=255, permute=352.0)
+DRYRUN_EXTRAS = {"p_bits": 1_000_000, "padded_sites": 1_254_400,
+                 "n_colors": 2, "sync_every": 4}
+DRYRUN_ITERS = 2
+# a reading above 1 / DRYRUN_SLACK of the card's bound fails
+DRYRUN_SLACK = 1.05
+
+# H100 SXM published HBM3 bandwidth (NVIDIA data sheet), for the byte
+# floors of the glue; the kernels' bounds come from the package's work
+# model and roofline (repro_torch.kernels.work, repro_torch.launch.
+# roofline.HW at the SM count PyTorch reports and the maximum SM clock
+# nvidia-smi reports).
 HBM_BYTES_PER_S = 3.35e12
-INT32_PER_SM_CLOCK = 64
-FP32_PER_SM_CLOCK = 128
 # the redesigned kernels, by what the profiler's CUDA kernel names hold
 # (the energy: both of its passes)
 REDESIGNED = {"pbit_bitplane_sweep": ("bitplane_color_kernel",),
@@ -890,7 +915,8 @@ class Smoke:
                 (self.phase_dist, (card,)), (self.phase_degraded, (card,)),
                 (self.phase_server, (card,)), (self.phase_apt, (card,)),
                 (self.phase_audit, (card,)), (self.phase_examples, ()),
-                (self.phase_lm, (card,)), (self.phase_train, (card,))):
+                (self.phase_lm, (card,)), (self.phase_train, (card,)),
+                (self.phase_dryrun, (card,))):
             phase(*args)
             t1 = time.perf_counter()
             laps.append(f"{phase.__name__[6:]} {t1 - t0:.1f}")
@@ -905,6 +931,8 @@ class Smoke:
             per = {n: c[k] for n, c in self.example_launches.items()}
             self.results[k]["launches"] += sum(per.values())
             self.results[k]["example_launches"] = per
+            self.results[k]["launches"] += self.dryrun_launches[k]
+            self.results[k]["dryrun_launches"] = self.dryrun_launches[k]
         print(json.dumps({"kernels": [self.results[k] for k in KERNELS]}))
         print(card)
         print(json.dumps({"ok": True, "device": {
@@ -1044,7 +1072,6 @@ class Smoke:
                     args[3:]
         self.results["pbit_bitplane_sweep"] = {"max_abs_err": max(errs)}
 
-        self.n = n
         self.phase_kernels_energy()
         self.phase_kernels_f32_and_per_phase(betas, table, S)
 
@@ -1879,92 +1906,76 @@ class Smoke:
         from repro_torch.kernels.lattice_energy import (brick_energy,
                                                         brick_energy_words)
         from repro_torch.kernels.pbit_bitplane import pbit_bitplane_sweep
+        from repro_torch.kernels import work
         from repro_torch.kernels.pbit_lattice import (phase_width,
                                                       pbit_brick_sweep,
                                                       pbit_brick_sweep_int,
                                                       pbit_brick_update,
                                                       pbit_brick_update_int)
+        from repro_torch.launch.roofline import HW, work_bound
         print(f"== 5. timing on {card}", flush=True)
-        sms = t.cuda.get_device_properties(0).multi_processor_count
-        clock = max_sm_clock_hz()
-        self.int_peak = sms * INT32_PER_SM_CLOCK * clock
-        self.f32_peak = sms * FP32_PER_SM_CLOCK * clock
-        print(f"  peaks: {sms} SMs at {clock / 1e6:.0f} MHz: "
-              f"{self.int_peak:.4e} INT32 and {self.f32_peak:.4e} FP32 "
-              f"operations/s; HBM {HBM_BYTES_PER_S:.3e} B/s", flush=True)
+        self.hw = HW(sms=t.cuda.get_device_properties(0).multi_processor_count,
+                     sm_clock_hz=max_sm_clock_hz())
+        hw = self.hw
+        print(f"  peaks: {hw.sms} SMs at {hw.sm_clock_hz / 1e6:.0f} MHz: "
+              f"{hw.int32_peak:.4e} INT32 and {hw.fp32_peak:.4e} FP32 "
+              f"operations/s; HBM {hw.hbm_bw:.3e} B/s", flush=True)
         for label, (rate, dt, flips) in self.rates.items():
             unit = "lane-flips/s" if "bitplane" in label else "flips/s"
             print(f"  main path {label}: {MAIN_SWEEPS} sweeps in "
                   f"{dt:.4f} s = {rate:.4e} {unit} (p-bit updates; "
                   f"{flips} accepted flips) on {card}", flush=True)
         self.profile_main_path(card)
-        n = self.n
-        plane = 6 * L * L
 
-        # Operations each function needs on this run's data (the bound is
-        # the least time, so only what the result needs is counted): per
-        # replica-site and phase one LFSR step (6 integer ops); per
-        # replica-site decided (the sites in the phase's mask): int8, the
-        # field's 12 ops, index, clamp, LUT load and compare, 19 in all;
-        # f32, the field's 12, the draw's 2, the activation, tanh counted
-        # once, the add and compare, 18 f32 ops in all; bit-plane, per
-        # decided word-site the 26 ops of the word math and per decided
-        # lane-site 13 (bit-slice count, index, clamp, LUT, accept bit).
+        # Each bound is the least time for the kernel's work on this run's
+        # data (repro_torch.kernels.work, whose docstring counts it).
         m, s, masks, h_q, w6_q, halos, lut, rows = self.inputs_int8
         R, nc = int(m.shape[0]), int(masks.shape[0])
-        decided = int((masks != 0).sum())      # masked sites over a sweep
+        X, Y, Z = (int(d) for d in m.shape[-3:])
         args = (m, s, t.from_numpy(rows).to(self.dev), masks, h_q, w6_q,
                 halos, lut)
-        byts = (2 * 5 * R * n + (nc + 7) * n + 4 * R + R * plane
-                + 4 * lut.numel() + 4 * SYNC)
         self._timed("pbit_brick_sweep_int", "src/repro_torch/kernels/csrc/"
                     "pbit_lattice.cu", "src/repro/kernels/pbit_lattice.py:235",
                     lambda: pbit_brick_sweep_int(*args),
-                    lambda: ref.pbit_brick_sweep_int_ref(*args), byts,
-                    SYNC * R * (6 * nc * n + 19 * decided), 0,
+                    lambda: ref.pbit_brick_sweep_int_ref(*args),
+                    work.sweep_int(R, X, Y, Z, nc, SYNC, work.decided(masks),
+                                   lut.numel(), SYNC),
                     f"{SYNC} sweeps, R={R}, 1 launch")
         g = self.inputs_int8_global
         R16 = int(g[0].shape[0])
-        byts16 = (2 * 5 * R16 * n + (nc + 7) * n + 4 * R16 + R16 * plane
-                  + 4 * lut.numel() + 4 * SYNC * R16)
         ms = self.time_ms(lambda: pbit_brick_sweep_int(*g), reps=20)
         print(f"  pbit_brick_sweep_int, R={R16}, LFSR in device memory "
               f"({SYNC} sweeps, 1 launch): {ms:.4f} ms; on {card}",
               flush=True)
 
-        mw, s, rows, masks_w, signs6, nz6, base, hw, lut = self.inputs_bp
+        mw, s, rows, masks_w, signs6, nz6, base, hwords, lut = self.inputs_bp
         W, R, nc = int(mw.shape[0]), int(s.shape[0]), int(masks_w.shape[0])
-        decided = int((masks_w.view(t.int32)[:, 0] != 0).sum())
-        args = (mw, s, rows, masks_w, signs6, nz6, base, hw, lut)
-        byts = (2 * 4 * (W + R) * n + 4 * nc * W * n + 52 * n + 4 * R
-                + 4 * W * plane + 4 * lut.numel() + 4 * SYNC)
+        args = (mw, s, rows, masks_w, signs6, nz6, base, hwords, lut)
         self._timed("pbit_bitplane_sweep", "src/repro_torch/kernels/csrc/"
                     "pbit_bitplane.cu",
                     "src/repro/kernels/pbit_bitplane.py:135",
                     lambda: pbit_bitplane_sweep(*args),
-                    lambda: ref.pbit_bitplane_sweep_ref(*args), byts,
-                    SYNC * (6 * nc * R * n + decided * (26 * W + 13 * R)),
-                    0, f"{SYNC} sweeps, R={R}, W={W}, {SYNC * nc} launches")
+                    lambda: ref.pbit_bitplane_sweep_ref(*args),
+                    work.bitplane_sweep(W, R, X, Y, Z, nc, SYNC,
+                                        work.decided(masks_w[:, 0]),
+                                        lut.numel(), SYNC),
+                    f"{SYNC} sweeps, R={R}, W={W}, {SYNC * nc} launches")
 
-        # the energy: its bound is the work of R int8 replicas (1 B per
-        # replica-site), whichever layout holds the spins
         args = self.inputs_energy[64]
         R = int(args[0].shape[0])
-        byts = R * n + 29 * n + R * plane + 4 * R
         self._timed("brick_energy", "src/repro_torch/kernels/csrc/"
                     "lattice_energy.cu",
                     "src/repro/kernels/lattice_energy.py:57",
                     lambda: brick_energy(*args),
                     lambda: ref.brick_energy_ref(*args),
-                    byts, 0, 17 * R * n, f"R={R} int8 spins, 2 launches")
+                    work.energy(R, X, Y, Z), f"R={R} int8 spins, 2 launches")
         for what, fn, r in (
                 ("int8 spins", lambda: brick_energy(*self.inputs_energy[4]),
                  4),
                 ("word planes", lambda: brick_energy_words(
                     *self.inputs_energy_words), 64)):
             ms = self.time_ms(fn, reps=50)
-            byts = r * n + 29 * n + r * plane + 4 * r
-            bound = max(byts / HBM_BYTES_PER_S, 17 * r * n / self.f32_peak)
+            bound = work_bound(work.energy(r, X, Y, Z), hw)[1]
             print(f"  brick_energy, R={r} {what}: {ms:.4f} ms per call, "
                   f"bound {bound * 1e3:.4f} ms; on {card}", flush=True)
         self.time_readout(card)
@@ -1972,45 +1983,37 @@ class Smoke:
         args = self.inputs_f32
         m, masks = args[0], args[3]
         R, nc = int(m.shape[0]), int(masks.shape[0])
-        decided = int((masks != 0).sum())
-        byts = (2 * 5 * R * n + (nc + 28) * n + R * plane + 4 * R
-                + 4 * SYNC * R)
         self._timed("pbit_brick_sweep", "src/repro_torch/kernels/csrc/"
                     "pbit_lattice.cu", "src/repro/kernels/pbit_lattice.py:287",
                     lambda: pbit_brick_sweep(*args),
-                    lambda: ref.pbit_brick_sweep_ref(*args), byts,
-                    SYNC * 6 * nc * R * n, SYNC * 18 * R * decided,
+                    lambda: ref.pbit_brick_sweep_ref(*args),
+                    work.sweep_f32(R, X, Y, Z, nc, SYNC, work.decided(masks)),
                     f"{SYNC} sweeps, R={R}, 1 launch")
         g = self.inputs_f32_global
         R16 = int(g[0].shape[0])
         ms16 = self.time_ms(lambda: pbit_brick_sweep(*g), reps=20)
-        byts16 = (2 * 5 * R16 * n + (nc + 28) * n + R16 * plane + 4 * R16
-                  + 4 * SYNC * R16)
+        byts16 = work.sweep_f32(R16, X, Y, Z, nc, SYNC, 0).bytes
         print(f"  pbit_brick_sweep, LFSR in device memory (R={R16}, "
               f"{SYNC} sweeps, 1 launch): {ms16:.4f} ms, byte floor "
-              f"{byts16 / HBM_BYTES_PER_S * 1e3:.4f} ms; on {card}",
+              f"{byts16 / hw.hbm_bw * 1e3:.4f} ms; on {card}",
               flush=True)
 
-        # one phase: each input read once and each output written once
         args = self.inputs_update_int
         lut = args[-1]
         R = int(args[0].shape[0])
-        byts = 2 * 5 * R * n + 8 * n + R * plane + 4 * lut.numel() + 4 * R
-        decided = int((args[3] != 0).sum())
         self._timed("pbit_brick_update_int", "src/repro_torch/kernels/csrc/"
                     "pbit_lattice.cu", "src/repro/kernels/pbit_lattice.py:450",
                     lambda: pbit_brick_update_int(*args),
                     lambda: ref.pbit_brick_update_int_ref(*args),
-                    byts, R * (6 * n + 19 * decided), 0,
+                    work.update_int(R, X, Y, Z, work.decided(args[3]),
+                                    lut.numel()),
                     f"one phase, R={R}, 1 launch")
         args = self.inputs_update_f32
-        byts = 2 * 5 * R * n + 29 * n + R * plane + 4 * R
-        decided = int((args[3] != 0).sum())
         self._timed("pbit_brick_update", "src/repro_torch/kernels/csrc/"
                     "pbit_lattice.cu", "src/repro/kernels/pbit_lattice.py:340",
                     lambda: pbit_brick_update(*args),
                     lambda: ref.pbit_brick_update_ref(*args),
-                    byts, 6 * R * n, 18 * R * decided,
+                    work.update_f32(R, X, Y, Z, work.decided(args[3])),
                     f"one phase, R={R}, 1 launch")
         # the host time of the wrapper's word-or-site choice (14 pointers
         # read, their alignment tested), part of each call above
@@ -2890,8 +2893,8 @@ class Smoke:
         args = self.gather_inputs
         K, W, n_ext = (int(d) for d in args[0].shape)
         nc, D = int(args[1].shape[1]), int(args[1].shape[2])
-        byts, int_ops, reached = self.gather_work(args)
-        by, _, times = self.bound(byts, int_ops, 0)
+        w, reached = self.gather_work(args)
+        by, _, times = self.bound(w)
         r = self.gather_count
         r.update({
             "name": "bitplane_gather_count:count", "route": "cuda",
@@ -2914,36 +2917,14 @@ class Smoke:
               flush=True)
 
     def phase_work(self, sites, W: int, R: int, lut_bytes: int):
-        """(bytes, INT32 operations, what) of one fused colour phase on
-        ``sites``: every input read once and every output written once
-        (the LFSR states of every owned slot's R lanes as int64, read and
-        written; the own words of real entries read and, where not lost,
-        written; the neighbour and ghost words the rows reach through a
-        nonzero mask, once per word plane; per real entry its D indices,
-        signs and masks and its base, per entry its slot and flags; the
-        LUT row or rows; the R flip or energy sums), and per real
-        (partition, word, site) the gather-count's operations
-        (``gather_work``) plus per real lane 6 for the LFSR step, 3 per
-        slice to read its count and 5 for the column, clamp and accept,
-        and per padding owner's lane 6."""
-        t = self.torch
-        fl = sites.flags.cpu().numpy()
-        K, nc, D = (int(d) for d in sites.idx.shape)
-        real = int((fl & 1).sum())
-        keep = int(((fl & 1) & ~(fl >> 1) & 1).sum())
-        owners = int(((fl >> 2) & 1).sum())
-        live = sites.nz.view(t.int32) != 0
-        reached = sum(int(t.unique(sites.idx[k][live[k] & sites.mask[k][
-            :, None]]).numel()) for k in range(K))
-        byts = 16 * R * owners + 4 * W * (real + keep) + 4 * W * reached \
-            + real * (12 * D + 4) + nc * K * 5 + 16 * R + lut_bytes
-        P = D.bit_length()
-        gather = sum(2 + 2 * (n - 1).bit_length() for n in range(1, D + 1))
-        ops_ = real * W * gather + real * R * (11 + 3 * P) \
-            + (owners - real) * R * 6
-        what = (f"K={K}, W={W}, R={R}, nc={nc}, D={D}: {real} real entries, "
-                f"{owners} owners, {reached} neighbour slots reached")
-        return byts, ops_, what
+        """(work, what) of one fused colour phase on ``sites``
+        (``repro_torch.kernels.work.colour_phase``)."""
+        from repro_torch.kernels import work
+        c = work.phase_counts(sites)
+        what = (f"K={c['K']}, W={W}, R={R}, nc={c['nc']}, D={c['D']}: "
+                f"{c['real']} real entries, {c['owners']} owners, "
+                f"{c['reached']} neighbour slots reached")
+        return work.colour_phase(W=W, R=R, lut_bytes=lut_bytes, **c), what
 
     def time_phase(self, card: str):
         """The fused colour phase (B7's route on the main path) against
@@ -2966,8 +2947,7 @@ class Smoke:
         flips = t.zeros(hh.replicas, dtype=t.int64, device=self.dev)
         sites = e._colors[0].sites
         W, R = int(mw.shape[1]), hh.replicas
-        byts, int_ops, what = self.phase_work(sites, W, R,
-                                              8 * int(lut.shape[1]))
+        w, what = self.phase_work(sites, W, R, 8 * int(lut.shape[1]))
         self._timed("bitplane_gather_count", "src/repro_torch/kernels/csrc/"
                     "bitplane_phase.cu", "src/repro/kernels/ops.py:120",
                     lambda: bitplane_phase(mw, gh, s, sites, lut, row,
@@ -2975,12 +2955,12 @@ class Smoke:
                     lambda: ops.bitplane_phase_op(mw, gh, s, sites, lut, row,
                                                   e.f_max, flips,
                                                   impl="ref"),
-                    byts, int_ops, 0, f"one colour, {what}, 1 launch")
+                    w, f"one colour, {what}, 1 launch")
         r = self.results["bitplane_gather_count"]
         print(f"  bitplane_gather_count (fused colour phase): "
               f"{r['ms']:.4f} ms ({r['work']}), plain {r['plain_ms']:.4f} "
               f"ms, bound {r['bound_ms']:.4f} ms by {r['bound_by']} "
-              f"({r['bounds']}; {byts} bytes); {r['launches']} launches on "
+              f"({r['bounds']}; {w.bytes} bytes); {r['launches']} launches on "
               f"the bit-plane dist run; on {card}", flush=True)
         del r["work"], r["bounds"]
         r["count"] = self.gather_count
@@ -3002,19 +2982,14 @@ class Smoke:
               f"{card}", flush=True)
 
     def gather_work(self, args):
-        """(bytes, INT32 operations, pool slots reached) of one
-        gather-count call on ``args``, as ``time_gather_count`` bounds
-        it."""
+        """(work, pool slots reached) of one gather-count call on
+        ``args`` (``repro_torch.kernels.work.gather_count``)."""
+        from repro_torch.kernels import work
         mext, idx, nz = args[0], args[1], args[3]
         K, W = int(mext.shape[0]), int(mext.shape[1])
         nc, D = int(idx.shape[1]), int(idx.shape[2])
-        live = nz.view(self.torch.int32) != 0
-        reached = sum(int(self.torch.unique(idx[k][live[k]]).numel())
-                      for k in range(K))
-        byts = 4 * W * reached + 3 * 4 * K * nc * D \
-            + 4 * D.bit_length() * K * W * nc
-        ops = sum(2 + 2 * (n - 1).bit_length() for n in range(1, D + 1))
-        return byts, K * W * nc * ops, reached
+        reached = work.reached_slots(idx, nz.view(self.torch.int32) != 0)
+        return work.gather_count(K, W, nc, D, reached), reached
 
     # -- phase 8: the degraded mesh and the sampling server ---------------
 
@@ -3653,15 +3628,15 @@ class Smoke:
         plain = self.time_ms(lambda: ops.bitplane_phase_apt_op(
             *args, impl="ref"), reps=3, warm=1)
         lw = int(apt._thr_lanes.shape[1])
-        byts, int_ops, what = self.phase_work(sites, apt.words, apt.L,
-                                              8 * apt.L * lw + 8 * apt.L)
-        by, bound, _ = self.bound(byts, int_ops, 0)
+        w, what = self.phase_work(sites, apt.words, apt.L,
+                                  8 * apt.L * lw + 8 * apt.L)
+        by, bound, _ = self.bound(w)
         garg = (st.m[None], sites.idx, sites.signs, sites.nz)
         gms = self.time_ms(lambda: bitplane_gather_count(*garg), reps=50)
         gplain = self.time_ms(lambda: ref.bitplane_gather_count_ref(*garg),
                               reps=3, warm=1)
-        gbyts, gops, _ = self.gather_work(garg)
-        gby, gbound, _ = self.bound(gbyts, gops, 0)
+        gw, _ = self.gather_work(garg)
+        gby, gbound, _ = self.bound(gw)
         # the whole packed sweep, to see what the phases cost in it
         lfsr = u32_to_i64(st.lfsr)
         sweep = self.time_ms(lambda: apt._gibbs_sweep_packed(
@@ -3673,7 +3648,7 @@ class Smoke:
                     "count_bound_ms": gbound}
         print(f"  fused colour phase at the APT shape: {ms:.4f} ms per "
               f"colour ({what}; plain {plain:.4f} ms, bound {bound:.4f} ms "
-              f"by {by}: {byts} bytes, {int_ops} INT32 ops); the standalone "
+              f"by {by}: {w.bytes} bytes, {w.int32} INT32 ops); the standalone "
               f"gather-count there {gms:.4f} ms (plain {gplain:.4f} ms, "
               f"bound {gbound:.4f} ms by {gby}); one packed sweep "
               f"{sweep:.4f} ms, of which the {n_col} fused phases "
@@ -4974,21 +4949,173 @@ class Smoke:
               f"({sec2:.1f} s)")
         return {k: v for k, v in rec["launches"].items() if v}
 
-    def bound(self, byts, int_ops, f32_ops):
-        """(what bounds it, bound ms, {bytes, int32, fp32: ms}): the
-        largest of the bytes over HBM bandwidth and the INT32 and FP32
-        operations over their own peaks."""
-        times = {"bytes": byts / HBM_BYTES_PER_S * 1e3,
-                 "int32": int_ops / self.int_peak * 1e3,
-                 "fp32": f32_ops / self.f32_peak * 1e3}
-        by = max(times, key=times.get)
+    # -- phase 14: the dry run --------------------------------------------
+
+    def phase_dryrun(self, card: str):
+        """#3 at the dry run's bricks (``dryrun_bricks``), then the dry run
+        itself as two subprocesses on the card, started together: ``--all``
+        (rank 17 of both meshes) and rank 255 of 16x16, each record checked
+        against the reference's wire bytes, extras and mesh size, its
+        launches and its reading against the roofline's bound."""
+        print("== 14. the dry run (python -m repro_torch.launch.dryrun)",
+              flush=True)
+        self.dryrun_bricks(card)
+        root = Path(__file__).resolve().parent
+        env = dict(os.environ, PYTHONPATH=str(root / "src") + os.pathsep
+                   + os.environ.get("PYTHONPATH", ""))
+        runs = {"all": ["--all"],
+                "padding": ["--arch", "ea3d-1m", "--rank",
+                            str(DRYRUN_PADDING["rank"])]}
+        self.dryrun_launches = {k: 0 for k in KERNELS}
+        with tempfile.TemporaryDirectory() as tmp:
+            procs = {k: subprocess.Popen(
+                [sys.executable, "-m", "repro_torch.launch.dryrun", *a,
+                 "--report-dir", os.path.join(tmp, k)], cwd=root, env=env,
+                stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+                for k, a in runs.items()}
+            t0 = time.perf_counter()
+            for k, proc in procs.items():
+                try:
+                    out, err = proc.communicate(timeout=max(
+                        1.0, t0 + DRYRUN_TIMEOUT - time.perf_counter()))
+                except subprocess.TimeoutExpired:
+                    for p in procs.values():
+                        p.kill()
+                        p.communicate()
+                    raise CheckFailed(f"the dry run ran past "
+                                      f"{DRYRUN_TIMEOUT} s")
+                for line in out.splitlines():
+                    print(f"  | {line}")
+                if proc.returncode != 0:
+                    print(err[-4000:], file=sys.stderr)
+                check(proc.returncode == 0,
+                      f"python -m repro_torch.launch.dryrun {' '.join(runs[k])}"
+                      f" exited 0")
+            tag = "ea3d-1m__sample_chunk__"
+            recs = {m: json.loads(Path(tmp, "all", f"{tag}{m}.json")
+                                  .read_text()) for m in DRYRUN_MESHES}
+            pad = json.loads(Path(
+                tmp, "padding", f"{tag}single_pod_16x16__rank"
+                f"{DRYRUN_PADDING['rank']}.json").read_text())
+        for mesh, want in DRYRUN_MESHES.items():
+            self.check_dryrun(mesh, recs[mesh], want["chips"],
+                              want["permute"], want["brick"], card)
+        self.check_dryrun("single_pod_16x16, the all-padding rank", pad, 256,
+                          DRYRUN_PADDING["permute"], [7, 7, 100], card)
+
+    def check_dryrun(self, label, r, chips, permute, brick, card):
+        """One dry-run record: ``ok`` on the card with the reference's
+        chips, extras and wire per rank, #3 launched once per iteration,
+        the reading no faster than the bound allows, the memory within the
+        card's; its launches go to the kernels line."""
+        rf, mem = r["roofline"], r["memory_analysis"]
+        check(r["ok"] and r["chips"] == chips and r["brick"] == brick and
+              r["device"].startswith("cuda") and
+              r["extras"] == DRYRUN_EXTRAS,
+              f"dry run {label}: ok on the card, {chips} chips, rank "
+              f"{r['rank']} {r['coords']}, brick {brick}, extras "
+              f"{r['extras']}")
+        check(rf["per_kind"] == {"collective-permute": permute,
+                                 "all-reduce": 8.0 * (chips - 1) / chips},
+              f"dry run {label}: wire bytes per rank {rf['per_kind']} (the "
+              f"reference's collective-permute {permute} and all-reduce "
+              f"2 x 4 B x {chips - 1}/{chips})")
+        check(r["launches"] == {"pbit_brick_sweep": DRYRUN_ITERS},
+              f"dry run {label}: kernel #3 launched once per iteration "
+              f"({r['launches']})")
+        check(r["chunk_s"] >= r["bound_s"] / DRYRUN_SLACK,
+              f"dry run {label}: the chunk's {r['chunk_s'] * 1e3:.4f} ms is "
+              f"no less than the roofline's bound "
+              f"{r['bound_s'] * 1e3:.6f} ms / {DRYRUN_SLACK}")
+        check(mem["fits"] and mem["peak_allocated_bytes"] is not None,
+              f"dry run {label}: peak {mem['peak_allocated_bytes']} B "
+              f"allocated by the chunk and the resident problem's "
+              f"{mem['resident_problem_bytes']} B within the card's "
+              f"{mem['hbm_bytes']:.0f} B")
+        print(f"  dry run {label}: chunk {r['chunk_s'] * 1e3:.4f} ms "
+              f"(build {r['build_s']} s), bound {r['bound_s'] * 1e3:.6f} ms "
+              f"by {rf['bottleneck']} (compute {rf['t_compute'] * 1e3:.6f}, "
+              f"memory {rf['t_memory'] * 1e3:.6f}, collective "
+              f"{rf['t_collective'] * 1e3:.8f} ms): "
+              f"{rf['bytes_accessed']:.0f} B, of them the kernels' "
+              f"{rf['kernel_bytes']:.0f} B, {rf['int32_ops']:.0f} INT32 and "
+              f"{rf['fp32_ops']:.0f} FP32 operations, {r['ops']} aten ops, "
+              f"wire {rf['wire_bytes']} B; arguments "
+              f"{mem['argument_size_in_bytes']} B, peak "
+              f"{mem['peak_allocated_bytes']} B, temporaries "
+              f"{mem['temp_size_in_bytes']} B, resident problem "
+              f"{mem['resident_problem_bytes']} B; on {card}", flush=True)
+        for k, n in r["launches"].items():
+            self.dryrun_launches[k] += n
+
+    def dryrun_bricks(self, card: str):
+        """#3 against its plain version at the dry run's bricks of the
+        padded L=100 instance, as phase 2 holds f32 (LFSR states bitwise,
+        spins bitwise or phase by phase within TANH_ULPS ulp): R=1, the
+        chunk's S=4 betas, random spins, states and halos; then timed
+        beside its bound."""
+        t = self.torch
+        from repro_torch.core.annealing import ea_schedule
+        from repro_torch.core.bits import u32_from_numpy
+        from repro_torch.core.lattice import build_ea3d_lattice
+        from repro_torch.kernels import ref, work
+        from repro_torch.kernels.pbit_lattice import (halo_shapes,
+                                                      pbit_brick_sweep,
+                                                      persistent_mode)
+        prob = build_ea3d_lattice(L, seed=SEED, pad_xy=(112, 112),
+                                  device=self.dev)
+        rng = np.random.default_rng(SEED)
+        S = DRYRUN_EXTRAS["sync_every"]
+        betas = t.from_numpy(np.asarray(ea_schedule(DRYRUN_ITERS * S)
+                                        .beta_array(), np.float32)[:S]) \
+            .to(self.dev)
+        errs = []
+        for label, x0, Z in (("rank 17 of 16x16", 7, 100),
+                             ("rank 17 of 2x16x16", 7, 50),
+                             ("rank 255 of 16x16, all padding", 105, 100)):
+            def cut(a, x0=x0, Z=Z):
+                return a[..., x0:x0 + 7, x0:x0 + 7, :Z].contiguous()
+            shape = (1, 7, 7, Z)
+            masks = cut(prob.masks)
+            args = (t.from_numpy(rng.choice(np.array([-1, 1], np.int8),
+                                            size=shape)).to(self.dev),
+                    u32_from_numpy(rng.integers(1, 2 ** 32, size=shape,
+                                                dtype=np.uint32), self.dev),
+                    betas, masks, cut(prob.h), tuple(cut(w) for w in prob.w6),
+                    self.rand_halos(rng, 1, halo_shapes(*shape), False))
+            got = pbit_brick_sweep(*args)
+            want = ref.pbit_brick_sweep_ref(*args)
+            t.cuda.synchronize()
+            errs += [self.max_abs(g, w) for g, w in zip(got, want)]
+            what = (f"f32 sweep at the dry run's brick {shape[1:]} ({label}), "
+                    f"R=1, S={S} == plain ({persistent_mode(args[0])}, "
+                    f"{work.decided(masks)} decided sites, flips "
+                    f"{want[2].tolist()})")
+            self.check_f32(what, got, want, lambda what, args=args, got=got:
+                           self.f32_steps(what, args, None, got))
+            ms = self.time_ms(lambda args=args: pbit_brick_sweep(*args),
+                              reps=50)
+            by, bound, _ = self.bound(work.sweep_f32(
+                1, 7, 7, Z, int(masks.shape[0]), S, work.decided(masks)))
+            print(f"  pbit_brick_sweep at {shape[1:]} ({label}): {ms:.4f} ms "
+                  f"per launch ({S} sweeps), bound {bound:.6f} ms by {by}; "
+                  f"on {card}", flush=True)
+        r = self.results["pbit_brick_sweep"]
+        r["max_abs_err"] = max([r["max_abs_err"]] + errs)
+
+    def bound(self, w):
+        """(what bounds it, bound ms, {bytes, int32, fp32: ms}) of the
+        work ``w`` on this card (``repro_torch.launch.roofline.
+        work_bound``)."""
+        from repro_torch.launch.roofline import work_bound
+        by, _, times = work_bound(w, self.hw)
+        times = {k: v * 1e3 for k, v in times.items()}
         return by, times[by], times
 
-    def _timed(self, name, source, replaces, kernel, plain, byts, int_ops,
-               f32_ops, work):
-        """Time a kernel's wrapper and its plain version beside its
-        bound (``bound``)."""
-        by, _, times = self.bound(byts, int_ops, f32_ops)
+    def _timed(self, name, source, replaces, kernel, plain, w, work):
+        """Time a kernel's wrapper and its plain version beside the bound
+        of its work ``w`` (``bound``)."""
+        by, _, times = self.bound(w)
         r = self.results[name]
         r.update({
             "name": name, "route": "cuda", "source": source,

@@ -37,8 +37,7 @@ from typing import Iterator, List, Tuple
 import numpy as np
 
 from .ir_rules import ChunkAudit
-from .ops_trace import (CommRecord, CommRecorder, OpRecord, OpRecorder,
-                        record_published)
+from .ops_trace import CommRecord, OpRecord
 
 __all__ = ["build_audits", "trace_failures", "audit_specs"]
 
@@ -169,37 +168,37 @@ def _predict(h, engine, run_kw, iters, group) -> dict:
 
 
 def record_chunk(h, engine, run_kw, group=None) -> dict:
-    """Run one warm chunk, then record the next: the chunk's ops, syncs,
-    collectives and counters (a JSON-ready dict)."""
+    """Run one warm chunk, then record the next (the handle's
+    ``trace_chunk``): the chunk's ops, syncs, collectives and counters (a
+    JSON-ready dict)."""
     from repro_torch.core.annealing import ea_schedule
     eng = h.eng
     sync = run_kw.get("sync", _LATTICE_SYNC if engine == "lattice" else 1)
+    S = sync if isinstance(sync, int) else 1
+    iters = _SWEEPS // S
     st = h.init_state(seed=0)
     if run_kw.get("has_codes"):
         eng.set_exchange_faults([0, 1, 0, 2])
-    cur = h.start_recorded(st, ea_schedule(_SWEEPS), [_SWEEPS],
-                           sync_every=sync)._c
-    iters, S = cur._plan[0], cur.S
-    betas = cur._chunk_betas(0, iters)
-    st = cur._chunk_fn(st, betas, iters, S)
     degrade = getattr(eng, "health", None) is not None
-    if degrade:
-        eng.health.carry = (np.int64(_SEQ0),) + tuple(eng.health.carry[1:])
-    published: list = []
-    with OpRecorder() as ops, CommRecorder() as comms, \
-            record_published(published):
-        st = cur._chunk_fn(st, betas, iters, S)
+
+    def wrap_seq(_):
+        if degrade:
+            eng.health.carry = (np.int64(_SEQ0),) + \
+                tuple(eng.health.carry[1:])
+    kw = {} if engine == "lattice" else {"sync": sync}
+    tr = h.trace_chunk(iters, S, state=st, schedule=ea_schedule(_SWEEPS),
+                       before=wrap_seq, **kw)
+    st = tr.out
     counters = {"flips": (str(st.flips.dtype).replace("torch.", ""),
-                          any(p is st.flips for p in published))}
+                          any(p is st.flips for p in tr.published))}
     if degrade:
         counters["seq"] = (int(eng.health.carry[0]),
                            (_SEQ0 + iters) % (1 << 32))
     dts, sizes = _payload(h, engine, group)
     return dict(
-        ops=[(o.name, list(o.dtypes)) for o in ops.ops],
-        syncs=list(ops.syncs),
-        comms=[(c.op, c.dtype, list(c.shape), c.nbytes)
-               for c in comms.calls],
+        ops=[(o.name, list(o.dtypes)) for o in tr.ops],
+        syncs=list(tr.syncs),
+        comms=[(c.op, c.dtype, list(c.shape), c.nbytes) for c in tr.comms],
         predicted=_predict(h, engine, run_kw, iters, group),
         declared_syncs=1 if degrade else 0,
         payload_dtypes=list(dts), payload_bytes=list(sizes),

@@ -20,9 +20,16 @@ program to trace, so the port runs one chunk and records it:
 * :func:`record_published` wraps ``flips_publish`` where the engines
   import it, so the counter rule can ask whether a chunk's flip counter
   came out of it.
+* :class:`LaunchRecorder` takes the notes the kernel wrappers make of
+  each launch (``kernels/_build.note_launch``) and costs them with the
+  kernels' work model (``kernels/work.py``), since on the card the hand
+  kernels launch through ``ctypes`` and dispatch nothing: the other
+  recorders see only the glue around them.
 
-On the card the hand kernels launch through ``ctypes`` and dispatch
-nothing: what is recorded there is the glue around them.
+:func:`trace_call` runs a call under all four and returns a
+:class:`ChunkTrace`; each op also carries its operand and result bytes
+and its matrix-product FLOPs, each collective its group size, for the
+roofline (``launch/roofline.py``).
 """
 
 from __future__ import annotations
@@ -30,13 +37,15 @@ from __future__ import annotations
 import contextlib
 import dataclasses
 import threading
+import time
 import weakref
-from typing import List, Tuple
+from typing import Any, List, Tuple
 
 import torch
 from torch.utils._python_dispatch import TorchDispatchMode
 
-__all__ = ["OpRecord", "CommRecord", "OpRecorder", "CommRecorder",
+__all__ = ["OpRecord", "CommRecord", "LaunchRecord", "OpRecorder",
+           "CommRecorder", "LaunchRecorder", "ChunkTrace", "trace_call",
            "record_published", "FLOAT_ARITH_OPS", "SYNC_OPS", "is_float",
            "PUBLISHERS"]
 
@@ -67,6 +76,8 @@ def is_float(dtype: str) -> bool:
 class OpRecord:
     name: str                  # aten op, in-place suffix dropped
     dtypes: Tuple[str, ...]    # tensor operand and result dtypes
+    nbytes: int = 0            # operand and result bytes
+    flops: int = 0             # of a matrix product, else 0
 
 
 @dataclasses.dataclass(frozen=True)
@@ -75,6 +86,17 @@ class CommRecord:
     dtype: str
     shape: Tuple[int, ...]
     nbytes: int
+    group: int = 1             # ranks in the call's group; 2 point-to-point
+
+
+@dataclasses.dataclass(frozen=True)
+class LaunchRecord:
+    name: str                  # the kernel's key in kernels.work.MODELS
+    launches: int
+    shape: Tuple[Tuple[str, int], ...]   # the integers its wrapper noted
+    bytes: int                 # its work (kernels.work.Work) in all
+    int32: int
+    fp32: int
 
 
 def _dtype(t: torch.Tensor) -> str:
@@ -111,8 +133,10 @@ class OpRecorder(TorchDispatchMode):
             func._overloadpacket.__name__
         ins = list(_tensors(args)) + list(_tensors(kwargs))
         outs = list(_tensors(out))
-        self.ops.append(OpRecord(name, tuple(_dtype(t)
-                                             for t in ins + outs)))
+        self.ops.append(OpRecord(
+            name, tuple(_dtype(t) for t in ins + outs),
+            sum(_nbytes(t) for t in ins + outs), _matmul_flops(name, ins,
+                                                               outs)))
         if not getattr(self._quiet, "on", False):
             to_host = name in ("_to_copy", "copy") and any(
                 t.device.type != "cpu" for t in ins) and any(
@@ -163,6 +187,23 @@ def _nbytes(t: torch.Tensor) -> int:
     return int(t.numel()) * int(t.element_size())
 
 
+# matrix products: the operand whose last dimension is contracted
+_MATMULS = {"mm": 0, "bmm": 0, "addmm": 1, "baddbmm": 1}
+
+
+def _matmul_flops(name: str, ins, outs) -> int:
+    """2 x result elements x contracted length of a matrix product."""
+    k = _MATMULS.get(name)
+    if k is None or not outs or len(ins) <= k:
+        return 0
+    return 2 * int(outs[0].numel()) * int(ins[k].shape[-1])
+
+
+def _group_size(group) -> int:
+    import torch.distributed as dist
+    return int(dist.get_world_size(group))
+
+
 class CommRecorder:
     """Wrap the ``torch.distributed`` calls the port makes and record each
     one (a ``batch_isend_irecv`` as itself and as each of its ops)."""
@@ -171,9 +212,9 @@ class CommRecorder:
         self.calls: List[CommRecord] = []
         self._saved = {}
 
-    def _rec(self, op, t):
+    def _rec(self, op, t, group: int):
         self.calls.append(CommRecord(op, _dtype(t), tuple(t.shape),
-                                     _nbytes(t)))
+                                     _nbytes(t), group))
 
     def __enter__(self):
         import torch.distributed as dist
@@ -182,21 +223,22 @@ class CommRecorder:
                 ("all_gather", "all_reduce", "batch_isend_irecv")}
         self._saved = orig
 
-        def all_gather(tensor_list, tensor, *a, **k):
-            rec._rec("all_gather", tensor)
-            return orig["all_gather"](tensor_list, tensor, *a, **k)
+        def all_gather(tensor_list, tensor, group=None, *a, **k):
+            rec._rec("all_gather", tensor, _group_size(group))
+            return orig["all_gather"](tensor_list, tensor, group, *a, **k)
 
         def all_reduce(tensor, *a, **k):
-            rec._rec("all_reduce", tensor)
+            group = k.get("group", a[1] if len(a) > 1 else None)
+            rec._rec("all_reduce", tensor, _group_size(group))
             return orig["all_reduce"](tensor, *a, **k)
 
         def batch_isend_irecv(p2p_op_list):
             t = p2p_op_list[0].tensor
             rec.calls.append(CommRecord(
                 "batch_isend_irecv", _dtype(t), (len(p2p_op_list),),
-                sum(_nbytes(p.tensor) for p in p2p_op_list)))
+                sum(_nbytes(p.tensor) for p in p2p_op_list), 2))
             for p in p2p_op_list:
-                rec._rec(p.op.__name__, p.tensor)
+                rec._rec(p.op.__name__, p.tensor, 2)
             return orig["batch_isend_irecv"](p2p_op_list)
 
         for name, fn in (("all_gather", all_gather),
@@ -217,6 +259,82 @@ class CommRecorder:
         for c in self.calls:
             out[c.op] = out.get(c.op, 0) + 1
         return out
+
+
+class LaunchRecorder:
+    """Take the kernel wrappers' notes of their launches within the block
+    (``kernels/_build.note_launch``) and, on leaving it, cost each with
+    the work model (``kernels/work.launch_work``) into
+    :class:`LaunchRecord` s.  Raises where a launch counted in
+    ``_build.launch_counts`` went unnoted, or where a noted kernel has no
+    model: no launch is costed at zero."""
+
+    def __init__(self):
+        self.launches: List[LaunchRecord] = []
+
+    def __enter__(self):
+        from repro_torch.kernels import _build
+        self._saved = _build.launch_log
+        self._before = dict(_build.launch_counts)
+        self._log = _build.launch_log = []
+        return self
+
+    def __exit__(self, *exc):
+        from repro_torch.kernels import _build, work
+        _build.launch_log = self._saved
+        if exc[0] is not None:
+            return False
+        for key, count in _build.launch_counts.items():
+            if ":" in key:
+                continue
+            parts = [m for m in work.MODELS
+                     if m == key or m.startswith(key + ":")]
+            noted = sum(n for name, n, _ in self._log if name in parts)
+            if count - self._before[key] != noted:
+                raise ValueError(
+                    f"{count - self._before[key] - noted} launches of "
+                    f"{key} were not noted for their work model")
+        for name, n, operands in self._log:
+            w = work.launch_work(name, dict(operands))
+            shape = tuple((k, int(v)) for k, v in operands.items()
+                          if isinstance(v, int))
+            self.launches.append(LaunchRecord(name, n, shape, w.bytes,
+                                              w.int32, w.fp32))
+        return False
+
+
+@dataclasses.dataclass
+class ChunkTrace:
+    """What :func:`trace_call` recorded of one call."""
+    ops: List[OpRecord]
+    syncs: List[str]
+    comms: List[CommRecord]
+    launches: List[LaunchRecord]
+    published: list           # what flips_publish returned within it
+    seconds: float            # its wall time, ended by a synchronise
+    out: Any                  # what the call returned
+
+
+def trace_call(fn, *args, device=None) -> ChunkTrace:
+    """Run ``fn(*args)`` once under every recorder of this module and
+    time it; on a CUDA ``device`` the time starts and ends with a
+    synchronise of the card."""
+    # the first op under a dispatch mode imports torch._dynamo (seconds):
+    # import it here, outside the timing
+    import torch._dynamo  # noqa: F401
+    cuda = device is not None and torch.device(device).type == "cuda"
+    if cuda:
+        torch.cuda.synchronize(device)
+    published: list = []
+    with LaunchRecorder() as launches, OpRecorder() as ops, \
+            CommRecorder() as comms, record_published(published):
+        t0 = time.perf_counter()
+        out = fn(*args)
+        if cuda:
+            torch.cuda.synchronize(device)
+        seconds = time.perf_counter() - t0
+    return ChunkTrace(ops.ops, list(ops.syncs), comms.calls,
+                      launches.launches, published, seconds, out)
 
 
 # the modules that publish a chunk's flip counter through flips_publish

@@ -62,7 +62,7 @@ from .mesh import make_mesh
 from .packing import (pack_lanes, pack_pm1, pad_to_multiple, unpack_lanes,
                       unpack_pm1)
 from .pbit import FixedPoint, flips_publish, lfsr_init, philox_init
-from repro_torch.engines.base import check_lanes, spawn_seeds
+from repro_torch.engines.base import check_lanes, spawn_seeds, trace_chunk
 from repro_torch.kernels.ops import bitplane_phase_op
 
 __all__ = ["DistDSIMEngine"]
@@ -456,6 +456,24 @@ class DistDSIMEngine(ColorPhases):
         if self.health is not None:
             self.health.update(carry_max(carry[0]), exchanges=iters)
         return st
+
+    def trace_chunk(self, iters: int = 4, S: int = 4, sync: SyncSpec = 4, *,
+                    state=None, schedule=None, before=None):
+        """Run one chunk of ``iters`` iterations of ``S`` sweeps under the
+        exchange schedule ``sync`` (``run_recorded``'s ``sync_every``: S
+        is 1 for "phase" and None), then the same chunk again recorded:
+        its ``ChunkTrace`` (``engines/base.trace_chunk``).  The reference
+        traces the chunk's program instead; eager PyTorch has none.
+        ``state`` defaults to ``init_state(0)``."""
+        return trace_chunk(
+            self, self.init_state(seed=0) if state is None else state, iters,
+            S, sync_every=sync, schedule=schedule, before=before)
+
+    def lower_chunk(self, iters: int = 4, S: int = 4, sync: SyncSpec = 4):
+        """The reference's dry-run hook lowers one chunk without running
+        it; eager PyTorch has no program to lower, so this runs the chunk
+        and records it: :meth:`trace_chunk` from ``init_state(0)``."""
+        return self.trace_chunk(iters, S, sync)
 
     # -- observables ---------------------------------------------------------------
 

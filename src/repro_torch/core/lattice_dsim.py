@@ -42,7 +42,7 @@ import numpy as np
 import torch
 
 from .annealing import ArraySchedule, beta_row_indices, beta_table
-from .bits import u32_from_numpy, u32_to_i64
+from .bits import i64_to_i32, u32_from_numpy, u32_to_i64
 from .bricks import (BrickState, GatherExchange, GroupExchange,
                      brick_coords, cut, join)
 from .degrade import (DegradePolicy, MeshHealthMonitor, carry_max,
@@ -54,7 +54,8 @@ from .pbit import (FixedPoint, LUT_SELECT_MAX_WIDTH, bitplane_planes,
                    field_bound, flips_publish, lfsr_init, quantize_couplings,
                    threshold_lut_cached)
 from repro_torch.engines.base import (RecordedCursor, check_lanes,
-                                      run_recorded_driver, spawn_seeds)
+                                      run_recorded_driver, spawn_seeds,
+                                      trace_chunk)
 from repro_torch.kernels.ops import (brick_energy_op, brick_energy_words_op,
                                      pbit_bitplane_sweep_op,
                                      pbit_sweep_int_op, pbit_sweep_op,
@@ -352,6 +353,15 @@ class LatticeDSIM:
         dist.all_reduce(t, group=self.group)
         return t
 
+    def _sum_flips(self, local: torch.Tensor) -> torch.Tensor:
+        """A chunk's (R,) flips (int64 in [0, 2^32)) summed over the ranks
+        mod 2^32, on the wire as the reference's uint32 ``psum``: 4 bytes
+        per replica, through the int32 view (a two's-complement sum wraps
+        as the unsigned one does)."""
+        if self.group is None:
+            return local
+        return u32_to_i64(self._sum_ranks(i64_to_i32(local)))
+
     @property
     def kernel_path(self) -> str:
         """The update dispatch that runs: "fused", "per_phase" or
@@ -581,7 +591,7 @@ class LatticeDSIM:
         st = dataclasses.replace(
             st, m=m, s=s, halos=self._state_halos(ex, buf),
             sweep=st.sweep + iters * S,
-            flips=flips_publish(st.flips, self._sum_ranks(local)))
+            flips=flips_publish(st.flips, self._sum_flips(local)))
         if deg:
             # one read of the carry per chunk: the worst over the bricks
             # here, then over the ranks (the reference's pmax)
@@ -661,6 +671,26 @@ class LatticeDSIM:
         """Run to each record point; returns (state, RunRecord)."""
         return self.run_recorded_full(state, schedule, record_points,
                                       sync_every=sync_every)
+
+    def trace_chunk(self, iters: int = 2, S: int = 4, *, state=None,
+                    schedule=None, before=None):
+        """Run one sampling chunk of ``iters`` iterations of ``S`` sweeps
+        (``sync_every=S``), then the same chunk again recorded: its
+        ``ChunkTrace`` (``engines/base.trace_chunk``), the aten ops and
+        host syncs, the collectives, the hand-kernel launches with their
+        shapes and work, and the wall time, ended by a synchronise on the
+        card.  The reference traces the chunk's program instead; eager
+        PyTorch has none.  ``state`` defaults to ``init_state(0)``;
+        ``schedule`` and ``before`` as ``engines/base.trace_chunk``."""
+        return trace_chunk(
+            self, self.init_state(seed=0) if state is None else state, iters,
+            S, sync_every=S, schedule=schedule, before=before)
+
+    def lower_chunk(self, iters: int = 2, S: int = 4):
+        """The reference's dry-run hook lowers one chunk without running
+        it.  Eager PyTorch has no program to lower, so this runs the chunk
+        and records it: :meth:`trace_chunk` from ``init_state(0)``."""
+        return self.trace_chunk(iters, S)
 
     # -- observables -----------------------------------------------------------
 

@@ -24,7 +24,7 @@ __all__ = ["Engine", "RunRecord", "SyncSpec", "chunk_plan",
            "run_recorded_driver", "RecordedCursor", "spawn_seeds",
            "stack_states", "flips_chunk_cap", "quantize_record_points",
            "PRECISIONS", "ENGINE_PRECISIONS", "lanes_of", "lane_words",
-           "check_precision", "check_lanes"]
+           "check_precision", "check_lanes", "trace_chunk"]
 
 SyncSpec = Union[int, str, None]
 
@@ -99,6 +99,10 @@ class Engine(Protocol):
 
     def global_spins(self, state) -> torch.Tensor:
         """(R, N) spins in the original problem's node order."""
+
+    def lower_chunk(self, iters: int = 2, S: int = 4):
+        """Run and record one sampling chunk — dry-run/roofline hook (the
+        reference lowers it; eager PyTorch has no program to lower)."""
 
 
 @dataclasses.dataclass
@@ -421,6 +425,33 @@ def run_recorded_driver(*, state, schedule, record_points: Sequence[int],
         warm_scope=warm_scope)
     cur.run_to_completion()
     return cur.state, cur.record()
+
+
+def trace_chunk(eng, state, iters: int, S: int, *, sync_every: SyncSpec,
+                schedule=None, before: Optional[Callable] = None):
+    """Run one chunk of ``iters`` iterations of ``S`` sweeps of engine
+    ``eng`` from ``state``, then the same chunk again recorded
+    (``analyze/ops_trace.trace_call``); returns its ``ChunkTrace`` (the
+    recorded chunk's state is its ``out``).  The chunks are the first of
+    ``eng.run_recorded_full``'s cursor over ``schedule`` (default
+    ``ea_schedule(iters * S)``), which must plan ``iters`` iterations of
+    ``S`` sweeps; both run its betas.  ``before(state)`` runs between
+    them."""
+    from repro_torch.analyze.ops_trace import trace_call
+    from repro_torch.core.annealing import ea_schedule
+    sweeps = iters * S
+    cur = eng.run_recorded_full(
+        state, ea_schedule(sweeps) if schedule is None else schedule,
+        [sweeps], sync_every=sync_every, cursor=True)
+    if cur.S != S or cur._plan[0] != iters:
+        raise ValueError(f"the recorded run's first chunk is {cur._plan[0]} "
+                         f"iterations of {cur.S} sweeps, not {iters} of {S}")
+    betas = cur._chunk_betas(0, iters)
+    state = cur._chunk_fn(state, betas, iters, S)
+    if before is not None:
+        before(state)
+    return trace_call(cur._chunk_fn, state, betas, iters, S,
+                      device=eng.device)
 
 
 def spawn_seeds(seed: int, replicas: int) -> List[int]:

@@ -27,7 +27,8 @@ from repro_torch.core.lattice import LatticeProblem, build_ea3d_lattice
 from repro_torch.core.lattice_dsim import LatticeDSIM
 from repro_torch.core.partition import greedy_partition
 from repro_torch.core.snapshot import restore_state, snapshot_state
-from .base import RunRecord, SyncSpec, check_lanes, check_precision
+from .base import (RunRecord, SyncSpec, check_lanes, check_precision,
+                   trace_chunk)
 
 __all__ = ["ENGINE_NAMES", "make_engine", "HandleCursor"]
 
@@ -179,6 +180,16 @@ class _Handle:
                                     sync_every, cursor=False)
         return state, RunRecord(rec.times, _as_2d(rec.energies), rec.flips)
 
+    def trace_chunk(self, iters: int = 2, S: int = 4, **kw):
+        """One recorded chunk after a warm one: the engine's
+        ``trace_chunk`` (its ``ChunkTrace``)."""
+        return self.eng.trace_chunk(iters=iters, S=S, **kw)
+
+    def lower_chunk(self, iters: int = 2, S: int = 4):
+        """The dry-run hook: :meth:`trace_chunk` from ``init_state(0)``
+        (the port runs and records the chunk it cannot lower)."""
+        return self.trace_chunk(iters=iters, S=S)
+
     def start_recorded(self, state, schedule, record_points: Sequence[int],
                        sync_every: SyncSpec = 1) -> HandleCursor:
         """Begin (not run) a recorded anneal; returns a resumable cursor."""
@@ -212,6 +223,15 @@ class _BatchedStateHandle(_Handle):
     def init_state(self, seed: int = 0):
         return self.eng.init_state(
             seed, replicas=None if self.replicas == 1 else self.replicas)
+
+    def trace_chunk(self, iters: int = 2, S: int = 4, sync: SyncSpec = 4,
+                    *, state=None, schedule=None, before=None):
+        """As ``DistDSIMEngine.trace_chunk`` (``sync`` run_recorded's
+        ``sync_every``), over this handle's cursor: gibbs and dsim engines
+        have no chunk recorder of their own."""
+        return trace_chunk(
+            self.eng, self.init_state(0) if state is None else state, iters,
+            S, sync_every=sync, schedule=schedule, before=before)
 
 
 class _GibbsHandle(_BatchedStateHandle):

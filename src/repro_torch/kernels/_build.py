@@ -19,7 +19,7 @@ import subprocess
 from pathlib import Path
 
 __all__ = ["SOURCES", "NVCC_FLAGS", "build", "library", "launch_counts",
-           "KernelError",
+           "KernelError", "note_launch",
            "reset_launch_counts", "check_launch", "ptrs6", "plain_device",
            "stream_of", "check_bx", "check_sites", "require"]
 
@@ -63,6 +63,20 @@ launch_counts = {"pbit_brick_sweep_int": 0, "pbit_bitplane_sweep": 0,
 def reset_launch_counts():
     for k in launch_counts:
         launch_counts[k] = 0
+
+
+# Set by a recording (``analyze.ops_trace.LaunchRecorder``) to a list: each
+# wrapper then also notes its launches there with the shapes and operands
+# their work depends on (``kernels/work.py``).  None otherwise: noting
+# costs nothing.
+launch_log = None
+
+
+def note_launch(name: str, launches: int = 1, **operands):
+    """Note ``launches`` launches of kernel ``name`` (its key in
+    ``work.MODELS``) for a recording in progress."""
+    if launch_log is not None:
+        launch_log.append((name, int(launches), operands))
 
 
 class KernelError(RuntimeError):

@@ -56,4 +56,6 @@ def bitplane_gather_count(mext_w, idx_c, signs_c, nz_c):
         _build.check_launch("bitplane_gather_count", err)
         _build.launch_counts["bitplane_gather_count"] += 1
         _build.launch_counts["bitplane_gather_count:count"] += 1
+        _build.note_launch("bitplane_gather_count:count", idx=idx_c, nz=nz_c,
+                           W=W)
     return list(out.unbind(0))

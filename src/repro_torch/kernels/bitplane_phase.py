@@ -173,6 +173,8 @@ def bitplane_phase(mw, ghosts_w, s, sites: PhaseSites, lut, row: int,
             _build.stream_of(mw))
     _build.check_launch("bitplane_phase_dist", err)
     _count()
+    _build.note_launch("bitplane_gather_count:phase", sites=sites, W=W, R=R,
+                       lut_bytes=8 * lw)
     return flips
 
 
@@ -226,4 +228,6 @@ def bitplane_phase_apt(mw, s, sites: PhaseSites, thr, f_max: int, E,
             E.data_ptr(), float(np.float32(scale)), _build.stream_of(mw))
     _build.check_launch("bitplane_phase_apt", err)
     _count()
+    _build.note_launch("bitplane_gather_count:phase", sites=sites, W=W, R=L,
+                       lut_bytes=8 * L * lw + 8 * L)
     return E

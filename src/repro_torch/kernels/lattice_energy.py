@@ -103,4 +103,5 @@ def _launch(entry, m, halos, dtype, extra, R, active, h, w6, width):
             partials.data_ptr(), out.data_ptr(), _build.stream_of(m))
     _build.check_launch(entry, err)
     count_width("brick_energy", width)
+    _build.note_launch("brick_energy", R=R, X=X, Y=Y, Z=Z)
     return out

@@ -20,6 +20,7 @@ import dataclasses
 import weakref
 from typing import Tuple
 
+import numpy as np
 import torch
 
 from repro_torch.core.packing import LANE_WIDTH
@@ -181,6 +182,7 @@ def pbit_bitplane_sweep(mw, s, rows, masks_w, signs6, nz6, base, halos_w,
     for d, (hh, sh) in enumerate(zip(halos_w, halo_shapes(W, X, Y, Z))):
         _build.require(f"halos_w[{d}]", hh, u32, sh, dev)
     _build.require("lut", lut, u32, (n_rows, lw), dev)
+    shared = np.ndim(rows) == 1
     rows = device_rows(rows, R, n_rows, dev)
     S = int(rows.shape[0])
     flips = torch.zeros(R, dtype=torch.int32, device=dev)
@@ -195,6 +197,7 @@ def pbit_bitplane_sweep(mw, s, rows, masks_w, signs6, nz6, base, halos_w,
     lib = _build.library()
     signp, nzp = _build.ptrs6(lay.sign_cm), _build.ptrs6(lay.nz_cm)
     halop = _build.ptrs6(halos_w)
+    launched = 0
     with torch.cuda.device(dev):
         stream = _build.stream_of(mw)
         for t in range(S):
@@ -212,6 +215,11 @@ def pbit_bitplane_sweep(mw, s, rows, masks_w, signs6, nz6, base, halos_w,
                     flips.data_ptr(), stream)
                 _build.check_launch("pbit_bitplane_color_phase", err)
                 _build.launch_counts["pbit_bitplane_sweep"] += 1
+                launched += 1
+    _build.note_launch("pbit_bitplane_sweep", launched, W=W, R=R, X=X, Y=Y,
+                       Z=Z, n_colors=n_colors, S=S, masks=masks_w[:, 0],
+                       lut_entries=n_rows * lw,
+                       sched_entries=S if shared else S * R)
     s_out = s_cm.index_select(1, lay.order.inv).view(u32).reshape(
         R, X, Y, Z)
     return m_out, s_out, flips

@@ -209,12 +209,13 @@ def persistent_mode(m) -> str:
 
 
 def _persistent(kind, name, entry, launch, m, s, S: int, n_colors: int,
-                single: bool, grid):
+                single: bool, grid, note: dict):
     """One persistent launch of S sweeps: ``launch(bufs, s_out, resident,
     grid, tile, smem, lists, flips)`` returns the entry's error code.
     ``grid`` overrides the block count of the launch shape (a count the
     card cannot co-schedule fails to launch).  Counts the launch under
-    ``name`` and ``name:<LFSR mode>``."""
+    ``name`` and ``name:<LFSR mode>``, and notes it with ``note`` (its
+    work model's operands besides the shapes)."""
     R, X, Y, Z = (int(d) for d in m.shape)
     n = X * Y * Z
     flips = torch.zeros(R, dtype=torch.int32, device=m.device)
@@ -239,6 +240,8 @@ def _persistent(kind, name, entry, launch, m, s, S: int, n_colors: int,
     _build.check_launch(entry, err)
     _build.launch_counts[name] += 1
     _build.launch_counts[f"{name}:{mode}"] += 1
+    _build.note_launch(name, R=R, X=X, Y=Y, Z=Z, n_colors=n_colors, S=S,
+                       **note)
     return _done(single, bufs[(S * n_colors - 1) % 2], s_out, flips)
 
 
@@ -268,6 +271,7 @@ def _int_persistent(m, s, rows, masks, h_q, w6_q, halos, lut, grid=None):
     R, X, Y, Z = (int(d) for d in m.shape)
     n_rows, lw = (int(d) for d in lut.shape)
     _build.require("lut", lut, torch.uint32, (n_rows, lw), m.device)
+    shared = np.ndim(rows) == 1
     rows = device_rows(rows, R, n_rows, m.device)
     S = int(rows.shape[0])
     lib = _build.library()
@@ -281,7 +285,9 @@ def _int_persistent(m, s, rows, masks, h_q, w6_q, halos, lut, grid=None):
             resident, blocks, tile, smem, lists, flips, _build.stream_of(m))
     return _persistent("int8", "pbit_brick_sweep_int",
                        "pbit_sweep_int_persistent", launch, m, s, S,
-                       n_colors, single, grid)
+                       n_colors, single, grid,
+                       dict(masks=masks, lut_entries=n_rows * lw,
+                            sched_entries=S if shared else S * R))
 
 
 def pbit_brick_sweep(m, s, betas, masks, h, w6, halos,
@@ -319,7 +325,8 @@ def _f32_persistent(m, s, betas, masks, h, w6, halos, fmt, grid=None):
             _build.ptrs6(halos), *_fmt_args(fmt), S, n_colors, R, X, Y, Z,
             resident, blocks, tile, smem, lists, flips, _build.stream_of(m))
     return _persistent("f32", "pbit_brick_sweep", "pbit_sweep_f32_persistent",
-                       launch, m, s, S, n_colors, single, grid)
+                       launch, m, s, S, n_colors, single, grid,
+                       dict(masks=masks))
 
 
 # -- the single phases ---------------------------------------------------------
@@ -369,6 +376,8 @@ def launch_update_int(m, s, row, parity_mask, h_q, w6_q, halos, lut,
             _build.stream_of(m))
     _build.check_launch("pbit_update_int_phase", err)
     count_width("pbit_brick_update_int", width)
+    _build.note_launch("pbit_brick_update_int", R=R, X=X, Y=Y, Z=Z,
+                       masks=parity_mask, lut_entries=n_rows * lw)
     return _done(single, m_out, s_out)
 
 
@@ -431,4 +440,6 @@ def launch_update(m, s, beta, parity_mask, h, w6, halos,
             Z, width, _flips_ptr(flips, R, m.device), _build.stream_of(m))
     _build.check_launch("pbit_update_f32_phase", err)
     count_width("pbit_brick_update", width)
+    _build.note_launch("pbit_brick_update", R=R, X=X, Y=Y, Z=Z,
+                       masks=parity_mask)
     return _done(single, m_out, s_out)

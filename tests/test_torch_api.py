@@ -32,22 +32,11 @@ WAIVED = {
         "differences: kernel_path)",
 }
 
-# reference methods the port leaves out on purpose: lowering a chunk to
-# a jaxpr or HLO is a JAX facility (the port's analyze/ records a chunk's
-# PyTorch operations instead, analyze/ops_trace.py)
-METHODS_WAIVED = {"lower_chunk", "trace_chunk"}
-
 # reference modules with no port counterpart, with the reason
 NO_COUNTERPART = {
     "compat.py": "jax-version shim",
     "analyze/jaxpr_utils.py": "replaced by analyze/ops_trace.py",
 }
-# the TPU dry-run tools, ROADMAP queue A item 12c (the next slice; the
-# LM's serving, 12a, and training, 12b, are ported): they lower a chunk
-# through XLA on 512 placeholder devices and parse its HLO against TPU
-# constants; their counterpart is a trace of the port's own
-A12_DIRS = ()
-A12_FILES = ("launch/dryrun.py", "launch/roofline.py")
 
 
 def _ref_modules():
@@ -76,10 +65,6 @@ def _port_module(rel):
     return importlib.import_module(name)
 
 
-def _is_a12(rel):
-    return rel.startswith(A12_DIRS) or rel in A12_FILES
-
-
 REF_MODULES = _ref_modules()
 PORTED = [r for r in REF_MODULES
           if os.path.exists(os.path.join(PORT, r)) and _ref_all(r)]
@@ -88,7 +73,7 @@ PORTED = [r for r in REF_MODULES
 def test_every_reference_module_has_a_counterpart_or_a_reason():
     missing = [r for r in REF_MODULES
                if not os.path.exists(os.path.join(PORT, r))
-               and r not in NO_COUNTERPART and not _is_a12(r)]
+               and r not in NO_COUNTERPART]
     assert missing == []
     # a waiver for a module that has since been ported is stale
     assert all(not os.path.exists(os.path.join(PORT, r))
@@ -122,7 +107,7 @@ def test_port_classes_have_the_reference_methods(rel, cls):
     port_cls = getattr(_port_module(rel), cls, None)
     assert port_cls is not None, f"{rel}: no class {cls}"
     missing = [m for m in _ref_classes(rel)[cls]
-               if m not in METHODS_WAIVED and not hasattr(port_cls, m)]
+               if not hasattr(port_cls, m)]
     assert missing == [], f"{rel}::{cls}: {missing}"
 
 

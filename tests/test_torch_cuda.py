@@ -1313,37 +1313,42 @@ def test_build_model_defaults_to_the_card(cuda):
                                        ("jamba-v0.1-52b", False),
                                        ("deepseek-7b", True)])
 def test_train_steps_card_equal_cpu(cuda, name, int8):
-    """Four reduced f32 ``make_train_step`` steps on the card: each loss
-    and gradient norm within 1e-5 relative of the CPU's, the parameters
-    within 1e-3, and none of the hand kernels launched."""
+    """Four reduced f32 ``make_train_step`` steps on the card, each also
+    taken on the CPU from the card's state before it (as chip_smoke.py's
+    phase 13a: chained steps amplify rounding, and one ulp of jamba's
+    weights moves its fourth step 2.4e-5, tests/test_torch_train.py): each
+    loss and gradient norm within 1e-5 relative of the CPU step's, the
+    parameters after it within 1e-3, and none of the hand kernels
+    launched."""
     from repro_torch.configs import get_config
     from repro_torch.models.lm import build_model
     from repro_torch.train.data import MarkovLM
     from repro_torch.train.optimizer import AdamW
     from repro_torch.train.train_step import TrainState, make_train_step
-    from repro_torch.train.tree import tree_leaves
+    from repro_torch.train.tree import tree_leaves, tree_map
     cfg = get_config(name).reduced()
     batches = [b for _, b in zip(range(4), MarkovLM(cfg.vocab, seed=1)
                                  .batches(8, 32))]
-    out = {}
     _build.reset_launch_counts()
-    for dev in ("cpu", cuda):
-        model = build_model(cfg, dev)
-        params = model.init(0)
-        opt = AdamW(lr=3e-3, warmup=5, int8_state=int8)
-        st = TrainState(params, opt.init(params))
-        step = make_train_step(model, opt)
-        ms = []
-        for b in batches:
-            st, m = step(st, {k: torch.from_numpy(v).to(dev)
-                              for k, v in b.items()})
-            ms.append((float(m["loss"]), float(m["grad_norm"])))
-        out[str(dev)] = (ms, [x.cpu() for x in tree_leaves(st.params)])
+    opt = AdamW(lr=3e-3, warmup=5, int8_state=int8)
+    model = build_model(cfg, cuda)
+    params = model.init(0)
+    st = TrainState(params, opt.init(params))
+    step = make_train_step(model, opt)
+    twin_step = make_train_step(build_model(cfg, "cpu"), opt)
+    cpu = torch.device("cpu")
+    for b in batches:
+        before = tree_map(lambda x: x.to(cpu), st)
+        st, m = step(st, {k: torch.from_numpy(v).to(cuda)
+                          for k, v in b.items()})
+        twin, mc = twin_step(before, {k: torch.from_numpy(v)
+                                      for k, v in b.items()})
+        for key in ("loss", "grad_norm"):
+            x, y = float(mc[key]), float(m[key])
+            assert abs(x - y) <= 1e-5 * abs(x), (key, x, y)
+        assert max(float((a - g.cpu()).abs().max()) for a, g in zip(
+            tree_leaves(twin.params), tree_leaves(st.params))) < 1e-3
     assert not any(_build.launch_counts.values())
-    (mc, pc), (mg, pg) = out["cpu"], out[str(cuda)]
-    for a, b in zip(mc, mg):
-        assert all(abs(x - y) <= 1e-5 * abs(x) for x, y in zip(a, b))
-    assert max(float((a - b).abs().max()) for a, b in zip(pc, pg)) < 1e-3
 
 
 @pytest.mark.cuda
@@ -1392,3 +1397,146 @@ def test_train_launcher_defaults_to_the_card(cuda, tmp_path, capsys):
                   "--batch", "4", "--seq", "32", "--ckpt", str(tmp_path)])
     assert again["start_step"] == 12 and len(again["losses"]) == 2
     assert "restored checkpoint at step 12" in capsys.readouterr().out
+
+
+# -- the kernels' work model and the dry run (launch/) ---------------------
+
+
+def inline_work(n, plane, S, lut, W, R, nc, decided, decided_one):
+    """(bytes, INT32, FP32) of each kernel as chip_smoke.py's phase 5
+    wrote them inline before the model moved into
+    ``repro_torch.kernels.work``: a frozen copy, at ``n`` sites of a cube
+    with ``plane`` halo sites, S sweeps, ``lut`` LUT entries, R replicas
+    (W bit-plane words), ``decided`` masked sites over all colours and
+    ``decided_one`` in one."""
+    return {
+        "sweep_int": (2 * 5 * R * n + (nc + 7) * n + 4 * R + R * plane
+                      + 4 * lut + 4 * S,
+                      S * R * (6 * nc * n + 19 * decided), 0),
+        "bitplane_sweep": (2 * 4 * (W + R) * n + 4 * nc * W * n + 52 * n
+                           + 4 * R + 4 * W * plane + 4 * lut + 4 * S,
+                           S * (6 * nc * R * n + decided * (26 * W + 13 * R)),
+                           0),
+        "sweep_f32": (2 * 5 * R * n + (nc + 28) * n + R * plane + 4 * R
+                      + 4 * S * R, S * 6 * nc * R * n, S * 18 * R * decided),
+        "energy": (R * n + 29 * n + R * plane + 4 * R, 0, 17 * R * n),
+        "update_int": (2 * 5 * R * n + 8 * n + R * plane + 4 * lut + 4 * R,
+                       R * (6 * n + 19 * decided_one), 0),
+        "update_f32": (2 * 5 * R * n + 29 * n + R * plane + 4 * R,
+                       6 * R * n, 18 * R * decided_one),
+    }
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("R", [4, 16, 64])
+def test_work_model_equals_the_inline_bounds_at_the_main_path_shapes(cuda, R):
+    """At phase 5's L=100 brick (its masks on the card), the package's
+    work model gives the bytes and operations chip_smoke.py bounded each
+    kernel by before the move."""
+    from repro_torch.core.lattice import build_ea3d_lattice
+    from repro_torch.kernels import work
+    L, S, lut = 100, 8, 13 * 40
+    masks = build_ea3d_lattice(L, seed=0, device=cuda).masks
+    nc, W = int(masks.shape[0]), -(-R // 32)
+    dec, one = work.decided(masks), work.decided(masks[0])
+    assert (dec, one) == (L ** 3, L ** 3 // 2)
+    want = inline_work(L ** 3, 6 * L * L, S, lut, W, R, nc, dec, one)
+    got = {"sweep_int": work.sweep_int(R, L, L, L, nc, S, dec, lut, S),
+           "bitplane_sweep": work.bitplane_sweep(W, R, L, L, L, nc, S, dec,
+                                                 lut, S),
+           "sweep_f32": work.sweep_f32(R, L, L, L, nc, S, dec),
+           "energy": work.energy(R, L, L, L),
+           "update_int": work.update_int(R, L, L, L, one, lut),
+           "update_f32": work.update_f32(R, L, L, L, one)}
+    assert {k: (w.bytes, w.int32, w.fp32) for k, w in got.items()} == want
+
+
+@pytest.mark.cuda
+def test_work_model_at_the_dsim_dist_and_apt_phase_shapes(cuda):
+    """B7's fused colour phase at phase 7's shape (L=100 on the K=8 brick
+    partition, bit-plane R=64, colour 0) and phase 9's (G81, 2 x 64
+    lanes): the bytes of PR 24's bounds, 564,821,128 and 21,542,288."""
+    from repro_torch import make_engine
+    from repro_torch.core.annealing import beta_table, ea_schedule
+    from repro_torch.core.apt_icm import APTICM
+    from repro_torch.core.bits import u32_to_i64
+    from repro_torch.core.coloring import greedy_coloring, lattice3d_coloring
+    from repro_torch.core.dsim import build_partitioned
+    from repro_torch.core.graph import ea3d
+    from repro_torch.core.partition import brick_partition
+    from repro_torch.kernels import work
+    from repro_torch.problems.maxcut import gset_like_toroidal, maxcut_to_ising
+    L = 100
+    prob = build_partitioned(ea3d(L, seed=0, device=cuda),
+                             lattice3d_coloring(L),
+                             brick_partition((L, L, L), (2, 2, 2)), 8)
+    e = make_engine("dsim_dist", prob, rng="lfsr", replicas=64,
+                    precision="bitplane", device=cuda).eng
+    lut = u32_to_i64(e._lut_for(beta_table(ea_schedule(256).beta_array())))
+    w = work.launch_work("bitplane_gather_count:phase", dict(
+        sites=e._colors[0].sites, W=2, R=64, lut_bytes=8 * int(lut.shape[1])))
+    assert w.bytes == 564_821_128
+    g = maxcut_to_ising(gset_like_toroidal(rows=100, cols=200, seed=81,
+                                           device=cuda))
+    apt = APTICM(g, greedy_coloring(g.idx, g.w), np.linspace(0.2, 3.0, 64),
+                 chains=2, rng="lfsr", packed=True, device=cuda)
+    lw = int(apt._thr_lanes.shape[1])
+    w = work.launch_work("bitplane_gather_count:phase", dict(
+        sites=apt._sites[0], W=apt.words, R=apt.L,
+        lut_bytes=8 * apt.L * lw + 8 * apt.L))
+    assert w.bytes == 21_542_288
+
+
+@pytest.mark.cuda
+def test_dryrun_chunk_card_equals_cpu(cuda):
+    """The dry run's chunk at rank 17 of the 16x16 mesh (a 7x7x100 brick
+    of the padded L=100 instance, on a "fake" group of 256 ranks) on the
+    card against the same rank on the CPU, iteration by iteration from
+    the card's state: LFSR states bitwise, spins equal except at sites
+    within 8 ulp of a phase's boundary; #3 launched once per iteration,
+    noted with its work."""
+    import dataclasses
+    import torch.distributed as dist
+    from torch.testing._internal.distributed.fake_pg import FakeStore
+    from repro_torch.core.annealing import ea_schedule
+    from repro_torch.core.lattice import build_ea3d_lattice
+    from repro_torch.core.lattice_dsim import LatticeDSIM, to_device
+    from repro_torch.core.mesh import make_mesh
+    dist.init_process_group("fake", rank=17, world_size=256,
+                            store=FakeStore())
+    try:
+        mesh = make_mesh((16, 16), ("data", "model"),
+                         group=dist.group.WORLD)
+        prob = build_ea3d_lattice(100, seed=0, pad_xy=(112, 112),
+                                  device="cpu")
+        engs = {d: LatticeDSIM(prob, mesh=mesh,
+                               dim_axes=("data", "model", None), device=d)
+                for d in (cuda, "cpu")}
+        card, twin = engs[cuda], engs["cpu"]
+        assert card.brick == (7, 7, 100) and card.coords == [(1, 1, 0)]
+        st = card.init_state(seed=0)
+        betas = np.asarray(ea_schedule(8).beta_array(), np.float32)
+        _build.reset_launch_counts()
+        for it in range(2):
+            b = betas[it * 4:(it + 1) * 4]
+            nxt = card._chunk(st, b[None], 1, 4, None)
+            here = dataclasses.replace(
+                st, m=st.m.cpu(), s=to_device(st.s, "cpu"),
+                halos=tuple(h.cpu() for h in st.halos), sweep=st.sweep.cpu(),
+                flips=st.flips.cpu())
+            want = twin._chunk(here, b[None], 1, 4, None)
+            bk = twin._bricks[0]
+            flagged = f32_boundary_sites(
+                here.m[0], here.s[0], torch.from_numpy(b), bk.masks, bk.h,
+                bk.w6, twin._brick_halos(here.halos)[0])
+            assert_f32_agrees((nxt.m[0], nxt.s[0]), (want.m[0], want.s[0]),
+                              flagged)
+            st = nxt
+        assert _build.launch_counts["pbit_brick_sweep"] == 2
+        tr = card.trace_chunk(2, 4)
+        assert [(ln.name, ln.launches) for ln in tr.launches] == [
+            ("pbit_brick_sweep", 1)] * 2
+        assert dict(tr.launches[0].shape) == dict(
+            R=1, X=7, Y=7, Z=100, n_colors=2, S=4)
+    finally:
+        dist.destroy_process_group()

@@ -6,8 +6,9 @@ trip, chunk planning, the fixed-point grid and greedy colouring.  Each
 example also runs the reference's function on the same numpy inputs and
 holds the port to it.  The ``q8_*`` case tests the optimizer's int8
 moments (``repro_torch.train.optimizer``), its codes and scales bitwise to
-the reference's; the HLO-parser case goes with ``launch/roofline.py``
-(ROADMAP queue A item 12c).
+the reference's.  The HLO-parser case's counterpart is in
+``tests/test_torch_roofline.py``: the port's roofline reads recorded
+calls, not HLO text.
 """
 
 import jax.numpy as jnp
