@@ -2,6 +2,8 @@
 """Drive the PyTorch/CUDA port (``src/repro_torch``) on one NVIDIA card.
 
 Run from the root of a checkout:  ``python3 chip_smoke.py``
+(``python3 chip_smoke.py --build-peaks <src>`` prints phase 4's
+construction bytes for the package under another tree's ``src``.)
 
 Phases; every check raises on failure and the script then exits non-zero:
 
@@ -37,7 +39,11 @@ Phases; every check raises on failure and the script then exits non-zero:
    match (f32 to 0.5%, its LFSR digest exactly), and bit-plane lane
    (w, b) equals int8 replica w*32+b;
 4. drive the mesh path: ``make_engine("lattice", L=100, mesh=make_mesh(
-   ...), dim_axes=("x", "y", "z"))`` with every brick on the card: the
+   ...), dim_axes=("x", "y", "z"))`` with every brick on the card: each
+   MESH_RUNS engine built in a fresh process holding its bricks'
+   constants and nothing else of the build (the problem is built on the
+   host), its peak and held bytes printed beside the same build's when
+   the whole problem lay on the card; the
    JAX reference's (2,2,2) mesh golden values (int8 R=2 bitwise with its
    spin and LFSR digests, bit-plane R=32 lanes 0-1, f32 within 0.5% with
    the LFSR digest), the first 16 sweeps of int8 R=4 on (2,2,2) and
@@ -197,8 +203,10 @@ Phases; every check raises on failure and the script then exits non-zero:
    ``ok`` on the card with the reference's chips, extras and wire bytes
    per rank (``collective-permute`` 704.0 and 380.0, rank 255 its two
    faces), #3 launched once per iteration, ``chunk_s`` no less than the
-   roofline's bound / 1.05, the memory within the card's, one line per
-   record;
+   roofline's bound / 1.05, the memory within the card's, the rank
+   holding only its brick's constants (``resident_problem_bytes`` 31 B a
+   site: 151,900 B at 7x7x100, 75,950 B at 7x7x50) and the chunk's peak
+   allocation below 1,000,000 B, one line per record;
 15. print one JSON line of kernels (``launches`` over the main and mesh
    paths, the bit-plane dist run's and the packed APT run's for B7's
    fused colour phase, whose entry also holds its times at the APT shape
@@ -760,6 +768,32 @@ DRYRUN_EXTRAS = {"p_bits": 1_000_000, "padded_sites": 1_254_400,
 DRYRUN_ITERS = 2
 # a reading above 1 / DRYRUN_SLACK of the card's bound fails
 DRYRUN_SLACK = 1.05
+# a rank holds its brick's f32 constants on the card: masks (2 colours,
+# int8), h and w6 (f32) and active (int8), 31 B a site; the chunk's peak
+# allocation (constants, state, halos and temporaries) stays below
+# DRYRUN_PEAK_MAX
+DRYRUN_SITE_BYTES = 31
+DRYRUN_PEAK_MAX = 1_000_000
+# the peak of the same chunk when every rank held the whole padded
+# problem on the card (NVIDIA H100 80GB HBM3, 700 W; PERF.md section 6)
+DRYRUN_PEAK_WHOLE = {"single_pod_16x16": 40_125_952,
+                     "multi_pod_2x16x16": 39_962_624}
+
+# Phase 4, the construction of each MESH_RUNS engine in a fresh process
+# (``build_peaks``): the bytes it allocated at its peak and held after it
+# on the tree before per-rank residency, when the registry built the
+# problem on the card and each engine held it whole beside its bricks
+# (NVIDIA H100 80GB HBM3, 700 W; ``python3 chip_smoke.py --build-peaks
+# <src of that tree>``; PERF.md section 6).
+MESH_BUILD_WHOLE = {
+    "int8 R=4 mesh (2,2,2)": {"peak": 77_145_088, "held": 77_019_648},
+    "int8 R=4 mesh (2,2,1)": {"peak": 77_251_584, "held": 77_001_216},
+    "bitplane R=64 mesh (2,2,2)": {"peak": 216_461_312,
+                                   "held": 215_961_088},
+    "f32 R=4 mesh (2,2,2)": {"peak": 63_366_656, "held": 62_991_872}}
+# the allocator's rounding of a build's tensors, which neither the peak
+# nor the held bytes may exceed the bricks' constants by
+BUILD_SLACK = 1 << 20
 
 # H100 SXM published HBM3 bandwidth (NVIDIA data sheet), for the byte
 # floors of the glue; the kernels' bounds come from the package's work
@@ -828,12 +862,70 @@ def card_line() -> str:
     return out.stdout.strip().splitlines()[0]
 
 
+BUILD_PEAKS = r"""
+import dataclasses, json, sys
+import torch
+from repro_torch import make_engine
+from repro_torch.core.mesh import make_mesh
+L, SEED, AXES, kw = json.loads(sys.argv[1])
+shape = kw.pop("mesh")
+torch.cuda.init()
+a0 = torch.cuda.memory_allocated()
+h = make_engine("lattice", L=L, seed=SEED, mesh=make_mesh(shape, AXES),
+                dim_axes=AXES, **kw)
+torch.cuda.synchronize()
+bricks = 0
+for b in h.eng._bricks:
+    for f in dataclasses.fields(b):
+        v = getattr(b, f.name)
+        for x in (v if isinstance(v, tuple) else (v,)):
+            if isinstance(x, torch.Tensor) and x.device.type == "cuda":
+                bricks += x.numel() * x.element_size()
+print(json.dumps({"peak": torch.cuda.max_memory_allocated() - a0,
+                  "held": torch.cuda.memory_allocated() - a0,
+                  "bricks": bricks}))
+"""
+
+
+def build_peaks(src: Path) -> dict:
+    """{MESH_RUNS label: {"peak", "held", "bricks"}}: the bytes building
+    the MESH_RUNS engine (``make_engine("lattice", L=100, mesh=...)``)
+    allocated on the card at its peak and still held after it, and the
+    bytes of its bricks' constants there, each in a fresh process of its
+    own (started together) over the package under ``src`` (this
+    checkout's, or another tree's)."""
+    env = dict(os.environ, PYTHONPATH=str(src))
+    procs = {label: subprocess.Popen(
+        [sys.executable, "-c", BUILD_PEAKS, json.dumps([L, SEED, AXES, kw])],
+        env=env, stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+        for label, kw in MESH_RUNS.items()}
+    out = {}
+    for label, proc in procs.items():
+        try:
+            stdout, stderr = proc.communicate(timeout=300)
+        except subprocess.TimeoutExpired:
+            for p in procs.values():
+                p.kill()
+                p.communicate()
+            raise CheckFailed(f"building {label} under {src} ran past 300 s")
+        if proc.returncode != 0:
+            raise CheckFailed(f"building {label} under {src} failed: "
+                              f"{stderr[-3000:]}")
+        out[label] = json.loads(stdout.strip().splitlines()[-1])
+    return out
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; the port's entry points run on "
               "the card", file=sys.stderr)
         return 1
+    if sys.argv[1:2] == ["--build-peaks"]:
+        # phase 4's construction peaks over another tree's package
+        print(card_line())
+        print(json.dumps(build_peaks(Path(sys.argv[2]).resolve())))
+        return 0
     src = Path(__file__).resolve().parent / "src"
     if not (src / "repro_torch" / "kernels" / "csrc").is_dir():
         print(f"chip_smoke: {src / 'repro_torch'} not found; run from the "
@@ -1654,6 +1746,25 @@ class Smoke:
             kw["dim_axes"] = AXES
         return make_engine("lattice", L=L, seed=SEED, **kw)
 
+    def mesh_build(self, card: str):
+        """Each MESH_RUNS engine's construction on the card
+        (``build_peaks``): the registry builds the problem on the host and
+        the engine moves only its bricks, so the card holds their
+        constants and nothing else of the build, at its peak and after,
+        below the same build's peak when the whole problem lay on the card
+        (MESH_BUILD_WHOLE).  The check's line carries the bytes."""
+        got = build_peaks(Path(__file__).resolve().parent / "src")
+        for label in MESH_RUNS:
+            g, was = got[label], MESH_BUILD_WHOLE[label]
+            check(0 <= g["held"] - g["bricks"] < BUILD_SLACK and
+                  0 <= g["peak"] - g["held"] < BUILD_SLACK and
+                  g["peak"] < was["peak"],
+                  f"mesh {label}: the build holds its bricks' "
+                  f"{g['bricks']} B of constants on the card (held "
+                  f"{g['held']} B, peak {g['peak']} B; with the whole "
+                  f"problem on the card peak {was['peak']} B, held "
+                  f"{was['held']} B); on {card}")
+
     def phase_mesh(self, card: str):
         """The mesh path: the golden values of the JAX reference's (2,2,2)
         mesh, the first 16 sweeps of each MESH_RUNS configuration against
@@ -1665,6 +1776,7 @@ class Smoke:
         from repro_torch.kernels import _build
         print("== 4. mesh path: make_engine('lattice', L=100, mesh=...)",
               flush=True)
+        self.mesh_build(card)
         # golden values: int8 R=2, bit-plane R=32 lanes 0-1, f32 R=2
         for label, kw in (("int8 R=2", dict(precision="int8", replicas=2)),
                           ("bitplane R=32", dict(precision="bitplane",
@@ -2449,6 +2561,26 @@ class Smoke:
 
     # -- the distributed DSIM -----------------------------------------------
 
+    def dist_whole_tables(self, eng, card: str):
+        """The bytes of the tables ``dsim_dist`` keeps whole, K partitions
+        wide, over a process group too: on the card the global slot ids
+        ``global_spins`` scatters by and the graph ``energy`` reads, on
+        the host the ghosts' source slots ``init_state`` gathers by
+        (here, with every partition in one process, on the card)."""
+        def nbytes(*ts):
+            return sum(x.numel() * x.element_size() for x in ts)
+        g = eng._graph
+        ids, graph = nbytes(eng._global_ids), nbytes(g.idx, g.w, g.h)
+        ghosts = nbytes(*eng._ghost_src.values())
+        check(ids > 0 and graph > 0 and ghosts > 0,
+              f"dsim_dist K={eng.p.K}: the whole tables are held")
+        print(f"  dsim_dist K={eng.p.K} (n_max {eng.p.n_max}, g_max "
+              f"{eng.p.g_max}, D {int(g.idx.shape[1])}), tables kept whole "
+              f"over a process group: _global_ids {ids} B and the graph "
+              f"{graph} B on the card, _ghost_src {ghosts} B on the host; "
+              f"one partition's constants on the card instead of K's; on "
+              f"{card}", flush=True)
+
     def phase_dist(self, card: str):
         """The distributed DSIM at L=100 through make_engine("dsim_dist"),
         all K partitions on the card: B7's two routes against their plain
@@ -2471,6 +2603,8 @@ class Smoke:
         for label, kw in DIST_RUNS.items():
             hh, sync = self.dist_engine(kw)
             n, R = hh.n_sites, hh.replicas
+            if label == next(iter(DIST_RUNS)):
+                self.dist_whole_tables(hh.eng, card)
             st0 = hh.init_state(seed=SEED)
             walls = []
             for _ in range(2):      # the engine's first run, then a second
@@ -5032,6 +5166,17 @@ class Smoke:
               f"allocated by the chunk and the resident problem's "
               f"{mem['resident_problem_bytes']} B within the card's "
               f"{mem['hbm_bytes']:.0f} B")
+        brick_bytes = DRYRUN_SITE_BYTES * int(np.prod(brick))
+        was = DRYRUN_PEAK_WHOLE.get(label)
+        check(mem["resident_problem_bytes"] == brick_bytes and
+              mem["peak_allocated_bytes"] < DRYRUN_PEAK_MAX,
+              f"dry run {label}: the rank holds its brick's "
+              f"{brick_bytes} B of constants on the card (resident "
+              f"{mem['resident_problem_bytes']} B) and the chunk's peak "
+              f"{mem['peak_allocated_bytes']} B is below "
+              f"{DRYRUN_PEAK_MAX} B ("
+              + ("not measured" if was is None else f"{was} B")
+              + " when every rank held the whole problem)")
         print(f"  dry run {label}: chunk {r['chunk_s'] * 1e3:.4f} ms "
               f"(build {r['build_s']} s), bound {r['bound_s'] * 1e3:.6f} ms "
               f"by {rf['bottleneck']} (compute {rf['t_compute'] * 1e3:.6f}, "

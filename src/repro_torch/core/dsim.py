@@ -235,7 +235,8 @@ class ColorPhases:
     core.dsim_dist.DistDSIMEngine` ((K, R, n_max), or one partition per
     rank).  ``_LANE_AXIS`` names the replica axis of the layout; an
     engine sets ``p``, ``device``, ``precision``, ``mode``, ``rng_kind``,
-    ``fmt`` and ``_held`` (the partitions it holds), and gives
+    ``fmt`` and ``_held`` (the partitions it holds), ``_graph`` (the
+    whole graph on its device, which ``energy`` reads), and gives
     ``_exchange`` (boundary values -> ghosts in their dtype), ``_chunk``,
     ``global_spins`` and ``_lanes`` (the replica count of a state).
 
@@ -255,51 +256,57 @@ class ColorPhases:
         """The colours' constants; on the fixed-point paths first the int8
         couplings (one per-problem scale), the field bound, and on the
         bit-plane path the sign / nonzero word planes per direction and
-        the lane-independent LUT-column base."""
-        p, dev = self.p, self.device
-        h_src, w_src = p.local_h, p.local_w
+        the lane-independent LUT-column base.  All of them are built over
+        every partition where the problem lies, so the scale and bound are
+        global, and only the held partitions' rows reach the engine's
+        device (:meth:`_color`)."""
+        p = self.p
+        home = p.device
+        h_src, w_src, bp = p.local_h, p.local_w, None
         if self.precision != "f32":
             h_q, (w_q,), self.q_scale = quantize_couplings(p.local_h,
                                                            (p.local_w,))
             w_dirs = tuple(w_q[..., d] for d in range(w_q.shape[-1]))
             self.f_max = field_bound(h_q, w_dirs)
             self._lut_cache = {}
-            h_src = torch.from_numpy(h_q.astype(np.int32)).to(dev)
-            w_src = torch.from_numpy(w_q.astype(np.int32)).to(dev)
+            h_src = torch.from_numpy(h_q.astype(np.int32)).to(home)
+            w_src = torch.from_numpy(w_q.astype(np.int32)).to(home)
             if self.precision == "bitplane":
                 # validates |w_q| <= 1
                 signs, nz, base, _ = bitplane_planes(h_q, w_dirs)
-                self._bp = (u32_from_numpy(np.stack(signs, -1), dev),
-                            u32_from_numpy(np.stack(nz, -1), dev),
-                            torch.from_numpy(base.astype(np.int64)).to(dev))
-        self._colors = [self._color(c, h_src, w_src)
+                bp = (u32_from_numpy(np.stack(signs, -1), home),
+                      u32_from_numpy(np.stack(nz, -1), home),
+                      torch.from_numpy(base.astype(np.int64)).to(home))
+        self._colors = [self._color(c, h_src, w_src, bp)
                         for c in range(len(p.color_slots))]
 
-    def _color(self, c: int, h_src, w_src) -> _Color:
-        p, held = self.p, self._held
+    def _color(self, c: int, h_src, w_src, bp) -> _Color:
+        p, held, dev = self.p, self._held, self.device
         slots = p.color_slots[c].long()                       # (K, nc)
         mask = p.color_mask[c]
         K, nc = slots.shape
-        rows = torch.arange(K, device=self.device)[:, None]
+        rows = torch.arange(K, device=slots.device)[:, None]
         local = p.local_idx[rows, slots]                      # (K, nc, D)
         padded = ~mask.all(1, keepdim=True)
-        lost = ((slots == 0) & mask & padded)[held]
+        lost = ((slots == 0) & mask & padded)[held].to(dev)
+
+        def mine(t):    # the held partitions' rows, on the engine's device
+            return t[held].to(dev)
 
         def lane(t):
-            return t[held].unsqueeze(self._LANE_AXIS)
+            return mine(t).unsqueeze(self._LANE_AXIS)
         col = _Color(slots=lane(slots), mask=lane(mask),
                      lost=lost.unsqueeze(self._LANE_AXIS)
                      if bool(lost.any()) else None)
         if self.precision == "bitplane":
-            signs, nz, base = self._bp
+            signs, nz, base = bp
 
             def at(w):      # uint32 has no indexing on CUDA: int32 views
-                return w.view(torch.int32)[rows, slots][held] \
+                return mine(w.view(torch.int32)[rows, slots]) \
                     .contiguous().view(torch.uint32)
             col.sites = phase_sites(
-                slots[held], mask[held],
-                None if col.lost is None else lost, local[held],
-                at(signs), at(nz), base[rows, slots][held])
+                mine(slots), mine(mask), None if col.lost is None else lost,
+                mine(local), at(signs), at(nz), mine(base[rows, slots]))
         else:
             col.nbr = lane(local.reshape(K, -1).long())
             col.h = lane(h_src[rows, slots])
@@ -463,7 +470,7 @@ class ColorPhases:
 
     def energy(self, state: DSIMState) -> torch.Tensor:
         """True global energies of the current configuration, (R,) or ()."""
-        return direct_energy(self.p.graph, self.global_spins(state))
+        return direct_energy(self._graph, self.global_spins(state))
 
 
 class DSIMEngine(ColorPhases):
@@ -503,6 +510,7 @@ class DSIMEngine(ColorPhases):
         self._init_colors()
         self._ghost_src = p.ghost_src.reshape(-1).long()
         self._global_ids = p.global_ids.reshape(-1).long()
+        self._graph = p.graph
 
     # -- state -----------------------------------------------------------------
 

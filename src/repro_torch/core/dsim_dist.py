@@ -16,7 +16,10 @@ make_mesh` over one axis, ``"data"`` by default, of K = ``prob.K``):
   leading axis; one exchange is one gather over the whole stack, every
   partition at once;
 * over a ``torch.distributed`` group of K ranks, rank k holds partition k
-  (the state's leading axis is 1) and the boundary travels as the
+  (the state's leading axis is 1): its device holds that partition's
+  coupling and colour tables alone, cut where the caller built the
+  problem, and of the whole problem only the index tables the gathers
+  need and the graph the energy reads.  The boundary travels as the
   reference's wire payload through one ``all_gather``: ``pack_pm1`` bytes
   on f32 with ``bitpack=True``, int8 spins on int8 and f32 without it,
   f32 window means on cmft, and the uint32 words (as their int32 view)
@@ -115,8 +118,15 @@ class DistDSIMEngine(ColorPhases):
         self._fault_codes = None
         self.words = check_lanes(precision, replicas)
         self.device = resolve_device(device)
-        self.p = p = prob.to(self.device)
         self.mesh, self.group = mesh, mesh.group
+        # in one process every partition lives on the engine's device; over
+        # a process group the caller's problem stays where it was built
+        # (the reference's ``self.p = prob``) and only this rank's
+        # partition moves (the reference's constants, sharded P(axis))
+        self.p = p = prob.to(self.device) if self.group is None else prob
+        # where init_state draws and cuts the whole state
+        self._host = self.device if self.group is None \
+            else torch.device("cpu")
         self.rng_kind, self.fmt, self.mode = rng, fmt, mode
         self.precision = precision
         self.replicas = int(replicas)
@@ -143,26 +153,37 @@ class DistDSIMEngine(ColorPhases):
     # -- constants -------------------------------------------------------------
 
     def _constants(self):
+        """The colours' constants (``ColorPhases._init_colors``) and the
+        exchange's index tables, each built where the problem lies: the
+        held partitions' rows move to the device.  Whole, K partitions
+        wide: the ghosts' source slots, read by ``init_state`` where it
+        draws the state (over a process group on the host), and on the
+        device ``global_spins``' slot ids and the graph ``energy``
+        reads, as the reference's ``_energy_impl`` reads the whole
+        ``self.p.graph``."""
         p, dev = self.p, self.device
         self._init_colors()
         held = self._held
-        bs = torch.zeros((p.K, self.b_pad), dtype=torch.int64, device=dev)
+        bs = torch.zeros((p.K, self.b_pad), dtype=torch.int64,
+                         device=p.device)
         bs[:, :p.b_max] = p.bnd_slots.long()
         gsp = p.ghost_src_packed.long()
         src_k, src_c = gsp // p.b_max, gsp % p.b_max
-        self._bnd_slots = bs[held]
+        self._bnd_slots = bs[held].to(dev)
         # ghost j of partition k: pool column (source k') * b_pad + c
-        self._ghost_src_pool = (src_k * self.b_pad + src_c)[held]
+        self._ghost_src_pool = (src_k * self.b_pad + src_c)[held].to(dev)
         # the flat source slot of every ghost, into K * n_max: at
         # init_state ghost_src, in an exchange the pool's column (they
         # differ only at padding ghosts, which no field reads: partition
         # 0's slot 0, then its first boundary slot, as in the reference)
-        self._ghost_src = {"init": p.ghost_src.long(),
-                           "pool": src_k * p.n_max + bs[src_k, src_c]}
+        self._ghost_src = {"init": p.ghost_src.long().to(self._host),
+                           "pool": (src_k * p.n_max + bs[src_k, src_c])
+                           .to(self._host)}
         # the source partition of every ghost: the hold mask of the
         # checked exchange
-        self._ghost_src_part = src_k[held]
-        self._global_ids = p.global_ids.reshape(-1).long()
+        self._ghost_src_part = src_k[held].to(dev)
+        self._global_ids = p.global_ids.reshape(-1).long().to(dev)
+        self._graph = p.graph.to(dev)
 
     # -- state -----------------------------------------------------------------
 
@@ -175,8 +196,10 @@ class DistDSIMEngine(ColorPhases):
         ``lfsr_init(K*n_max, s_r)`` (the reference's); on f32 all replicas
         from one stream of ``seed``, with ``lfsr_init(K*R*n_max, seed)``
         (the reference's) or, for philox, one generator per partition and
-        replica seeded from ``spawn_seeds(seed, K*R)``."""
-        p, R, dev = self.p, self.replicas, self.device
+        replica seeded from ``spawn_seeds(seed, K*R)``.  Over a process
+        group the whole state is drawn on the host and only this rank's
+        partition moves to the device."""
+        p, R, dev = self.p, self.replicas, self._host
         K, n_max = p.K, p.n_max
         gid = as_numpy(p.global_ids)
         ok = gid < p.n
@@ -199,7 +222,7 @@ class DistDSIMEngine(ColorPhases):
                 rng = u32_from_numpy(
                     lfsr_init(K * R * n_max, seed).reshape(K, R, n_max), dev)
             else:
-                rng = torch.stack([philox_init(s, dev) for s in
+                rng = torch.stack([philox_init(s, self.device) for s in
                                    spawn_seeds(seed, K * R)]).reshape(
                                        K, R, -1)
         m_r = torch.from_numpy(m_r).to(dev)
@@ -220,9 +243,10 @@ class DistDSIMEngine(ColorPhases):
             flips=torch.zeros((R,), dtype=torch.int32, device=dev)))
 
     def shard_state(self, st: DSIMState) -> DSIMState:
-        """A state in the reference's global shapes -> the engine's: on its
-        device (philox bytes stay on the CPU), and over a process group
-        only this rank's partition.  Drops the cached exchange closure."""
+        """A state in the reference's global shapes, on any device -> the
+        engine's: on its device (philox bytes stay on the CPU), and over a
+        process group only this rank's partition, cut before it moves.
+        Drops the cached exchange closure."""
         self._exchange_only_fn = None
 
         def mv(t):
@@ -231,9 +255,10 @@ class DistDSIMEngine(ColorPhases):
             return t.to(self.device)
         part = (lambda t: t) if self.group is None else \
             (lambda t: t[self._held])
-        rng = st.rng if st.rng.dtype == torch.uint8 else mv(st.rng)
-        return DSIMState(m=part(mv(st.m)), ghosts=part(mv(st.ghosts)),
-                         macc=part(mv(st.macc)), rng=part(rng),
+        rng = part(st.rng)
+        return DSIMState(m=mv(part(st.m)), ghosts=mv(part(st.ghosts)),
+                         macc=mv(part(st.macc)),
+                         rng=rng if rng.dtype == torch.uint8 else mv(rng),
                          sweep=mv(st.sweep), flips=mv(st.flips))
 
     def global_state(self, st: DSIMState) -> DSIMState:
@@ -279,7 +304,7 @@ class DistDSIMEngine(ColorPhases):
         idx = self._ghost_idx.get((lead, at))
         if idx is None:
             src = self._ghost_src[at]                         # (K, g_max)
-            lanes = torch.arange(lead, device=self.device)[None, :, None]
+            lanes = torch.arange(lead, device=src.device)[None, :, None]
             idx = ((src // n_max)[:, None] * lead + lanes) * n_max \
                 + (src % n_max)[:, None]
             idx = self._ghost_idx[lead, at] = idx.reshape(-1)

@@ -10,7 +10,10 @@ axis of each lattice dimension, the lattice is cut into bricks
 per rank of a ``torch.distributed`` group; the state is then a
 :class:`BrickState`, brick-major, and :meth:`LatticeDSIM.global_state` /
 :meth:`LatticeDSIM.shard_state` convert to and from the reference's global
-shapes.
+shapes.  On a mesh the problem and the initial state are cut where they
+were built (the host, as a rule) and only the bricks held here move to the
+engine's device, as the reference places each device's shard: a rank
+holds its brick's constants, never the whole lattice's.
 
 Each chunk iteration runs ``sync_every`` sweeps of every brick against
 its halos held fixed (one fused sweep call per brick, or on the per-phase
@@ -47,7 +50,7 @@ from .bricks import (BrickState, GatherExchange, GroupExchange,
                      brick_coords, cut, join)
 from .degrade import (DegradePolicy, MeshHealthMonitor, carry_max,
                       carry_to_device)
-from .device import resolve_device
+from .device import as_numpy, resolve_device
 from .lattice import LatticeProblem
 from .packing import LANE_WIDTH, pack_lanes, unpack_lanes
 from .pbit import (FixedPoint, LUT_SELECT_MAX_WIDTH, bitplane_planes,
@@ -132,6 +135,12 @@ def _stack(ts) -> torch.Tensor:
     return torch.stack(ts)
 
 
+# the fixed-point constants of the int8 and bit-plane paths, each a
+# (..., X, Y, Z) tensor or a tuple of them, as the engine and its bricks
+# name them
+_FIXED = ("h_q", "w6_q", "masks_w", "signs6_w", "nz6_w", "base_w")
+
+
 @dataclasses.dataclass
 class _Brick:
     """One brick's problem constants, cut once at construction."""
@@ -186,7 +195,10 @@ class LatticeDSIM:
             raise ValueError("pass dim_axes when passing a mesh")
         self.device = resolve_device(device)
         resolve_impl(impl, self.device.type == "cuda")
-        self.p = prob.to(self.device)
+        # one brick is the whole problem and lives on the engine's device;
+        # on a mesh the caller's problem stays where it was built (the
+        # reference's ``self.p = prob``) and only the bricks held here move
+        self.p = prob.to(self.device) if mesh is None else prob
         self.fmt = fmt
         self.impl = impl
         self.precision = precision
@@ -217,12 +229,15 @@ class LatticeDSIM:
 
     def _fixed_point_constants(self, prob: LatticeProblem):
         """Quantized couplings and, on the bit-plane path, its word
-        planes and lane-masked color masks."""
-        dev, precision = self.device, self.precision
-        h_q, w6_q, self.q_scale = quantize_couplings(prob.h, prob.w6)
-        self.f_max = field_bound(h_q, w6_q)
-        self.h_q = torch.from_numpy(h_q).to(dev)
-        self.w6_q = tuple(torch.from_numpy(w).to(dev) for w in w6_q)
+        planes and lane-masked color masks, built on the host over the
+        whole problem as numpy arrays (the reference's form): one
+        per-problem scale and field bound, so every brick reads the same
+        LUT.  :meth:`_partition` cuts and places them; with no mesh the
+        engine's attributes become its one brick's device tensors."""
+        precision = self.precision
+        self.h_q, self.w6_q, self.q_scale = quantize_couplings(prob.h,
+                                                               prob.w6)
+        self.f_max = field_bound(self.h_q, self.w6_q)
         if precision == "bitplane":
             # the word path keeps the reference's LUT-width cap (its accept
             # is the rank-count form on every impl there)
@@ -234,10 +249,8 @@ class LatticeDSIM:
                     f"f_max={self.f_max} (width {2 * self.f_max + 1}).  "
                     f"Use impl='ref' with precision='int8' or coarser "
                     f"couplings.")
-            signs6, nz6, base, _ = bitplane_planes(h_q, w6_q)
-            self.signs6_w = tuple(u32_from_numpy(x, dev) for x in signs6)
-            self.nz6_w = tuple(u32_from_numpy(x, dev) for x in nz6)
-            self.base_w = torch.from_numpy(base).to(dev)
+            self.signs6_w, self.nz6_w, self.base_w, _ = bitplane_planes(
+                self.h_q, self.w6_q)
             # lane-masked color masks: lanes >= R (only ever in the LAST
             # word plane) never update
             W = self.words
@@ -245,11 +258,11 @@ class LatticeDSIM:
             lane_masks = np.full((W,), 0xFFFFFFFF, np.uint64)
             lane_masks[-1] = (1 << last) - 1 if last < LANE_WIDTH \
                 else 0xFFFFFFFF
-            mk = self.p.masks.cpu().numpy()      # (n_colors, X, Y, Z)
-            self.masks_w = u32_from_numpy(
-                np.where(mk[:, None] != 0,
-                         lane_masks.astype(np.uint32)[None, :, None, None,
-                                                      None], 0), dev)
+            mk = as_numpy(prob.masks)            # (n_colors, X, Y, Z)
+            self.masks_w = np.where(
+                mk[:, None] != 0,
+                lane_masks.astype(np.uint32)[None, :, None, None, None],
+                0).astype(np.uint32)
 
     def _partition(self, mesh, dim_axes):
         """Brick counts and the bricks this process holds, their problem
@@ -276,6 +289,12 @@ class LatticeDSIM:
             self.coords = [self._rank_coord(mesh.coords(
                 self._group_rank()))]
         self._bricks = [self._brick_consts(c) for c in self.coords]
+        if mesh is None:
+            # the engine's fixed-point constants are its one brick's, on
+            # the device; on a mesh they stay whole numpy arrays on the host
+            for f in _FIXED:
+                if getattr(self, f, None) is not None:
+                    setattr(self, f, getattr(self._bricks[0], f))
         self._exchangers = {}
         self._exchange_only_fn = None
 
@@ -298,25 +317,26 @@ class LatticeDSIM:
         return cut(t, self.brick, self.coords, axis)
 
     def _brick_consts(self, c) -> _Brick:
+        """Brick ``c``'s problem constants on the engine's device: with no
+        mesh the problem's own tensors (the brick is the problem), on a
+        mesh each (..., X, Y, Z) constant's block, cut where the constant
+        lies and then moved."""
         def one(t):
-            """Brick ``c``'s block of a (..., X, Y, Z) constant."""
-            if self.mesh is None:
-                return t
-            lead = tuple(t.shape[:-3])
-            flat = t.reshape((-1,) + tuple(t.shape[-3:]))
-            return cut(flat, self.brick, [c])[0].reshape(lead + self.brick)
+            if isinstance(t, tuple):
+                return tuple(one(x) for x in t)
+            if isinstance(t, np.ndarray):       # a view, not a copy
+                t = torch.from_numpy(t.view(np.int32)).view(torch.uint32) \
+                    if t.dtype == np.uint32 else torch.from_numpy(t)
+            if self.mesh is not None:
+                lead = tuple(t.shape[:-3])
+                flat = t.reshape((-1,) + tuple(t.shape[-3:]))
+                t = cut(flat, self.brick, [c])[0].reshape(lead + self.brick)
+            return to_device(t, self.device)
         p = self.p
-        b = _Brick(masks=one(p.masks), h=one(p.h),
-                   w6=tuple(one(w) for w in p.w6), active=one(p.active))
-        if self.precision != "f32":
-            b.h_q = one(self.h_q)
-            b.w6_q = tuple(one(w) for w in self.w6_q)
-        if self.precision == "bitplane":
-            b.masks_w = one(self.masks_w)
-            b.signs6_w = tuple(one(w) for w in self.signs6_w)
-            b.nz6_w = tuple(one(w) for w in self.nz6_w)
-            b.base_w = one(self.base_w)
-        return b
+        src = dict(masks=p.masks, h=p.h, w6=p.w6, active=p.active)
+        src.update({f: getattr(self, f) for f in _FIXED
+                    if getattr(self, f, None) is not None})
+        return _Brick(**{f: one(t) for f, t in src.items()})
 
     def _neighbor_ranks(self):
         """(-1 neighbour, +1 neighbour) global ranks along each lattice
@@ -445,19 +465,31 @@ class LatticeDSIM:
     # -- state layout ----------------------------------------------------------
 
     def shard_state(self, st):
-        """A state in the reference's global shapes -> the engine's: on
-        its device, and on a mesh cut into the bricks held here."""
+        """A state in the reference's global shapes, on any device -> the
+        engine's: on its device, and on a mesh cut into the bricks held
+        here first, so only those move."""
         self._exchange_only_fn = None
+        return self._place(st)
+
+    def _place(self, st, pack: bool = False):
+        """:meth:`shard_state`'s move; ``pack`` packs a ``LatticeState``'s
+        int8 spins into word planes once they are on the device, brick by
+        brick on a mesh."""
         mv = lambda t: to_device(t, self.device)  # noqa: E731
-        st = type(st)(m=mv(st.m), s=mv(st.s),
-                      halos=tuple(mv(h) for h in st.halos),
-                      sweep=mv(st.sweep), flips=mv(st.flips))
+        cls = BitplaneLatticeState if pack else type(st)
         if self.mesh is None:
-            return st
+            m = mv(st.m)
+            return cls(m=pack_lanes(m) if pack else m, s=mv(st.s),
+                       halos=tuple(mv(h) for h in st.halos),
+                       sweep=mv(st.sweep), flips=mv(st.flips))
+        m = mv(self._cut(st.m))
+        if pack:
+            m = _stack([pack_lanes(x) for x in m.unbind(0)])
         return BrickState(
-            m=self._cut(st.m), s=self._cut(st.s),
-            halos=tuple(self._cut(h, d // 2) for d, h in enumerate(st.halos)),
-            sweep=st.sweep, flips=st.flips, nb=self.nb)
+            m=m, s=mv(self._cut(st.s)),
+            halos=tuple(mv(self._cut(h, d // 2))
+                        for d, h in enumerate(st.halos)),
+            sweep=mv(st.sweep), flips=mv(st.flips), nb=self.nb)
 
     def global_state(self, st):
         """The engine's state in the reference's global shapes (a
@@ -487,8 +519,8 @@ class LatticeDSIM:
         """Fresh state; ``seeds=[...]`` (length R) seeds every replica
         explicitly (replica r's trajectory depends only on seeds[r]).
         Spins and LFSR states are drawn for the whole lattice and then cut
-        into bricks, so a brick's states are its slice of
-        ``lfsr_init(X*Y*Z, seed)``."""
+        into bricks on the host, so a brick's states are its slice of
+        ``lfsr_init(X*Y*Z, seed)`` and only the bricks held here move."""
         X, Y, Z = self.p.dims
         R = self.replicas
         if seeds is not None:
@@ -502,18 +534,14 @@ class LatticeDSIM:
             rng = np.random.default_rng(sd)
             ms.append(rng.choice(np.array([-1, 1], np.int8), size=(X, Y, Z)))
             ss.append(lfsr_init(X * Y * Z, sd).reshape(X, Y, Z))
-        dev = self.device
-        m = torch.from_numpy(np.stack(ms)).to(dev)
-        s = u32_from_numpy(np.stack(ss), dev)
-        zero = torch.zeros((), dtype=torch.int32, device=dev)
-        flips = torch.zeros((R,), dtype=torch.int32, device=dev)
-        if self.precision == "bitplane":
-            st = BitplaneLatticeState(m=pack_lanes(m), s=s, halos=(),
-                                      sweep=zero, flips=flips)
-        else:
-            st = LatticeState(m=m, s=s, halos=(), sweep=zero, flips=flips)
+        st = LatticeState(m=torch.from_numpy(np.stack(ms)),
+                          s=u32_from_numpy(np.stack(ss), "cpu"), halos=(),
+                          sweep=torch.zeros((), dtype=torch.int32),
+                          flips=torch.zeros((R,), dtype=torch.int32))
+        self._exchange_only_fn = None
+        st = self._place(st, pack=self.precision == "bitplane")
         # one refreshing exchange so the first sweeps see real halos
-        return self._refresh_halos(self.shard_state(st))
+        return self._refresh_halos(st)
 
     # -- runners ---------------------------------------------------------------
 

@@ -394,7 +394,10 @@ def make_engine(name: str, graph=None, *, coloring: Optional[Coloring] = None,
     if prob is None:
         if L is None:
             raise ValueError("lattice engine needs lattice= or L=")
-        prob = build_ea3d_lattice(int(L), seed=seed, device=device)
+        # on a mesh the engine cuts the problem into bricks and moves only
+        # those: build it on the host
+        prob = build_ea3d_lattice(int(L), seed=seed,
+                                  device=device if mesh is None else "cpu")
     eng = LatticeDSIM(prob, fmt=fmt, impl=impl, replicas=replicas,
                       precision=precision, fused=fused, kernel_bx=kernel_bx,
                       device=device, mesh=mesh, dim_axes=dim_axes,

@@ -15,9 +15,11 @@ and bytes, not a trajectory: no halo arrives.
 The reference's program is the same on every chip; the port's depends on
 where its rank sits (an edge rank of an open x or y chain sends fewer
 faces), so the record is of a rank with every neighbour (``--rank``
-picks another).  Every rank holds the whole problem on its device
-(``LatticeDSIM`` moves it there); the record states those bytes beside
-the brick's own.
+picks another).  The instance is built on the host and the engine moves
+only the rank's brick to its device, as the reference places each chip's
+shard: the record states the bytes of the problem constants the rank
+holds there (``resident_problem_bytes``, its brick's) beside the peak the
+chunk allocates.
 
 MUST be run as its own process: it initialises the default process group
 (once per cell, torn down after it).  It runs on the CUDA device unless
@@ -31,6 +33,7 @@ Usage:
 from __future__ import annotations
 
 import argparse
+import dataclasses
 import json
 import os
 import time
@@ -46,7 +49,7 @@ from repro_torch.launch.mesh import make_mesh_shape
 from repro_torch.launch.roofline import HW, roofline
 
 __all__ = ["lower_ising_cell", "run_cell", "all_cells", "main", "REPORT_DIR",
-           "interior_rank"]
+           "interior_rank", "resident_problem_bytes"]
 
 REPORT_DIR = os.path.join(os.path.dirname(__file__), "..", "..", "..",
                           "reports", "dryrun_torch")
@@ -84,6 +87,14 @@ def _nbytes(*ts) -> int:
     return out
 
 
+def resident_problem_bytes(eng) -> int:
+    """Bytes of the problem constants a ``LatticeDSIM`` holds on its
+    device: every field of the bricks it holds (at f32 their masks, h, w6
+    and active; the fixed-point paths add their quantized planes)."""
+    return sum(_nbytes(*(getattr(b, f.name) for f in dataclasses.fields(b)))
+               for b in eng._bricks)
+
+
 def _state_bytes(st) -> int:
     return _nbytes(st.m, st.s, st.halos, st.sweep, st.flips)
 
@@ -102,7 +113,8 @@ def lower_ising_cell(mesh, multi_pod: bool, L: int = 100, iters: int = 2,
         dim_axes = ("data", "model", None)
     pad = (112, 112)                              # x,y padded to 16*7
     dev = resolve_device(device)
-    prob = build_ea3d_lattice(L, seed=0, pad_xy=pad, device=dev)
+    # staged on the host: the engine cuts the rank's brick and moves it
+    prob = build_ea3d_lattice(L, seed=0, pad_xy=pad, device="cpu")
     eng = LatticeDSIM(prob, mesh=mesh, dim_axes=dim_axes, device=dev)
     cuda = dev.type == "cuda"
     held = {}
@@ -125,9 +137,8 @@ def lower_ising_cell(mesh, multi_pod: bool, L: int = 100, iters: int = 2,
         "temp_size_in_bytes": None,
         "alias_size_in_bytes": None,
         "peak_allocated_bytes": None,
-        # every rank holds the whole problem (LatticeDSIM moves it there)
-        "resident_problem_bytes": _nbytes(prob.h, prob.w6, prob.masks,
-                                          prob.active),
+        # the problem constants this rank holds on its device: its brick's
+        "resident_problem_bytes": resident_problem_bytes(eng),
     }
     if cuda:
         peak = torch.cuda.max_memory_allocated(dev)

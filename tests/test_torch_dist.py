@@ -18,6 +18,13 @@ views of the words on the bit-plane path), flips are summed with
 ``all_reduce``, and every rank's energies, flips, gathered global state
 and own partition must equal the one-process engine's bitwise.
 
+Each rank's engine holds one brick's or one partition's share of the
+problem (``tests/test_torch_residency.py``): no tensor it holds has the
+whole lattice's (X, Y, Z) as its trailing dims, or leads with more than one
+partition, apart from the caller's problem and the whole index tables
+listed there, and its brick's or partition's constants equal the
+one-process engine's there bitwise.
+
 Both mesh engines also run their ``DEG_CASES`` with a degrade policy and
 injected fault codes in the same ranks: the lattice's checked exchange
 sends each face's header [seq, checksum] as a message of its own and
@@ -28,8 +35,8 @@ flips, health report and the point where it raised must equal the
 one-process engine's bitwise.
 """
 
+import dataclasses
 import inspect
-
 import json
 import os
 import subprocess
@@ -46,6 +53,8 @@ from repro_torch.core.annealing import ea_schedule
 from repro_torch.core.bricks import BrickState
 from repro_torch.core.mesh import make_mesh
 from repro_torch.interop import state_to_numpy
+from test_torch_residency import (WHOLE_TABLES, dist_problem, held_tensors,
+                                  partition_tensors)
 
 SRC = Path(__file__).resolve().parents[1] / "src"
 AXES = ("x", "y", "z")
@@ -139,22 +148,15 @@ def degraded_run(engine, case, policy, codes, world, group=None):
     return h, cur, raised
 
 
-def dist_problem(kind, K):
-    """A random regular graph cut by the greedy partitioner, or an L=6
-    EA3D lattice cut into K slabs (at K=4 of 2, 1, 2 and 1 planes): both
-    pad colour slot lists."""
-    from repro_torch.core import graph
-    from repro_torch.core.coloring import greedy_coloring, lattice3d_coloring
-    from repro_torch.core.dsim import build_partitioned
-    from repro_torch.core.partition import greedy_partition, slab_partition
-    if kind == "regular":
-        g = graph.random_regular(48, 4, seed=3, device="cpu")
-        col = greedy_coloring(g.idx, g.w)
-        labels = greedy_partition(g.idx, g.w, K, seed=0)
-    else:
-        g, col = graph.ea3d(6, seed=1, device="cpu"), lattice3d_coloring(6)
-        labels = slab_partition(6, K)
-    return build_partitioned(g, col, labels, K)
+def brick_consts(b):
+    """A brick's problem constants by name, tuples flattened (w60, ...)."""
+    out = {}
+    for f in dataclasses.fields(b):
+        v = getattr(b, f.name)
+        for i, x in enumerate(v if isinstance(v, tuple) else (v,)):
+            if x is not None:
+                out[f.name + (str(i) if isinstance(v, tuple) else "")] = x
+    return out
 
 
 WORKER = """
@@ -190,6 +192,13 @@ for name, (L, shape, prec, R, sync, bp, fused) in cases.items():
     g = state_to_numpy(h.eng.global_state(st))
     brick = {f"brick_{f}": host(getattr(st, f)) for f in ("m", "s")}
     brick.update({f"brick_halo{i}": host(x) for i, x in enumerate(st.halos)})
+    # the problem constants the rank holds: its brick's, no tensor with
+    # the whole lattice's (X, Y, Z) as its trailing dims
+    brick["n_wide"] = sum(tuple(t.shape[-3:]) == tuple(h.eng.p.dims)
+                          for _, t in held_tensors(h.eng))
+    brick["n_bricks"] = len(h.eng._bricks)
+    brick.update({f"const_{k}": host(t)
+                  for k, t in brick_consts(h.eng._bricks[0]).items()})
     np.savez(f"{out}/{name}-{rank}.npz", e0=e0.numpy(),
              energies=rec.energies.numpy(), total_flips=rec.flips,
              spins=h.global_spins(st).numpy(), coord=h.eng.coords[0],
@@ -206,6 +215,12 @@ for name, (kind, prec, R, sync, mode, bp) in dist_cases.items():
                              sync_every=sync)
     g = state_to_numpy(h.eng.global_state(st))
     own = {f"own_{f}": host(getattr(st, f)) for f in ("m", "ghosts", "rng")}
+    # the problem constants the rank holds: one partition's rows
+    held = partition_tensors(h.eng)
+    own["n_wide"] = sum(t.shape[0] != 1 for _, t in held)
+    own.update({f"const_{i}": host(t) for i, (_, t) in enumerate(held)})
+    with open(f"{out}/{name}-{rank}.paths.json", "w") as f:
+        json.dump([p for p, _ in held], f)
     np.savez(f"{out}/{name}-{rank}.npz", e0=e0.numpy(),
              energies=rec.energies.numpy(), total_flips=rec.flips,
              spins=h.global_spins(st).numpy(), **g, **own)
@@ -229,8 +244,11 @@ gc.collect()
 dist.barrier()
 dist.destroy_process_group()
 """ % dict(seed=SEED, init_seed=INIT_SEED, sweeps=SWEEPS, points=POINTS)
-WORKER = textwrap.dedent(inspect.getsource(dist_problem)) \
-    + textwrap.dedent(inspect.getsource(degraded_run)) + WORKER
+WORKER = "import dataclasses\nimport torch\n" \
+    + f"WHOLE_TABLES = {WHOLE_TABLES!r}\n" + "".join(
+        textwrap.dedent(inspect.getsource(f)) for f in (
+            dist_problem, degraded_run, held_tensors, partition_tensors,
+            brick_consts)) + WORKER
 
 
 @pytest.fixture(scope="module")
@@ -305,6 +323,15 @@ def test_ranks_equal_the_one_process_mesh(ranks, world, name):
         for i, x in enumerate(st.halos):
             np.testing.assert_array_equal(r[f"brick_halo{i}"][0],
                                           as_numpy(x[k]))
+        # it holds that brick's constants and nothing of the whole lattice
+        assert int(r["n_bricks"]) == 1 and int(r["n_wide"]) == 0
+        want = brick_consts(h.eng._bricks[k])
+        assert {f"const_{n}" for n in want} == \
+            {f for f in r.files if f.startswith("const_")}
+        for n, x in want.items():
+            assert r[f"const_{n}"].dtype == as_numpy(x).dtype, n
+            np.testing.assert_array_equal(r[f"const_{n}"], as_numpy(x),
+                                          err_msg=n)
     assert sorted(coords) == list(range(world))
 
 
@@ -323,6 +350,7 @@ def test_dsim_dist_ranks_equal_the_one_process_mesh(ranks, world, name):
                              sync_every=sync)
     g = state_to_numpy(st)
     spins = h.global_spins(st).numpy()
+    whole = dict(partition_tensors(h.eng))
     for rank in range(world):
         r = np.load(ranks / f"{name}-{rank}.npz")
         np.testing.assert_array_equal(r["e0"], e0.numpy())
@@ -336,6 +364,16 @@ def test_dsim_dist_ranks_equal_the_one_process_mesh(ranks, world, name):
         for f in ("m", "ghosts", "rng"):
             np.testing.assert_array_equal(r[f"own_{f}"][0],
                                           as_numpy(getattr(st, f)[rank]))
+        # and so are the constants it holds, of that partition alone
+        assert int(r["n_wide"]) == 0
+        paths = json.loads((ranks / f"{name}-{rank}.paths.json")
+                           .read_text())
+        assert paths and all(p in whole for p in paths)
+        for i, p in enumerate(paths):
+            x = whole[p]
+            x = x[rank:rank + 1] if x.shape[0] == world else x
+            np.testing.assert_array_equal(r[f"const_{i}"], as_numpy(x),
+                                          err_msg=p)
 
 
 @pytest.mark.parametrize("world,name", [(w, n)

@@ -20,6 +20,9 @@ ROOT = os.path.join(os.path.dirname(__file__), "..")
 SRC = os.path.join(ROOT, "src")
 MESHES = {"single_pod_16x16": (256, 704.0),
           "multi_pod_2x16x16": (512, 380.0)}
+# the rank's brick's f32 constants: 7 x 7 x 100 and 7 x 7 x 50 sites of
+# masks (2 colours, int8), h and w6 (f32) and active (int8), 31 B a site
+RESIDENT = {"single_pod_16x16": 151_900, "multi_pod_2x16x16": 75_950}
 
 
 def _env(**kw):
@@ -73,8 +76,9 @@ def test_dryrun_extras_and_arguments_equal_the_reference(records, mesh):
         "sync_every": 4}
     assert port["memory_analysis"]["argument_size_in_bytes"] == \
         ref["memory_analysis"]["argument_size_in_bytes"]
-    # every rank holds the whole problem (ROADMAP section C)
-    assert port["memory_analysis"]["resident_problem_bytes"] == 38_886_400
+    # each rank holds only its brick's constants on its device
+    assert port["memory_analysis"]["resident_problem_bytes"] == \
+        RESIDENT[mesh]
 
 
 @pytest.mark.parametrize("mesh", list(MESHES))
