@@ -64,6 +64,7 @@ from repro_torch.kernels.ops import (brick_energy_op, brick_energy_words_op,
                                      pbit_sweep_int_op, pbit_sweep_op,
                                      pbit_update_int_op, pbit_update_op,
                                      resolve_impl)
+from repro_torch.obs.trace import region
 
 __all__ = ["LatticeDSIM", "LatticeState", "BitplaneLatticeState",
            "BrickState", "join_bricks", "to_device"]
@@ -448,7 +449,9 @@ class LatticeDSIM:
         brick-major."""
         mb = self._bricks_of(m)
         ex = self._exchanger(int(mb.shape[1]), mb.dtype)
-        return self._state_halos(ex, ex(mb))
+        with region("repro_torch.engine.exchange"):
+            buf = ex(mb)
+        return self._state_halos(ex, buf)
 
     def _refresh_halos(self, st):
         return dataclasses.replace(st, halos=self._exchange(st.m))
@@ -469,7 +472,8 @@ class LatticeDSIM:
         engine's: on its device, and on a mesh cut into the bricks held
         here first, so only those move."""
         self._exchange_only_fn = None
-        return self._place(st)
+        with region("repro_torch.entry.shard_state"):
+            return self._place(st)
 
     def _place(self, st, pack: bool = False):
         """:meth:`shard_state`'s move; ``pack`` packs a ``LatticeState``'s
@@ -583,8 +587,10 @@ class LatticeDSIM:
         halos, each ended by one exchange; sched2d (iters, S) or
         (iters, S, R) betas (f32) or LUT rows."""
         dtype = np.float32 if self.precision == "f32" else np.int32
-        sched = torch.from_numpy(np.ascontiguousarray(sched2d, dtype)).to(
-            self.device)
+        # a blocking copy from pageable memory: the host waits for the card
+        with region("repro_torch.sync.schedule_upload"):
+            sched = torch.from_numpy(np.ascontiguousarray(sched2d, dtype)).to(
+                self.device)
         if not self.fused and sched.dim() == 2:
             # the per-phase kernels take each phase's (R,) betas or rows
             # as they lie: one expand and copy per chunk, none per phase
@@ -607,10 +613,11 @@ class LatticeDSIM:
             ms = [o[0] for o in outs]
             ss = [o[1] for o in outs]
             m = _stack(ms)
-            if deg:
-                buf, health = ex.checked(m, buf, health, codes, freeze)
-            else:
-                buf = ex(m)
+            with region("repro_torch.engine.exchange"):
+                if deg:
+                    buf, health = ex.checked(m, buf, health, codes, freeze)
+                else:
+                    buf = ex(m)
             hs = ex.bricks(buf)
             flips += [o[2] for o in outs]
         # every (iteration, brick) count of the chunk, summed once, exactly
@@ -731,8 +738,10 @@ class LatticeDSIM:
         (R,), or a scalar when replicas == 1."""
         m = self._bricks_of(state.m)
         ex = self._exchanger(int(m.shape[1]), m.dtype)
+        with region("repro_torch.engine.exchange"):
+            buf = ex(m)
         e = None
-        for b, mk, hk in zip(self._bricks, m.unbind(0), ex.bricks(ex(m))):
+        for b, mk, hk in zip(self._bricks, m.unbind(0), ex.bricks(buf)):
             if self.precision == "bitplane":
                 ek = brick_energy_words_op(mk, self.replicas, b.active, b.h,
                                            b.w6, hk, bx=self.kernel_bx,

@@ -19,6 +19,7 @@ import numpy as np
 import torch
 
 from repro_torch.core.packing import LANE_WIDTH, MAX_LANE_WORDS, lane_words
+from repro_torch.obs.trace import region
 
 __all__ = ["Engine", "RunRecord", "SyncSpec", "chunk_plan",
            "run_recorded_driver", "RecordedCursor", "spawn_seeds",
@@ -170,7 +171,9 @@ def quantize_record_points(record_points: Sequence[int], S: int,
 
 def _flips_read(value) -> np.ndarray:
     if isinstance(value, torch.Tensor):
-        value = value.detach().cpu().numpy()
+        # a tensor's read to the host: on the card, a wait for it
+        with region("repro_torch.sync.flips_read"):
+            value = value.detach().cpu().numpy()
     return np.atleast_1d(np.asarray(value)).astype(np.int64) % (1 << 32)
 
 
@@ -179,7 +182,8 @@ def _sync(state):
     of ``jax.block_until_ready``): a CUDA synchronise of its device."""
     m = getattr(state, "m", None)
     if isinstance(m, torch.Tensor) and m.is_cuda:
-        torch.cuda.synchronize(m.device)
+        with region("repro_torch.sync.wait"):
+            torch.cuda.synchronize(m.device)
 
 
 def _device_of(state):
@@ -194,6 +198,9 @@ class RecordedCursor:
     accounting as :func:`run_recorded_driver`, advanced one bounded chunk
     at a time (:meth:`advance`); driving it to completion is the one-shot
     driver.  ``flips_vec`` keeps the per-counter (per-replica) totals.
+    Each chunk runs in a ``repro_torch.driver.chunk`` span and each record
+    point's read in a ``repro_torch.driver.record`` span
+    (:func:`repro_torch.obs.trace.region`).
     """
 
     def __init__(self, *, state, schedule, record_points: Sequence[int],
@@ -296,14 +303,15 @@ class RecordedCursor:
                     self._pending + worst >= self._LIMIT:
                 self._read_flips()
             bchunk = self._chunk_betas(self._pos, c)
-            if self.chunk_timer is not None:
+            timed = self.chunk_timer is not None
+            if timed:
                 _sync(self.state)
                 t0 = time.perf_counter()
+            with region("repro_torch.driver.chunk"):
                 self.state = self._chunk_fn(self.state, bchunk, c, self.S)
+            if timed:
                 _sync(self.state)
                 self.chunk_timer(nsw, time.perf_counter() - t0)
-            else:
-                self.state = self._chunk_fn(self.state, bchunk, c, self.S)
             self._i += 1
             self._pos += nsw
             self._pending += worst
@@ -311,7 +319,8 @@ class RecordedCursor:
             if self._flips_of is not None and self._flips_per_sweep is None:
                 self._read_flips()   # unknown bound: stay exact per chunk
             if self._pos in self._targets:
-                self._out.append(self._record_fn(self.state))
+                with region("repro_torch.driver.record"):
+                    self._out.append(self._record_fn(self.state))
                 self._times.append(self._pos)
                 if self._flips_of is not None:
                     self._read_flips()

@@ -27,6 +27,7 @@ from repro_torch.core.lattice import LatticeProblem, build_ea3d_lattice
 from repro_torch.core.lattice_dsim import LatticeDSIM
 from repro_torch.core.partition import greedy_partition
 from repro_torch.core.snapshot import restore_state, snapshot_state
+from repro_torch.obs.trace import region
 from .base import (RunRecord, SyncSpec, check_lanes, check_precision,
                    trace_chunk)
 
@@ -176,9 +177,11 @@ class _Handle:
 
     def run_recorded(self, state, schedule, record_points: Sequence[int],
                      sync_every: SyncSpec = 1):
-        state, rec = self._recorded(state, schedule, record_points,
-                                    sync_every, cursor=False)
-        return state, RunRecord(rec.times, _as_2d(rec.energies), rec.flips)
+        with region("repro_torch.entry.run_recorded"):
+            state, rec = self._recorded(state, schedule, record_points,
+                                        sync_every, cursor=False)
+            return state, RunRecord(rec.times, _as_2d(rec.energies),
+                                    rec.flips)
 
     def trace_chunk(self, iters: int = 2, S: int = 4, **kw):
         """One recorded chunk after a warm one: the engine's

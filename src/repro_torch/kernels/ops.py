@@ -6,6 +6,11 @@
            (the card runs it only when asked, as ``chip_smoke.py``'s
            comparisons do).
   'auto' — 'cuda' for CUDA tensors, 'ref' for CPU tensors.
+
+``pbit_bitplane_sweep_op`` runs in the span
+``repro_torch.wrapper.pbit_bitplane_sweep`` (``obs.trace.region``), the
+key its kernel notes launches under (``_build.note_launch``), on either
+implementation.
 """
 
 from __future__ import annotations
@@ -15,6 +20,7 @@ from typing import Optional
 import torch
 
 from repro_torch.core.pbit import FixedPoint
+from repro_torch.obs.trace import region
 from . import _build, bitplane_gather, bitplane_phase, lattice_energy, \
     pbit_bitplane, pbit_lattice, ref as _ref
 
@@ -101,11 +107,13 @@ def pbit_bitplane_sweep_op(mw, s, rows, masks_w, signs6, nz6, base, halos_w,
     """Multi-spin-coded sweeps over W stacked word planes (lane l = word
     l//32, bit l%32); ``rows`` (S,) shared or (S, R) per lane.  Returns
     (mw, s, flips:(R,) int32)."""
-    if resolve_impl(impl, mw.is_cuda) == "ref":
-        return _ref.pbit_bitplane_sweep_ref(mw, s, rows, masks_w, signs6,
-                                            nz6, base, halos_w, lut)
-    return pbit_bitplane.pbit_bitplane_sweep(mw, s, rows, masks_w, signs6,
-                                             nz6, base, halos_w, lut)
+    with region("repro_torch.wrapper.pbit_bitplane_sweep"):
+        if resolve_impl(impl, mw.is_cuda) == "ref":
+            return _ref.pbit_bitplane_sweep_ref(mw, s, rows, masks_w, signs6,
+                                                nz6, base, halos_w, lut)
+        return pbit_bitplane.pbit_bitplane_sweep(mw, s, rows, masks_w,
+                                                 signs6, nz6, base, halos_w,
+                                                 lut)
 
 
 def bitplane_gather_count_op(mext_w, idx_c, signs_c, nz_c,

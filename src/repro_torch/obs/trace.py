@@ -18,6 +18,18 @@ timestamp, ``torch.cuda.synchronize`` on every CUDA device that holds
 one of its tensors (tensors on the CPU are ready when returned), so
 device work lands in the span that launched it.  The blocker is
 injectable.
+
+:func:`region` is the program's one switch for spans on the profiler's
+clock.  While a ``torch.profiler`` is recording it opens a named range
+(as ``record_function`` does, at a fraction of its cost): a host event on
+the clock of the profiler's device events, so every idle gap of the card
+can be set against the program's own spans.  Otherwise it returns one
+shared null context, which costs a check of the profiler's state.  The
+hot path names its layer boundaries with it (``repro_torch.entry.*``,
+``repro_torch.driver.*``, ``repro_torch.engine.exchange``,
+``repro_torch.wrapper.pbit_bitplane_sweep``), and every point where the
+host waits for the card ``repro_torch.sync.<cause>``; none of them
+synchronises.  :class:`Tracer` spans stay off the profiler's timeline.
 """
 
 from __future__ import annotations
@@ -33,7 +45,29 @@ from typing import Any, Callable, List, Optional
 
 import torch
 
-__all__ = ["Span", "Tracer", "device_sync"]
+__all__ = ["Span", "Tracer", "device_sync", "region"]
+
+# Both are torch's private symbols, resolved so that a torch without them
+# still imports: one without the check leaves the spans off, one without
+# the fast range falls back to ``record_function``.  Neither changes what
+# the program computes, only what a traced run shows and costs.
+_profiling = getattr(torch._C._autograd, "_profiler_enabled", None) or \
+    (lambda: False)
+# the profiler's cheapest named range, a C++ context manager: under the
+# profiler ``record_function`` costs several times as much a range and
+# gives each range a device-side copy besides
+_range = getattr(torch._C._profiler, "_RecordFunctionFast", None) or \
+    torch.profiler.record_function
+_NULL = contextlib.nullcontext()
+
+
+def region(name: str):
+    """A context naming a span ``name`` on the profiler's timeline: a
+    profiler range while a profiler records, else the shared null context.
+    It never synchronises."""
+    if _profiling():
+        return _range(name)
+    return _NULL
 
 
 def _cuda_devices(x, out: set) -> set:
