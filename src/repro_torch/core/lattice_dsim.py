@@ -60,10 +60,14 @@ from repro_torch.engines.base import (RecordedCursor, check_lanes,
                                       run_recorded_driver, spawn_seeds,
                                       trace_chunk)
 from repro_torch.kernels.ops import (brick_energy_op, brick_energy_words_op,
+                                     pbit_bitplane_sweep_cm_op,
                                      pbit_bitplane_sweep_op,
                                      pbit_sweep_int_op, pbit_sweep_op,
                                      pbit_update_int_op, pbit_update_op,
                                      resolve_impl)
+from repro_torch.kernels.pbit_bitplane import (color_layout,
+                                               from_color_major,
+                                               to_color_major)
 from repro_torch.obs.trace import region
 
 __all__ = ["LatticeDSIM", "LatticeState", "BitplaneLatticeState",
@@ -87,7 +91,9 @@ class LatticeState:
 class BitplaneLatticeState:
     """Multi-spin-coded state: bit b of word plane w of ``m`` is lane
     w*32+b's spin (1 = +1); LFSR columns and flip odometers keep an
-    explicit lane axis."""
+    explicit lane axis.  In the reference's shapes ``s`` is (R, X, Y, Z);
+    a lattice engine on the CUDA kernels holds it as (R, X*Y*Z) columns in
+    kernel #2's color-major order (``LatticeDSIM.color_major``)."""
 
     m: torch.Tensor       # (W, X, Y, Z) uint32 stacked spin word planes
     s: torch.Tensor       # (R, X, Y, Z) uint32 per-lane LFSR states
@@ -175,7 +181,12 @@ class LatticeDSIM:
 
     ``mesh`` and ``dim_axes`` (the mesh axis name, or None, of each of
     x, y, z) partition the lattice into bricks; every extent must divide
-    by its brick count.  ``bitpack_halos`` is the reference's 1-bit halo
+    by its brick count.  On the bit-plane path with the CUDA kernels
+    (``color_major``, fixed at construction) the state's LFSR states are
+    each brick's (R, n) columns in the kernel's color-major order, so its
+    sweeps permute nothing; they cross into the reference's shapes only at
+    :meth:`shard_state` / :meth:`init_state` and :meth:`global_state`.
+    ``bitpack_halos`` is the reference's 1-bit halo
     wire of the int8 and f32 paths: it ships :func:`pack_pm1` bytes over a
     process group, and in both forms makes the outer x and y faces of an
     axis of several bricks read -1 (``core/bricks.py``).  ``device`` is
@@ -195,7 +206,8 @@ class LatticeDSIM:
         if mesh is not None and dim_axes is None:
             raise ValueError("pass dim_axes when passing a mesh")
         self.device = resolve_device(device)
-        resolve_impl(impl, self.device.type == "cuda")
+        kernels = resolve_impl(impl, self.device.type == "cuda") == "cuda"
+        self.color_major = precision == "bitplane" and kernels
         # one brick is the whole problem and lives on the engine's device;
         # on a mesh the caller's problem stays where it was built (the
         # reference's ``self.p = prob``) and only the bricks held here move
@@ -467,10 +479,26 @@ class LatticeDSIM:
 
     # -- state layout ----------------------------------------------------------
 
+    def _columns(self, s: torch.Tensor, into: bool) -> torch.Tensor:
+        """On the color-major path, each brick's LFSR states ``s``
+        (brick-major on a mesh) gathered into (``into``) or out of its
+        color-major order (kernel #2's layout of its masks, built once and
+        cached by the wrapper), as new tensors; else ``s``."""
+        if not self.color_major:
+            return s
+        out = []
+        for x, b in zip(self._bricks_of(s).unbind(0), self._bricks):
+            order = color_layout(b.masks_w, b.signs6_w, b.nz6_w,
+                                 b.base_w).order
+            out.append(to_color_major(x, order) if into
+                       else from_color_major(x, order, self.brick))
+        return out[0] if self.mesh is None else _stack(out)
+
     def shard_state(self, st):
         """A state in the reference's global shapes, on any device -> the
         engine's: on its device, and on a mesh cut into the bricks held
-        here first, so only those move."""
+        here first, so only those move; on the color-major path its LFSR
+        columns are then gathered into each brick's order."""
         self._exchange_only_fn = None
         with region("repro_torch.entry.shard_state"):
             return self._place(st)
@@ -483,14 +511,15 @@ class LatticeDSIM:
         cls = BitplaneLatticeState if pack else type(st)
         if self.mesh is None:
             m = mv(st.m)
-            return cls(m=pack_lanes(m) if pack else m, s=mv(st.s),
+            return cls(m=pack_lanes(m) if pack else m,
+                       s=self._columns(mv(st.s), into=True),
                        halos=tuple(mv(h) for h in st.halos),
                        sweep=mv(st.sweep), flips=mv(st.flips))
         m = mv(self._cut(st.m))
         if pack:
             m = _stack([pack_lanes(x) for x in m.unbind(0)])
         return BrickState(
-            m=m, s=mv(self._cut(st.s)),
+            m=m, s=self._columns(mv(self._cut(st.s)), into=True),
             halos=tuple(mv(self._cut(h, d // 2))
                         for d, h in enumerate(st.halos)),
             sweep=mv(st.sweep), flips=mv(st.flips), nb=self.nb)
@@ -498,7 +527,11 @@ class LatticeDSIM:
     def global_state(self, st):
         """The engine's state in the reference's global shapes (a
         ``LatticeState`` or ``BitplaneLatticeState``); over a process
-        group every rank calls it and receives the whole lattice."""
+        group every rank calls it and receives the whole lattice.  On the
+        color-major path the LFSR columns are permuted back (new
+        tensors); the state passed in is unchanged."""
+        if self.color_major:
+            st = dataclasses.replace(st, s=self._columns(st.s, into=False))
         if self.mesh is None:
             return st
         if self.group is None:
@@ -554,9 +587,10 @@ class LatticeDSIM:
         ``sched`` (S,) or (S, R), f32 betas or int32 LUT rows.  Returns
         (m, s, flips)."""
         if self.precision == "bitplane":
-            return pbit_bitplane_sweep_op(
-                m, s, sched, b.masks_w, b.signs6_w, b.nz6_w, b.base_w, halos,
-                lut, impl=self.impl)
+            sweep = pbit_bitplane_sweep_cm_op if self.color_major \
+                else pbit_bitplane_sweep_op
+            return sweep(m, s, sched, b.masks_w, b.signs6_w, b.nz6_w,
+                         b.base_w, halos, lut, impl=self.impl)
         f32 = self.precision == "f32"
         if self.fused:
             if f32:

@@ -31,14 +31,26 @@
 //   its result is kept.
 // - Color-major layout.  In the natural (R, X, Y, Z) layout the sites of
 //   one checkerboard color are every other z, so a warp would fetch whole
-//   32 B sectors and use half of each.  The wrapper permutes the LFSR
-//   columns into color order (no-mask sites first, then color 0, 1, ...)
-//   on entry and back on exit, and gives the read-only planes (signs,
-//   nonzeros, base, the own-color mask word) in the same order, so every
-//   per-site read of a phase is contiguous.  The spin words stay in the
-//   natural layout (the neighbor reads need it) and are updated in place:
-//   the wrapper has checked that no site is in two phases' masks and no
-//   two neighbors in one, so a phase reads no word it writes.
+//   32 B sectors and use half of each.  The LFSR columns live in color
+//   order (no-mask sites first, then color 0, 1, ...): the lattice engine
+//   holds its bit-plane state so between calls, and only the natural-
+//   layout wrapper (the reference's API) permutes them in and out.  The
+//   read-only planes (signs, nonzeros, base, the own-color mask word) come
+//   in the same order, so every per-site read of a phase is contiguous.
+//   The spin words stay in the natural layout (the neighbor reads need
+//   it) and are updated in place: the wrapper has checked that no site is
+//   in two phases' masks and no two neighbors in one, so a phase reads no
+//   word it writes.
+// - Source and destination columns.  A phase loads each of its
+//   positions' states from s_src and stores them to s_dst.  The wrapper
+//   passes the call's input columns as the source in its first sweep and
+//   its output as both afterwards; each position lies in exactly one
+//   phase's range, so the first sweep writes every position of the output
+//   once, the input is never written, and no copy of the columns is made.
+//   A launch whose source is its destination runs the in-place instance
+//   (kInPlace), which reads and writes through s_dst alone, so both
+//   pointers keep __restrict__: without it every launch ran about 2.5%
+//   slower on an H100 (L=100, R=64).
 // - The per-lane LUT row base rows[t, lane] * lw is read once per block
 //   into shared memory; site indices are 32-bit (the wrappers keep
 //   X*Y*Z < 2^30); only the lane stride of the LFSR columns (lane * n,
@@ -69,10 +81,11 @@ __device__ __forceinline__ uint32_t steps(uint32_t s, int lo, int hi) {
   return s;
 }
 
-template <int kColors>
+template <int kColors, bool kInPlace>
 __global__ void __launch_bounds__(kBlock)
 bitplane_color_kernel(uint32_t* __restrict__ mw,
-                      uint32_t* __restrict__ s_cm,
+                      const uint32_t* __restrict__ s_src,
+                      uint32_t* __restrict__ s_dst,
                       const int32_t* __restrict__ perm,
                       const int32_t* __restrict__ rows_t,
                       const uint32_t* __restrict__ mask_cm,
@@ -98,7 +111,9 @@ bitplane_color_kernel(uint32_t* __restrict__ mw,
   const int p = lo + blockIdx.x * blockDim.x + threadIdx.x;
   uint32_t diff = 0;
   if (p < hi) {
-    uint32_t* sp = s_cm + static_cast<long long>(lane0) * n + p;
+    uint32_t* dp = s_dst + static_cast<long long>(lane0) * n + p;
+    const uint32_t* sp =
+        kInPlace ? dp : s_src + static_cast<long long>(lane0) * n + p;
     uint32_t st[32];
 #pragma unroll
     for (int b = 0; b < 32; ++b)
@@ -150,7 +165,7 @@ bitplane_color_kernel(uint32_t* __restrict__ mw,
     }
 #pragma unroll
     for (int b = 0; b < 32; ++b)
-      if (b < live) sp[static_cast<long long>(b) * n] = st[b];
+      if (b < live) dp[static_cast<long long>(b) * n] = st[b];
   }
 
   // per-lane flip counts: warp lane b ends up holding the count of bit b
@@ -171,28 +186,36 @@ bitplane_color_kernel(uint32_t* __restrict__ mw,
 // One color phase of the bit-plane sweep over the positions [lo, hi) of
 // the color-major order; positions below decide_lo (the no-mask class,
 // only in phase 0's range) advance n_colors steps and decide nothing.
-// mw (W, X, Y, Z) uint32 words, updated in place; s_cm (R, n) uint32
-// LFSR columns in color-major order, updated in place; perm (n,) int32
+// mw (W, X, Y, Z) uint32 words, updated in place; s_src and s_dst (R, n)
+// uint32 LFSR columns in color-major order, each position of the range
+// read from s_src and written to s_dst (they may be equal); perm (n,) int32
 // natural site of each position; rows_t (R,) int32 LUT rows of this
 // sweep; mask_cm (W, n) (each position's own-color mask word) and the
 // six (n,) sign_cm / nz_cm planes uint32 and base_cm (n,) int32, all in
 // color-major order; halos (W, plane) uint32; lut (n_rows, lw) uint32;
 // flips (R,) uint32 accumulates.  Returns cudaGetLastError().
 extern "C" int pbit_bitplane_color_phase(
-    void* mw, void* s_cm, const void* perm, const void* rows_t,
-    const void* mask_cm, const void* const* sign_cm,
+    void* mw, const void* s_src, void* s_dst, const void* perm,
+    const void* rows_t, const void* mask_cm, const void* const* sign_cm,
     const void* const* nz_cm, const void* base_cm, const void* const* halos,
     const void* lut, int lw, int W, int R, int X, int Y, int Z, int lo,
     int hi, int decide_lo, int color, int n_colors, void* flips,
     void* stream) {
   using namespace repro_torch;
   const dim3 grid(blocks_for(hi - lo), static_cast<unsigned>(W));
-  auto kern = n_colors == 2 ? bitplane_color_kernel<2>
-              : n_colors == 3 ? bitplane_color_kernel<3>
-                              : bitplane_color_kernel<0>;
+  const bool in_place = s_src == s_dst;
+  auto kern = n_colors == 2
+                  ? (in_place ? bitplane_color_kernel<2, true>
+                              : bitplane_color_kernel<2, false>)
+              : n_colors == 3
+                  ? (in_place ? bitplane_color_kernel<3, true>
+                              : bitplane_color_kernel<3, false>)
+                  : (in_place ? bitplane_color_kernel<0, true>
+                              : bitplane_color_kernel<0, false>);
   kern<<<grid, kBlock, 0, static_cast<cudaStream_t>(stream)>>>(
-      static_cast<uint32_t*>(mw), static_cast<uint32_t*>(s_cm),
-      static_cast<const int32_t*>(perm), static_cast<const int32_t*>(rows_t),
+      static_cast<uint32_t*>(mw), static_cast<const uint32_t*>(s_src),
+      static_cast<uint32_t*>(s_dst), static_cast<const int32_t*>(perm),
+      static_cast<const int32_t*>(rows_t),
       static_cast<const uint32_t*>(mask_cm),
       six<uint32_t>(sign_cm), six<uint32_t>(nz_cm),
       static_cast<const int32_t*>(base_cm), six<uint32_t>(halos),

@@ -7,10 +7,10 @@
            comparisons do).
   'auto' — 'cuda' for CUDA tensors, 'ref' for CPU tensors.
 
-``pbit_bitplane_sweep_op`` runs in the span
-``repro_torch.wrapper.pbit_bitplane_sweep`` (``obs.trace.region``), the
-key its kernel notes launches under (``_build.note_launch``), on either
-implementation.
+``pbit_bitplane_sweep_op`` and ``pbit_bitplane_sweep_cm_op`` run in the
+span ``repro_torch.wrapper.pbit_bitplane_sweep`` (``obs.trace.region``),
+the key their kernel notes launches under (``_build.note_launch``), on
+either implementation.
 """
 
 from __future__ import annotations
@@ -26,7 +26,8 @@ from . import _build, bitplane_gather, bitplane_phase, lattice_energy, \
 
 __all__ = ["IMPLS", "resolve_impl", "pbit_update_op", "pbit_sweep_op",
            "pbit_update_int_op", "pbit_sweep_int_op",
-           "pbit_bitplane_sweep_op", "bitplane_gather_count_op",
+           "pbit_bitplane_sweep_op", "pbit_bitplane_sweep_cm_op",
+           "bitplane_gather_count_op",
            "bitplane_phase_op", "bitplane_phase_apt_op",
            "brick_energy_op", "brick_energy_words_op"]
 
@@ -114,6 +115,27 @@ def pbit_bitplane_sweep_op(mw, s, rows, masks_w, signs6, nz6, base, halos_w,
         return pbit_bitplane.pbit_bitplane_sweep(mw, s, rows, masks_w,
                                                  signs6, nz6, base, halos_w,
                                                  lut)
+
+
+def pbit_bitplane_sweep_cm_op(mw, s_cm, rows, masks_w, signs6, nz6, base,
+                              halos_w, lut, impl: str = "auto"):
+    """:func:`pbit_bitplane_sweep_op` with the LFSR columns ``s_cm`` (R,
+    X*Y*Z) in the kernel's color-major order of the mask set
+    (``pbit_bitplane.color_layout``), returned in that order: the lattice
+    engine's form on CUDA, where nothing is permuted.  Port-internal.
+    "ref" permutes them out, runs the plain version and permutes them
+    back."""
+    with region("repro_torch.wrapper.pbit_bitplane_sweep"):
+        if resolve_impl(impl, mw.is_cuda) == "ref":
+            order = pbit_bitplane.color_layout(masks_w, signs6, nz6,
+                                               base).order
+            s = pbit_bitplane.from_color_major(s_cm, order, mw.shape[1:])
+            mw, s, flips = _ref.pbit_bitplane_sweep_ref(
+                mw, s, rows, masks_w, signs6, nz6, base, halos_w, lut)
+            return mw, pbit_bitplane.to_color_major(s, order), flips
+        return pbit_bitplane.pbit_bitplane_sweep_cm(mw, s_cm, rows, masks_w,
+                                                    signs6, nz6, base,
+                                                    halos_w, lut)
 
 
 def bitplane_gather_count_op(mext_w, idx_c, signs_c, nz_c,

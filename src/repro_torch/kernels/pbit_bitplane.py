@@ -8,10 +8,17 @@ grid per (sweep, color) phase.  On a CPU tensor it runs the plain version,
 
 The kernel works in a color-major layout (see the source's head note):
 :func:`color_layout` orders the sites by the phase whose mask holds them
-(sites in no mask first), once per mask set, and the wrapper permutes the
-LFSR columns into that order on entry and back on exit.  It needs a mask
-set in which no site is in two phases' masks and no two neighbors are in
-one (:func:`check_phase_masks`); every coloring of the repository is one.
+(sites in no mask first), once per mask set.  Its core,
+:func:`pbit_bitplane_sweep_cm`, takes and returns the per-lane LFSR
+columns as (R, n) in that order, and neither permutes nor copies them: the
+lattice engine holds its bit-plane state so on CUDA.  The reference's API,
+:func:`pbit_bitplane_sweep`, takes and returns them in the natural (R, X,
+Y, Z) layout and permutes them in and out around the core
+(:func:`to_color_major`, :func:`from_color_major`; every permutation is
+counted as ``_build.launch_counts["pbit_bitplane_sweep:lfsr_permute"]``).
+The kernel needs a mask set in which no site is in two phases' masks and
+no two neighbors are in one (:func:`check_phase_masks`); every coloring of
+the repository is one.
 """
 
 from __future__ import annotations
@@ -27,8 +34,9 @@ from repro_torch.core.packing import LANE_WIDTH
 from . import _build, ref as _ref
 from .pbit_lattice import device_rows, halo_shapes
 
-__all__ = ["pbit_bitplane_sweep", "site_phases", "check_phase_masks",
-           "ColorOrder", "color_order", "color_layout"]
+__all__ = ["pbit_bitplane_sweep", "pbit_bitplane_sweep_cm", "site_phases",
+           "check_phase_masks", "ColorOrder", "color_order", "color_layout",
+           "to_color_major", "from_color_major"]
 
 
 def site_phases(masks_w: torch.Tensor) -> torch.Tensor:
@@ -146,6 +154,24 @@ def color_layout(masks_w, signs6, nz6, base) -> _Layout:
     return lay
 
 
+def to_color_major(s: torch.Tensor, order: ColorOrder) -> torch.Tensor:
+    """LFSR columns (R, X, Y, Z) uint32 in the natural layout -> (R, n) in
+    ``order``: one gather, a new tensor."""
+    _build.launch_counts["pbit_bitplane_sweep:lfsr_permute"] += 1
+    R, X, Y, Z = (int(d) for d in s.shape)
+    return s.view(torch.int32).reshape(R, X * Y * Z).index_select(
+        1, order.perm).view(torch.uint32)
+
+
+def from_color_major(s_cm: torch.Tensor, order: ColorOrder,
+                     sites: Tuple[int, int, int]) -> torch.Tensor:
+    """Inverse of :func:`to_color_major`: (R, n) columns in ``order`` ->
+    (R, *sites) in the natural layout."""
+    _build.launch_counts["pbit_bitplane_sweep:lfsr_permute"] += 1
+    return s_cm.view(torch.int32).index_select(1, order.inv).view(
+        torch.uint32).reshape((int(s_cm.shape[0]),) + tuple(sites))
+
+
 def pbit_bitplane_sweep(mw, s, rows, masks_w, signs6, nz6, base, halos_w,
                         lut):
     """``len(rows)`` multi-spin-coded sweeps of one brick of W word planes.
@@ -157,11 +183,35 @@ def pbit_bitplane_sweep(mw, s, rows, masks_w, signs6, nz6, base, halos_w,
     (X, Y, Z) int32; halos_w six uint32 planes with a leading W axis; lut
     (n_rows, lw) uint32.  Returns (mw, s, flips) with (R,) int32 per-lane
     flips.  Inputs are not modified.  On CUDA the masks must pass
-    :func:`check_phase_masks` (else ``ValueError``).
+    :func:`check_phase_masks` (else ``ValueError``), and the LFSR columns
+    are permuted into the color-major order and back around the kernel.
     """
     if _build.plain_device(mw):
         return _ref.pbit_bitplane_sweep_ref(mw, s, rows, masks_w, signs6,
                                             nz6, base, halos_w, lut)
+    return _sweep(mw, s, rows, masks_w, signs6, nz6, base, halos_w, lut,
+                  color_major=False)
+
+
+def pbit_bitplane_sweep_cm(mw, s_cm, rows, masks_w, signs6, nz6, base,
+                           halos_w, lut):
+    """:func:`pbit_bitplane_sweep` on CUDA tensors with the LFSR columns
+    s_cm (R, X*Y*Z) uint32 in the color-major order of
+    ``color_layout(masks_w, signs6, nz6, base)``, returned in that order
+    in one new tensor: no permutation and no copy of the columns.  Inputs
+    are not modified."""
+    if _build.plain_device(mw):
+        raise ValueError("the color-major bit-plane sweep runs on CUDA "
+                         "tensors only; its plain version is "
+                         "ops.pbit_bitplane_sweep_cm_op(impl='ref')")
+    return _sweep(mw, s_cm, rows, masks_w, signs6, nz6, base, halos_w, lut,
+                  color_major=True)
+
+
+def _sweep(mw, s, rows, masks_w, signs6, nz6, base, halos_w, lut,
+           color_major: bool):
+    """The launches of both forms: ``s`` (R, n) color-major or (R, X, Y,
+    Z) natural, returned in the same form."""
     W, X, Y, Z = (int(d) for d in mw.shape)
     _build.check_sites(X, Y, Z)
     R = int(s.shape[0])
@@ -169,11 +219,13 @@ def pbit_bitplane_sweep(mw, s, rows, masks_w, signs6, nz6, base, halos_w,
         raise ValueError(f"{R} lanes need {(R + 31) // 32} word planes, "
                          f"got {W}")
     dev = mw.device
+    n = X * Y * Z
     n_colors = int(masks_w.shape[0])
     n_rows, lw = (int(d) for d in lut.shape)
     u32, i32 = torch.uint32, torch.int32
     _build.require("mw", mw, u32, (W, X, Y, Z), dev)
-    _build.require("s", s, u32, (R, X, Y, Z), dev)
+    _build.require("s", s, u32, (R, n) if color_major else (R, X, Y, Z),
+                   dev)
     _build.require("masks_w", masks_w, u32, (n_colors, W, X, Y, Z), dev)
     for d in range(6):
         _build.require(f"signs6[{d}]", signs6[d], u32, (X, Y, Z), dev)
@@ -191,8 +243,11 @@ def pbit_bitplane_sweep(mw, s, rows, masks_w, signs6, nz6, base, halos_w,
         return m_out, s.view(i32).clone().view(u32), flips
 
     lay = color_layout(masks_w, signs6, nz6, base)
-    n = X * Y * Z
-    s_cm = s.view(i32).reshape(R, n).index_select(1, lay.order.perm)
+    if color_major:
+        s_in, s_out = s, torch.empty_like(s)
+    else:
+        # the gathered columns are this call's own: updated in place
+        s_in = s_out = to_color_major(s, lay.order)
     b = lay.order.bounds
     lib = _build.library()
     signp, nzp = _build.ptrs6(lay.sign_cm), _build.ptrs6(lay.nz_cm)
@@ -201,13 +256,17 @@ def pbit_bitplane_sweep(mw, s, rows, masks_w, signs6, nz6, base, halos_w,
     with torch.cuda.device(dev):
         stream = _build.stream_of(mw)
         for t in range(S):
+            # sweep 0 reads the input and writes every position of the
+            # output once (each lies in one phase's range); later sweeps
+            # update the output in place
+            src = (s_in if t == 0 else s_out).data_ptr()
             for c in range(n_colors):
                 # phase 0 also steps the no-mask class [b[0], b[1])
                 lo = b[0] if c == 0 else b[c + 1]
                 if b[c + 2] == lo:
                     continue
                 err = lib.pbit_bitplane_color_phase(
-                    m_out.data_ptr(), s_cm.data_ptr(),
+                    m_out.data_ptr(), src, s_out.data_ptr(),
                     lay.order.perm.data_ptr(), rows.data_ptr() + 4 * t * R,
                     lay.mask_cm.data_ptr(), signp, nzp,
                     lay.base_cm.data_ptr(), halop, lut.data_ptr(), lw, W, R,
@@ -220,6 +279,6 @@ def pbit_bitplane_sweep(mw, s, rows, masks_w, signs6, nz6, base, halos_w,
                        Z=Z, n_colors=n_colors, S=S, masks=masks_w[:, 0],
                        lut_entries=n_rows * lw,
                        sched_entries=S if shared else S * R)
-    s_out = s_cm.index_select(1, lay.order.inv).view(u32).reshape(
-        R, X, Y, Z)
-    return m_out, s_out, flips
+    if color_major:
+        return m_out, s_out, flips
+    return m_out, from_color_major(s_out, lay.order, (X, Y, Z)), flips

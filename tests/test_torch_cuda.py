@@ -388,18 +388,35 @@ def test_cuda_f32_update_matches_plain(cuda, fmt, bx):
     (4, None, 33), (5, None, 64), (5, (6, 7), 33), (3, (4, 4), 64)])
 def test_cuda_bitplane_color_major_matches_plain(cuda, L, pad, R):
     """Even and odd L (two and three colors), padding sites in no mask,
-    R = 33 and 64 lanes, per-lane rows: bitwise the plain version."""
+    R = 33 and 64 lanes, per-lane rows: bitwise the plain version, the
+    LFSR columns permuted in and out once each; the color-major core on
+    the gathered columns gives the gathered result and leaves its input
+    as it was."""
+    from repro_torch.kernels.pbit_bitplane import (color_layout,
+                                                   pbit_bitplane_sweep_cm,
+                                                   to_color_major)
     shape = (L, L, L) if pad is None else (pad[0], pad[1], L)
     d = bitplane_inputs(17, shape, R, masks=lattice_masks(L, shape))
     rows = d["rng"].integers(0, 3, size=(3, R)).astype(np.int32)
     args = to(cuda, bp_args(d, rows, T))
-    before = _build.launch_counts["pbit_bitplane_sweep"]
+    before = dict(_build.launch_counts)
     got = pbit_bitplane_sweep(*args)
     n_colors = d["masks_w"].shape[0]
-    assert _build.launch_counts["pbit_bitplane_sweep"] == before + 3 * \
-        n_colors
+    assert _build.launch_counts["pbit_bitplane_sweep"] == \
+        before["pbit_bitplane_sweep"] + 3 * n_colors
+    assert _build.launch_counts["pbit_bitplane_sweep:lfsr_permute"] == \
+        before["pbit_bitplane_sweep:lfsr_permute"] + 2
     assert_bitwise(got, t_ref.pbit_bitplane_sweep_ref(*args))
     assert int(N(got[2]).sum()) > 0
+    order = color_layout(*args[3:7]).order
+    s_cm = to_color_major(args[1], order)
+    kept = s_cm.clone()
+    before = dict(_build.launch_counts)
+    cm = pbit_bitplane_sweep_cm(args[0], s_cm, *args[2:])
+    assert _build.launch_counts["pbit_bitplane_sweep:lfsr_permute"] == \
+        before["pbit_bitplane_sweep:lfsr_permute"]
+    assert_bitwise((cm[0], cm[1], cm[2], s_cm),
+                   (got[0], to_color_major(got[1], order), got[2], kept))
 
 
 @pytest.mark.cuda
@@ -774,12 +791,13 @@ def test_cuda_mesh_equals_plain(cuda, monkeypatch, prec, R, shape, fused):
     monkeypatch.setattr(pbit_bitplane, "_build_layout",
                         lambda *a: builds.append(1) or real(*a))
     L = 10 if prec == "f32" else 8
-    runs = {}
+    runs, engines = {}, {}
     for impl in ("ref", "auto"):
         h = make_engine("lattice", L=L, seed=1, replicas=R, precision=prec,
                         fused=fused, impl=impl,
                         mesh=make_mesh(shape, ("x", "y", "z")),
                         dim_axes=("x", "y", "z"), device=cuda)
+        engines[impl] = h.eng
         st0 = h.init_state(seed=2)
         _build.reset_launch_counts()
         runs[impl] = h.run_recorded(st0, ea_schedule(12), [4, 12],
@@ -794,6 +812,11 @@ def test_cuda_mesh_equals_plain(cuda, monkeypatch, prec, R, shape, fused):
             assert _build.launch_counts["brick_energy"] == 2 * K
             assert len(builds) == (K if prec == "bitplane" else 0)
     (sa, ra), (sb, rb) = runs["ref"], runs["auto"]
+    if prec == "bitplane":
+        # the card's engine holds its LFSR columns in each brick's
+        # color-major order: both states in the reference's shapes
+        sa, sb = (engines[i].global_state(x)
+                  for i, x in (("ref", sa), ("auto", sb)))
     if prec == "f32":
         st = f32_mesh_steps(h, st0, ea_schedule(12).beta_array(), 4)
         for x, y in zip((st.m, st.s, st.flips) + st.halos,
@@ -806,6 +829,58 @@ def test_cuda_mesh_equals_plain(cuda, monkeypatch, prec, R, shape, fused):
         for x, y in zip((sa.m, sa.s, sa.flips) + sa.halos,
                         (sb.m, sb.s, sb.flips) + sb.halos):
             assert_bitwise((x,), (y,))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("mesh", [None, (2, 1, 1)])
+@pytest.mark.parametrize("R", [64, 40])
+def test_cuda_bitplane_engine_holds_color_major_columns(cuda, R, mesh):
+    """The bit-plane lattice engine on the CUDA kernels holds each brick's
+    LFSR columns as (R, n) in its color-major order and permutes none of
+    them while it runs chunks; over 64 sweeps (``sync_every=8``, several
+    chunks, three record points) it equals impl="ref" on the same card
+    bitwise through global_state
+    (words, columns, halos, flips, sweep, record-point energies), on one
+    brick and on a (2,1,1) mesh in one process; a state passed into
+    ``_chunk`` is unchanged by it."""
+    from repro_torch import make_engine
+    from repro_torch.core.annealing import (ea_schedule, beta_row_indices,
+                                            beta_table)
+    from repro_torch.core.mesh import make_mesh
+    key = "pbit_bitplane_sweep:lfsr_permute"
+    kw = dict(L=8, seed=1, replicas=R, precision="bitplane", device=cuda)
+    if mesh is not None:
+        kw.update(mesh=make_mesh(mesh, ("x", "y", "z")),
+                  dim_axes=("x", "y", "z"))
+    got = {}
+    for impl in ("ref", "auto"):
+        h = make_engine("lattice", impl=impl, **kw)
+        st = h.init_state(seed=2)
+        before = _build.launch_counts[key]
+        st, rec = h.run_recorded(st, ea_schedule(64), [16, 48, 64],
+                                 sync_every=8)
+        assert _build.launch_counts[key] == before
+        assert h.eng.color_major == (impl == "auto")
+        got[impl] = (h.eng.global_state(st), rec)
+    K = 1 if mesh is None else int(np.prod(mesh))
+    assert tuple(st.s.shape) == ((R, 8 ** 3) if mesh is None
+                                 else (K, R, 8 ** 3 // K))
+    (sa, ra), (sb, rb) = got["ref"], got["auto"]
+    for x, y in zip((sa.m, sa.s, sa.flips, sa.sweep) + sa.halos,
+                    (sb.m, sb.s, sb.flips, sb.sweep) + sb.halos):
+        assert_bitwise((y,), (x,))
+    assert torch.equal(ra.energies, rb.energies) and ra.flips == rb.flips
+    # one chunk from a live state: its input is left as it was
+    eng = h.eng
+    betas = np.full(16, 3.0, np.float32)
+    table = beta_table(betas)
+    rows = beta_row_indices(betas, table).reshape(2, 8)
+    kept = [x.clone() for x in (st.m, st.s, st.flips) + st.halos]
+    before = _build.launch_counts[key]
+    nxt = eng._chunk(st, rows, 2, 8, eng._lut_for(table))
+    assert _build.launch_counts[key] == before
+    assert_bitwise((st.m, st.s, st.flips) + st.halos, kept)
+    assert not torch.equal(nxt.s.view(torch.int32), st.s.view(torch.int32))
 
 
 # -- the general-graph engines on the card against device="cpu" -----------------
