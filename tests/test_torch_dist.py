@@ -274,7 +274,7 @@ def ranks(tmp_path_factory):
         for p in procs:
             if p.poll() is None:
                 p.kill()
-                p.wait()
+                p.wait(timeout=120)
     for p, log in zip(procs, logs):
         assert p.returncode == 0, log[-3000:]
     return out

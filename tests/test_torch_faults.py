@@ -241,7 +241,8 @@ def test_prewarm_async_failure_surfaced_in_stats(problem):
         raise RuntimeError("prewarm build exploded")
 
     t = pool.prewarm_async(("pk",), bad)
-    t.join()
+    t.join(timeout=120)
+    assert not t.is_alive()
     assert t.error is not None
     s = pool.stats()
     assert s["failed_builds"] == 1
@@ -251,7 +252,8 @@ def test_prewarm_async_failure_surfaced_in_stats(problem):
     plan = FaultPlan([FaultRule(site="build", kind="permanent", times=2)])
     srv = _server(problem, fault_plan=plan)
     th = srv.prewarm("pa", engine="gibbs", replicas=2, sweeps=SW)
-    th.join()
+    th.join(timeout=120)
+    assert not th.is_alive()
     ps = srv.stats()["pool"]
     assert ps["failed_builds"] >= 1 and "injected" in ps["last_error"]
     with pytest.raises(PermanentFault):

@@ -77,9 +77,10 @@ def test_registry_concurrent_writers_exact_totals():
     for t in ts:
         t.start()
     for t in ts:
-        t.join()
+        t.join(timeout=120)
     stop.set()
-    rt.join()
+    rt.join(timeout=120)
+    assert not any(t.is_alive() for t in (*ts, rt))
     assert not reader_errors
     assert c.value == writers * per_writer       # no-label child exact
     total_labeled = sum(child.value for key, child in c.series()

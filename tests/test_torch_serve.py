@@ -337,7 +337,8 @@ def test_pool_single_flight_builds():
     for t in ts:
         t.start()
     for t in ts:
-        t.join()
+        t.join(timeout=120)
+    assert not any(t.is_alive() for t in ts)
     assert len(built) == 1                   # concurrent gets build once
     assert len({id(h) for h, _ in outs}) == 1
     assert pool.stats()["hits"] == 3 and pool.stats()["misses"] == 1
@@ -363,8 +364,9 @@ def test_pool_waiter_on_inflight_build_not_a_hit():
     t2.start()
     _time.sleep(0.05)
     gate.set()
-    t1.join()
-    t2.join()
+    t1.join(timeout=120)
+    t2.join(timeout=120)
+    assert not t1.is_alive() and not t2.is_alive()
     assert out["r"][1] is False              # waited -> not a warm hit
     _, hit = pool.get(("k",), slow_builder)  # genuinely cached now
     assert hit is True
@@ -405,8 +407,9 @@ def test_threaded_serving_concurrent_submitters(problems):
     for t in ts:
         t.start()
     for t in ts:
-        t.join()
+        t.join(timeout=400)
     srv.stop()
+    assert not any(t.is_alive() for t in ts)
     assert not errs
     assert len(ids) == 8
     g_n = ea3d(L_A, seed=1, device="cpu").n

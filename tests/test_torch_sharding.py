@@ -436,7 +436,7 @@ def runs(tmp_path_factory):
         for p in procs:
             if p.poll() is None:
                 p.kill()
-                p.wait()
+                p.wait(timeout=120)
     for p, log in zip(procs, logs):
         assert p.returncode == 0, log[-3000:]
     ranks = [dict(np.load(out / f"rank{r}.npz")) for r in range(4)]

@@ -324,6 +324,23 @@ def test_train_steps_from_carried_state_match_reference(name, int8):
     assert d < 1e-3
 
 
+
+@pytest.fixture
+def every_cpu_thread():
+    """torch at its own default, a thread per CPU, for one test: the
+    suite's workers run on their share of the CPUs (``conftest.py``), and
+    how a parallel reduction splits its input, so its rounding, depends on
+    the thread count."""
+    share = torch.get_num_threads()
+    torch.set_num_threads(len(os.sched_getaffinity(0)))
+    yield
+    torch.set_num_threads(share)
+
+
+def test_train_steps_match_reference_on_every_cpu_thread(every_cpu_thread):
+    assert torch.get_num_threads() == len(os.sched_getaffinity(0))
+    test_train_steps_from_carried_state_match_reference("deepseek-7b", False)
+
 def grads_of(cfg, params, batch):
     model = build_model(cfg, CPU)
     leaves = [p.detach().requires_grad_() for p in tree_leaves(params)]
