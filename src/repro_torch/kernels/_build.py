@@ -60,7 +60,14 @@ launch_counts = {"pbit_brick_sweep_int": 0, "pbit_bitplane_sweep": 0,
                  "bitplane_gather_count:phase": 0,
                  # no launch: each permutation of a brick's bit-plane LFSR
                  # columns into or out of #2's colour-major order
-                 "pbit_bitplane_sweep:lfsr_permute": 0}
+                 "pbit_bitplane_sweep:lfsr_permute": 0,
+                 # #2's launches by where they read the LUT: a table
+                 # staged in shared memory, or global memory (wide rows)
+                 "pbit_bitplane_sweep:lut_shared": 0,
+                 "pbit_bitplane_sweep:lut_global": 0,
+                 # #2's launches whose grid splits the word planes (a
+                 # phase too small to fill the card)
+                 "pbit_bitplane_sweep:plane_groups": 0}
 
 
 def reset_launch_counts():
@@ -171,12 +178,12 @@ _SIGNATURES = {
     "pbit_sweep_int_persistent": (_P, _P, _P, _P, _P, _P, _P, _P, _P6, _P6,
                                   _P, _I, _I, _I, _I, _I, _I, _I, _I, _I,
                                   _I, _I, _P, _P, _P),
-    # mw, s_src, s_dst, perm, rows_t, mask_cm, sign_cm, nz_cm, base_cm,
-    # halos, lut, lw, W, R, X, Y, Z, lo, hi, decide_lo, color, n_colors,
+    # mw, s_src, s_dst, perm, rows_t, mask_cm, packed, halos, lut, lw, W,
+    # R, X, Y, Z, lo, hi, decide_lo, color, n_colors, idx_lo, span, groups,
     # flips, stream
-    "pbit_bitplane_color_phase": (_P, _P, _P, _P, _P, _P, _P6, _P6, _P, _P6,
-                                  _P, _I, _I, _I, _I, _I, _I, _I, _I, _I,
-                                  _I, _I, _P, _P),
+    "pbit_bitplane_color_phase": (_P, _P, _P, _P, _P, _P, _P, _P6, _P, _I,
+                                  _I, _I, _I, _I, _I, _I, _I, _I, _I, _I,
+                                  _I, _I, _I, _P, _P),
     # m, active, h, w6, halos, R, X, Y, Z, width, blocks, partials, out,
     # stream
     "brick_energy": (_P, _P, _P, _P6, _P6, _I, _I, _I, _I, _I, _I, _P, _P,

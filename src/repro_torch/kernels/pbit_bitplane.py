@@ -2,9 +2,10 @@
 
 Port of ``repro.kernels.pbit_bitplane.pbit_bitplane_sweep`` and the word
 loop of ``repro.kernels.ops.pbit_bitplane_sweep_op``: word planes are
-independent replica sets, so the W planes are the y axis of one launch
-grid per (sweep, color) phase.  On a CPU tensor it runs the plain version,
-``ref.pbit_bitplane_sweep_ref``.
+independent replica sets, so one launch per (sweep, color) phase takes
+them all, each thread its site's W planes in turn.  On a CPU tensor it
+runs the plain version, ``ref.pbit_bitplane_sweep_ref``; a phase too small
+to fill the card splits the planes into groups (:func:`plane_groups`).
 
 The kernel works in a color-major layout (see the source's head note):
 :func:`color_layout` orders the sites by the phase whose mask holds them
@@ -18,7 +19,13 @@ Y, Z) layout and permutes them in and out around the core
 counted as ``_build.launch_counts["pbit_bitplane_sweep:lfsr_permute"]``).
 The kernel needs a mask set in which no site is in two phases' masks and
 no two neighbors are in one (:func:`check_phase_masks`); every coloring of
-the repository is one.
+the repository is one.  It reads each site's signs, nonzero masks and base
+from one packed word (:func:`pack_planes`), so it takes sign and nonzero
+planes of all-ones or zero words, as ``core.pbit.bitplane_planes`` makes
+them.  Each launch is also counted by where it reads its LUT thresholds:
+``pbit_bitplane_sweep:lut_shared`` (a table staged in shared memory) or
+``:lut_global``, and those whose grid splits the planes as
+``:plane_groups``.
 """
 
 from __future__ import annotations
@@ -36,7 +43,8 @@ from .pbit_lattice import device_rows, halo_shapes
 
 __all__ = ["pbit_bitplane_sweep", "pbit_bitplane_sweep_cm", "site_phases",
            "check_phase_masks", "ColorOrder", "color_order", "color_layout",
-           "to_color_major", "from_color_major"]
+           "pack_planes", "plane_groups", "to_color_major",
+           "from_color_major"]
 
 
 def site_phases(masks_w: torch.Tensor) -> torch.Tensor:
@@ -99,19 +107,62 @@ def color_order(masks_w: torch.Tensor) -> ColorOrder:
                       bounds=tuple(bounds), phase=phase[perm])
 
 
+# The packed read-only word of a site (the kernel's kBaseShift): bit d the
+# sign of direction d, bit 6 + d its nonzero mask, bits 12-31 base as a
+# signed 20-bit integer, saturated.  Saturation moves no LUT index
+# clamp(base + 2c, 0, lw - 1) while lw <= BASE_LIMIT, which the wrapper
+# checks.
+BASE_SHIFT = 12
+BASE_LIMIT = 1 << 19
+
+# The most shared memory a block of the kernel gives its LUT table (the
+# entries each lane can reach, 4 B each); above it the launch gathers its
+# thresholds from global memory.
+LUT_SMEM_BYTES = 16384
+
+# Threads per block of the kernel (kBlock, csrc/common.cuh), and the blocks
+# an SM below which a phase splits its word planes over the grid.
+_THREADS = 256
+SPLIT_BLOCKS_PER_SM = 2
+
+
+def plane_groups(sites: int, W: int, sms: int) -> int:
+    """The groups a phase of ``sites`` positions splits its W word planes
+    into, on a card of ``sms`` SMs: 1 (each thread its site's W planes)
+    where the phase fills ``SPLIT_BLOCKS_PER_SM`` blocks an SM, else as
+    many as bring it nearest that, at most W, each of ceil(W / groups)
+    planes and none empty."""
+    blocks = -(-int(sites) // _THREADS)
+    g = max(1, min(W, SPLIT_BLOCKS_PER_SM * sms // max(blocks, 1)))
+    per = -(-W // g)
+    return -(-W // per)
+
+
+def pack_planes(signs6, nz6, base) -> torch.Tensor:
+    """(X*Y*Z,) int32: each site's packed word in the natural order.
+    Raises ``ValueError`` unless every sign and nonzero word is all-ones or
+    zero (the kernel keeps one bit of each)."""
+    bits = torch.zeros(base.numel(), dtype=torch.int64, device=base.device)
+    for d, plane in enumerate((*signs6, *nz6)):
+        w = plane.view(torch.int32).reshape(-1)
+        if not bool(((w == 0) | (w == -1)).all()):
+            raise ValueError("bit-plane sweep on CUDA: the sign and nonzero "
+                             "planes must hold all-ones or zero words, one "
+                             "per site and direction (core.pbit."
+                             "bitplane_planes)")
+        bits |= (w != 0).to(torch.int64) << d
+    b = base.reshape(-1).to(torch.int64).clamp(-BASE_LIMIT, BASE_LIMIT - 1)
+    return ((b << BASE_SHIFT) | bits).to(torch.int32)
+
+
 @dataclasses.dataclass(frozen=True)
 class _Layout:
     order: ColorOrder
     mask_cm: torch.Tensor     # (W, n) uint32: each position's own mask
-    sign_cm: tuple            # six (n,) uint32
-    nz_cm: tuple              # six (n,) uint32
-    base_cm: torch.Tensor     # (n,) int32
-
-
-def _permuted(planes, perm) -> tuple:
-    """Six (X, Y, Z) uint32 planes gathered into color-major order."""
-    return tuple(p.view(torch.int32).reshape(-1).index_select(0, perm)
-                 .view(torch.uint32) for p in planes)
+    packed: torch.Tensor      # (n,) uint32: pack_planes in color order
+    # the LUT indices base + 2c can reach: [idx_lo, idx_hi]
+    idx_lo: int
+    idx_hi: int
 
 
 def _build_layout(masks_w, signs6, nz6, base) -> _Layout:
@@ -122,11 +173,15 @@ def _build_layout(masks_w, signs6, nz6, base) -> _Layout:
     words = masks_w.view(torch.int32).reshape(nc, W, -1)
     own = words[order.phase.clamp(min=0), :, perm.long()]   # (n, W)
     own = torch.where((order.phase >= 0)[:, None], own, 0)
+    packed = pack_planes(signs6, nz6, base)
+    wide = packed.to(torch.int64)
+    bs = wide >> BASE_SHIFT
+    nnz = sum((wide >> (6 + d)) & 1 for d in range(6))
+    lo_hi = torch.stack([bs.min(), (bs + 2 * nnz).max()]).tolist()
     return _Layout(order=order,
                    mask_cm=own.t().contiguous().view(torch.uint32),
-                   sign_cm=_permuted(signs6, perm),
-                   nz_cm=_permuted(nz6, perm),
-                   base_cm=base.reshape(-1).index_select(0, perm))
+                   packed=packed.index_select(0, perm).view(torch.uint32),
+                   idx_lo=int(lo_hi[0]), idx_hi=int(lo_hi[1]))
 
 
 # Layouts by mask set, each valid while its masks and planes are the same
@@ -242,6 +297,10 @@ def _sweep(mw, s, rows, masks_w, signs6, nz6, base, halos_w, lut,
     if S * n_colors == 0:
         return m_out, s.view(i32).clone().view(u32), flips
 
+    if lw > BASE_LIMIT:
+        raise ValueError(f"bit-plane sweep on CUDA: LUT rows of {lw} "
+                         f"entries; the kernel packs base into 20 bits and "
+                         f"takes rows of at most {BASE_LIMIT}")
     lay = color_layout(masks_w, signs6, nz6, base)
     if color_major:
         s_in, s_out = s, torch.empty_like(s)
@@ -250,8 +309,14 @@ def _sweep(mw, s, rows, masks_w, signs6, nz6, base, halos_w, lut,
         s_in = s_out = to_color_major(s, lay.order)
     b = lay.order.bounds
     lib = _build.library()
-    signp, nzp = _build.ptrs6(lay.sign_cm), _build.ptrs6(lay.nz_cm)
     halop = _build.ptrs6(halos_w)
+    # the LUT entries each lane can reach, staged in shared memory where
+    # they fit its budget
+    span = lay.idx_hi - lay.idx_lo + 1
+    span = span if 4 * W * LANE_WIDTH * span <= LUT_SMEM_BYTES else 0
+    lut_key = "pbit_bitplane_sweep:" + ("lut_shared" if span else
+                                        "lut_global")
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
     launched = 0
     with torch.cuda.device(dev):
         stream = _build.stream_of(mw)
@@ -265,15 +330,20 @@ def _sweep(mw, s, rows, masks_w, signs6, nz6, base, halos_w, lut,
                 lo = b[0] if c == 0 else b[c + 1]
                 if b[c + 2] == lo:
                     continue
+                groups = plane_groups(b[c + 2] - lo, W, sms)
                 err = lib.pbit_bitplane_color_phase(
                     m_out.data_ptr(), src, s_out.data_ptr(),
                     lay.order.perm.data_ptr(), rows.data_ptr() + 4 * t * R,
-                    lay.mask_cm.data_ptr(), signp, nzp,
-                    lay.base_cm.data_ptr(), halop, lut.data_ptr(), lw, W, R,
-                    X, Y, Z, lo, b[c + 2], b[c + 1], c, n_colors,
-                    flips.data_ptr(), stream)
+                    lay.mask_cm.data_ptr(), lay.packed.data_ptr(), halop,
+                    lut.data_ptr(), lw, W, R, X, Y, Z, lo, b[c + 2], b[c + 1],
+                    c, n_colors, lay.idx_lo, span, groups, flips.data_ptr(),
+                    stream)
                 _build.check_launch("pbit_bitplane_color_phase", err)
                 _build.launch_counts["pbit_bitplane_sweep"] += 1
+                _build.launch_counts[lut_key] += 1
+                if groups > 1:
+                    _build.launch_counts["pbit_bitplane_sweep:plane_groups"] \
+                        += 1
                 launched += 1
     _build.note_launch("pbit_bitplane_sweep", launched, W=W, R=R, X=X, Y=Y,
                        Z=Z, n_colors=n_colors, S=S, masks=masks_w[:, 0],

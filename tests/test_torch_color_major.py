@@ -74,6 +74,85 @@ def test_columns_round_trip_through_a_color_order(L, shape):
     assert _build.launch_counts[PERMUTE] == before + 2
 
 
+def unpack(packed: torch.Tensor):
+    """The kernel's packed read-only words (n,) -> six sign and six
+    nonzero words (all-ones or zero) and base, as int64."""
+    w = packed.view(torch.int32).to(torch.int64)
+    bit = lambda k: ((w >> k) & 1) * 0xFFFFFFFF  # noqa: E731
+    return ([bit(d) for d in range(6)], [bit(6 + d) for d in range(6)],
+            w >> 12)
+
+
+@pytest.mark.parametrize("L,shape", [(4, (4, 4, 4)), (5, (5, 5, 5)),
+                                     (3, (4, 4, 3))],
+                         ids=["2colors", "3colors", "padded"])
+def test_packed_plane_unpacks_to_signs_nonzeros_and_base(L, shape):
+    """The layout's packed word of position p holds the signs, nonzero
+    masks and base of natural site perm[p], bit for bit; its LUT index
+    range holds every base + 2c the site's nonzero count allows; its own
+    mask words are each position's word of its own phase (zero in the
+    no-mask class)."""
+    d = bitplane_inputs(5, shape, 40, masks=lattice_masks(L, shape))
+    signs6, nz6 = tuple(map(T, d["signs6"])), tuple(map(T, d["nz6"]))
+    lay = color_layout(T(d["masks_w"]), signs6, nz6, T(d["base"]))
+    perm = lay.order.perm.long()
+    assert lay.packed.dtype == torch.uint32
+    assert tuple(lay.packed.shape) == (int(np.prod(shape)),)
+    signs, nzs, base = unpack(lay.packed)
+    for got, want in zip(signs + nzs, signs6 + nz6):
+        assert torch.equal(got, i32(want).flatten()[perm].to(torch.int64)
+                           & 0xFFFFFFFF)
+    assert torch.equal(base, T(d["base"]).flatten()[perm].to(torch.int64))
+    nnz = sum(x != 0 for x in nzs)
+    assert lay.idx_lo == int(base.min())
+    assert lay.idx_hi == int((base + 2 * nnz).max())
+    words = i32(T(d["masks_w"])).flatten(2)                # (nc, W, n)
+    phase = lay.order.phase
+    want = words[phase.clamp(min=0), :, perm].t()
+    want = torch.where(phase >= 0, want, 0)
+    assert torch.equal(i32(lay.mask_cm), want)
+
+
+def test_packed_plane_saturates_base_and_refuses_mixed_words():
+    """Base saturates to 20 signed bits (no clamped LUT index moves while
+    rows hold at most 2^19 entries); a sign word that is neither all-ones
+    nor zero cannot be packed."""
+    from repro_torch.kernels.pbit_bitplane import pack_planes
+    d = bitplane_inputs(6, (3, 3, 3), 8)
+    signs6, nz6 = tuple(map(T, d["signs6"])), tuple(map(T, d["nz6"]))
+    base = T(d["base"]).clone()
+    base.view(-1)[:3] = torch.tensor([1 << 25, -(1 << 25), (1 << 19) - 1],
+                                     dtype=torch.int32)
+    _, _, got = unpack(pack_planes(signs6, nz6, base).view(torch.uint32))
+    want = base.flatten().to(torch.int64).clamp(-(1 << 19), (1 << 19) - 1)
+    assert torch.equal(got, want)
+    mixed = list(signs6)
+    mixed[2] = mixed[2].clone()
+    mixed[2].view(torch.int32).view(-1)[4] = 0x00FF
+    with pytest.raises(ValueError, match="all-ones or zero"):
+        pack_planes(tuple(mixed), nz6, base)
+
+
+@pytest.mark.parametrize("sites,W,want", [
+    (500_000, 2, 1), (62_500, 2, 1), (62_500, 8, 1), (33_792, 8, 2),
+    (16_384, 4, 4), (16_384, 8, 4), (2_048, 8, 8), (135, 3, 3),
+    (135, 1, 1), (25_600, 3, 2), (16_896, 5, 3)],
+    ids=["L100", "mesh_brick", "mesh_brick_W8", "one_block_an_sm",
+         "L32_W4", "L32_W8", "L16_W8", "tiny_W3", "tiny_W1", "W3_in_2",
+         "W5_in_3"])
+def test_plane_groups_fill_the_card_and_leave_no_group_empty(sites, W,
+                                                             want):
+    """A phase of at least two 256-thread blocks an SM (132 SMs) keeps each
+    site's planes in one thread; a smaller one splits them into at most W
+    groups of equal size but the last, none empty, so that it fills the
+    card as far as the planes allow."""
+    from repro_torch.kernels.pbit_bitplane import plane_groups
+    g = plane_groups(sites, W, 132)
+    assert g == want
+    per = -(-W // g)
+    assert (g - 1) * per < W <= g * per
+
+
 def test_color_major_op_plain_path_is_the_natural_op():
     """The color-major op's plain path == the natural op on the gathered
     columns, and leaves its input as it was."""

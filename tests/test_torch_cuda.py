@@ -154,15 +154,20 @@ def lattice_masks(L, shape):
     return masks
 
 
-def bitplane_inputs(seed, shape, R, n_betas=3, masks=None):
+def bitplane_inputs(seed, shape, R, n_betas=3, masks=None, fields=False,
+                    betas=None):
     """One +-J-style brick in word layout (lane-masked color masks, random
     word halos) plus its int8 unpacked twin; ``masks`` (n_colors, *shape)
-    int8 replaces the checkerboard."""
+    int8 replaces the checkerboard; ``fields`` draws fields up to 120
+    times the couplings (a LUT row of 267 entries); ``betas`` replaces the
+    LUT's n_betas levels."""
     d = int_inputs(seed, shape, R=R, n_betas=n_betas)
     if masks is not None:
         d["masks"] = masks
     rng = d["rng"]
     h = rng.choice([-1.0, 0.0, 1.0], size=shape).astype(np.float32)
+    if fields:
+        h = rng.integers(-120, 121, size=shape).astype(np.float32)
     w6 = [rng.choice([-1.0, 0.0, 1.0], size=shape).astype(np.float32)
           for _ in range(6)]
     h_q, w6_q, scale = t_pbit.quantize_couplings(h, w6)
@@ -178,7 +183,8 @@ def bitplane_inputs(seed, shape, R, n_betas=3, masks=None):
     mw = N(t_pack.pack_lanes(T(d["m"])))
     halos_w = tuple(rng.integers(0, 2 ** 32, size=(W,) + hh.shape[1:],
                                  dtype=np.uint32) for hh in d["halos"])
-    lut = t_pbit.threshold_lut(np.linspace(0.4, 4.0, n_betas), scale, f_max)
+    lut = t_pbit.threshold_lut(np.linspace(0.4, 4.0, n_betas)
+                               if betas is None else betas, scale, f_max)
     return dict(mw=mw, s=d["s"], masks_w=masks_w, signs6=signs6, nz6=nz6,
                 base=base, halos_w=halos_w, lut=lut, rng=rng, h_q=h_q,
                 w6_q=w6_q, masks=d["masks"], W=W)
@@ -311,13 +317,66 @@ def test_cuda_int_sweep_matches_plain(cuda, per_replica, multibit):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("R", [20, 32, 64])
-def test_cuda_bitplane_sweep_matches_plain(cuda, R):
-    d = bitplane_inputs(12, (9, 6, 5), R)
-    rows = d["rng"].integers(0, 3, size=(3, R)).astype(np.int32)
-    args = to(cuda, bp_args(d, rows, T))
-    assert_bitwise(pbit_bitplane_sweep(*args),
-                   t_ref.pbit_bitplane_sweep_ref(*args))
+@pytest.mark.parametrize("R,case", [
+    pytest.param(20, None, id="20"), pytest.param(32, None, id="32"),
+    pytest.param(64, None, id="64"), pytest.param(1, None, id="R1"),
+    pytest.param(31, None, id="R31"), pytest.param(96, None, id="R96"),
+    pytest.param(256, None, id="R256"),
+    pytest.param(64, "distinct_rows", id="distinct_rows"),
+    pytest.param(33, "fields", id="fields_lut_global"),
+    pytest.param(40, "small", id="brick_under_one_block"),
+    pytest.param(64, "large_beta", id="thresholds_0_and_2_24"),
+    pytest.param(64, "above_2_31", id="thresholds_above_2_31"),
+    pytest.param(33, "fields_above_2_31", id="fields_thresholds_above_2_31"),
+    pytest.param(64, "large", id="large_brick_R64"),
+    pytest.param(33, "large", id="large_brick_R33"),
+    pytest.param(40, "lane_masks", id="lane_subset_masks")])
+def test_cuda_bitplane_sweep_matches_plain(cuda, R, case):
+    """Per-lane rows, bitwise the plain version: R of one, a partial,
+    three and eight word planes; every lane its own LUT row; fields wide
+    enough that the LUT table passes the shared-memory budget (the global
+    gather); a brick of 12 sites; a LUT row of thresholds 0 and 2^24
+    (beta 10^4); LUT rows with thresholds above 2^31, which no draw
+    meets, staged and gathered; a brick of 331,776 sites (649 blocks a
+    phase);
+    masks that hold a random subset of the lanes at each site (own mask
+    words that differ between sites, and sites in no mask inside the
+    brick).  Each launch is counted by where it reads the LUT, and by
+    whether its grid splits the planes: every phase but the large
+    brick's fills under one block an SM, so one of several planes
+    splits."""
+    shape = {"small": (3, 2, 2), "large": (72, 72, 64)}.get(case, (9, 6, 5))
+    kw = {"distinct_rows": dict(n_betas=R), "fields": dict(fields=True),
+          "fields_above_2_31": dict(fields=True),
+          "large_beta": dict(betas=[0.0, 1e4, 3.0])}.get(case, {})
+    d = bitplane_inputs(12, shape, R, **kw)
+    n_rows = d["lut"].shape[0]
+    if case == "distinct_rows":
+        rows = np.stack([d["rng"].permutation(R) for _ in range(3)])
+    else:
+        rows = d["rng"].integers(0, n_rows, size=(3, R))
+    if case == "large_beta":
+        assert {0, 1 << 24} <= set(d["lut"][1].tolist())
+    if case in ("above_2_31", "fields_above_2_31"):
+        d["lut"][0] = 0xFFFFFFFF
+        d["lut"][1, ::2] = 0x80000001
+    if case == "lane_masks":
+        d["masks_w"] &= d["rng"].integers(0, 2 ** 32, size=d["masks_w"].shape,
+                                          dtype=np.uint32)
+        d["masks_w"][..., 0, 0, :] = 0
+    args = to(cuda, bp_args(d, rows.astype(np.int32), T))
+    before = dict(_build.launch_counts)
+    got = pbit_bitplane_sweep(*args)
+    lut_in = ("lut_global" if case in ("fields", "fields_above_2_31")
+              else "lut_shared")
+    launched = {k: _build.launch_counts[f"pbit_bitplane_sweep{k}"] -
+                before[f"pbit_bitplane_sweep{k}"]
+                for k in ("", ":lut_shared", ":lut_global", ":plane_groups")}
+    split = R > 32 and case != "large"
+    assert launched == {"": 6, ":lut_shared": 6 * (lut_in == "lut_shared"),
+                        ":lut_global": 6 * (lut_in == "lut_global"),
+                        ":plane_groups": 6 * split}
+    assert_bitwise(got, t_ref.pbit_bitplane_sweep_ref(*args))
 
 
 @pytest.mark.cuda

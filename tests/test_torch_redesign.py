@@ -79,9 +79,11 @@ def test_color_layout_permutes_planes_and_own_mask():
     masks_w, signs6, nz6, base = args[3], args[4], args[5], args[6]
     lay = color_layout(masks_w, signs6, nz6, base)
     perm = lay.order.perm.long()
-    for cm, plane in zip(lay.sign_cm + lay.nz_cm, signs6 + nz6):
-        assert torch.equal(u32_to_i64(cm), u32_to_i64(plane).flatten()[perm])
-    assert torch.equal(lay.base_cm, base.flatten()[perm])
+    packed = lay.packed.view(torch.int32).long()
+    for d, plane in enumerate(signs6 + nz6):
+        assert torch.equal(((packed >> d) & 1) * MASK32,
+                           u32_to_i64(plane).flatten()[perm])
+    assert torch.equal(packed >> 12, base.flatten()[perm].long())
     words = u32_to_i64(masks_w).flatten(2)            # (nc, W, n)
     own = u32_to_i64(lay.mask_cm)                     # (W, n)
     b = lay.order.bounds
@@ -212,7 +214,9 @@ def color_major_sweep(mw, s, rows, masks_w, signs6, nz6, base, halos_w,
     mwf = u32_to_i64(mw).reshape(W, n)
     planes = [tuple(u32_to_i64(x) for x in g) for g in (signs6, nz6)]
     halos = tuple(u32_to_i64(h) for h in halos_w)
-    mask_cm, base_cm = u32_to_i64(lay.mask_cm), lay.base_cm.long()
+    # base as the kernel reads it, from its packed word
+    mask_cm = u32_to_i64(lay.mask_cm)
+    base_cm = lay.packed.view(torch.int32).long() >> 12
     lanes = torch.arange(R)
     word, bit = lanes // LANE_WIDTH, (lanes % LANE_WIDTH)[:, None]
     flips = torch.zeros(R, dtype=torch.int64)
