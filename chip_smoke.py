@@ -1,9 +1,14 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch/CUDA port (``src/repro_torch``) on one NVIDIA card.
+"""Check the PyTorch/CUDA port (``src/repro_torch``) on one NVIDIA card.
 
 Run from the root of a checkout:  ``python3 chip_smoke.py``
 (``python3 chip_smoke.py --build-peaks <src>`` prints phase 4's
 construction bytes for the package under another tree's ``src``.)
+
+This script checks correctness only: every check compares the port with
+its plain version, its CPU twin, a golden value of the JAX reference, a
+launch count, a byte count or a record the program wrote.  It times
+nothing; the port's speed is measured by the benchmark (``perf_bench/``).
 
 Phases; every check raises on failure and the script then exits non-zero:
 
@@ -36,8 +41,9 @@ Phases; every check raises on failure and the script then exits non-zero:
    an ``impl="ref"`` run on the card bitwise (int8, bit-plane), the
    per-phase runs equal the fused ones bitwise, the golden values
    recomputed from the JAX reference by ``tests/test_torch_golden.py``
-   match (f32 to 0.5%, its LFSR digest exactly), and bit-plane lane
-   (w, b) equals int8 replica w*32+b;
+   match (f32 to 0.5%, its LFSR digest exactly), bit-plane lane
+   (w, b) equals int8 replica w*32+b, and the bit-plane engine's energy
+   readout equals the unpack-first readout it replaced bitwise;
 4. drive the mesh path: ``make_engine("lattice", L=100, mesh=make_mesh(
    ...), dim_axes=("x", "y", "z"))`` with every brick on the card: each
    MESH_RUNS engine built in a fresh process holding its bricks'
@@ -49,20 +55,10 @@ Phases; every check raises on failure and the script then exits non-zero:
    the LFSR digest), the first 16 sweeps of int8 R=4 on (2,2,2) and
    (2,2,1), bit-plane R=64 and f32 R=4 on (2,2,2) against their
    ``impl="ref"`` runs on the card (bitwise, f32 to 0.5%), their full
-   runs timed with the launches counted per kernel and path (one sweep
+   runs with the launches counted per kernel and path (one sweep
    launch per brick and call, one energy launch per brick and record
-   point), the exchange's time per call and the measured eta
-   (``EtaMeter``) at ``sync_every`` 1 and 8, and one profiled mesh run;
-5. time the main path (p-bit updates per second, the repository's
-   "flips/s"), profile it (device busy share, time by kernel, the
-   redesigned kernels' mode and time per launch), time the bit-plane
-   path's energy readout against the unpack-first readout it replaces,
-   and time each kernel against its plain version and its bound: the
-   largest of its bytes
-   over the HBM bandwidth and its INT32 and FP32 operations over their
-   own peaks (64 and 128 per SM per clock at the card's SM count and
-   maximum SM clock);
-6. drive the general-graph engines, ``make_engine("gibbs", graph)`` and
+   point), and ``EtaMeter``'s report of a run at ``sync_every`` 8 finite;
+5. drive the general-graph engines, ``make_engine("gibbs", graph)`` and
    ``make_engine("dsim", partitioned)``, on the L=100 instance as an ELL
    graph (and Max-Cut on a G81-size torus): the JAX reference's golden
    values (dsim int8 on the (2,2,2) brick partition bitwise with its
@@ -72,17 +68,13 @@ Phases; every check raises on failure and the script then exits non-zero:
    with each colour phase
    held to the CPU's:
    LFSR states bitwise, a differing spin only within 8 ulp of its
-   boundary; philox within 0.5% and repeatable on the card), then timed
-   (two runs each; none of the six kernels may launch: these engines are
-   PyTorch operations), and one profiled run of each engine (device
-   busy share, device operations and time per colour phase beside the
-   phase's byte floor);
-7. drive the distributed DSIM, ``make_engine("dsim_dist", partitioned)``
-   with every one of the K=8 partitions on the card: B7's two routes
-   against their plain versions bitwise, the standalone ELL word
-   gather-count (at the L=100 operands of each colour, and at D = 3, 4
-   and 12 on random rows) and the fused colour phase (words, LFSR states
-   and flips: at the L=100 operands of each colour from the initial state
+   boundary; philox within 0.5% and repeatable on the card), then run
+   over the whole schedule (none of the six kernels may launch: these
+   engines are PyTorch operations);
+6. drive the distributed DSIM, ``make_engine("dsim_dist", partitioned)``
+   with every one of the K=8 partitions on the card: B7's fused colour
+   phase against its plain version bitwise (words, LFSR states and
+   flips: at the L=100 operands of each colour from the initial state
    and after 16 sweeps, at D = 3, 4 and 12 on random rows with the odd
    partitions padded, and at R=40), the
    JAX reference's golden values (int8 R=2 and bit-plane R=32 lanes 0-1
@@ -90,15 +82,11 @@ Phases; every check raises on failure and the script then exits non-zero:
    LFSR digest), every ``DIST_RUNS`` configuration against its
    ``device="cpu"`` twin over 4 sweeps or its first sync period (int8
    and bit-plane bitwise, f32
-   phase by phase as in phase 6), then timed (two runs each; the
-   bit-plane run launches the fused colour phase once per colour phase
-   and the standalone gather-count never, no run launches a lattice
-   kernel), the exchange's time per call and the measured eta
-   (``dist_eta_meter``) at ``sync_every`` 1 and 8, one profiled bit-plane
-   run (device busy share, device time per colour phase, the fused
-   kernel's share of the device time) and both routes timed against
-   their plain versions and their bounds;
-8. the degraded mesh and the sampling server: (a) both mesh engines'
+   phase by phase as in phase 5), then run over the whole schedule (the
+   bit-plane run launches the fused colour phase once per colour phase,
+   no run launches a lattice kernel), and ``dist_eta_meter``'s report of
+   a run at ``sync_every`` 8 finite;
+7. the degraded mesh and the sampling server: (a) both mesh engines'
    checked exchange at L=100 (``degrade=``): the lattice's ``MESH_RUNS``
    under ``stale_hold:8`` with no faults bitwise the unchecked run (and
    the (2,2,2) ``MESH_GOLDEN`` still reproduced), with ``DEG_CODES`` of
@@ -108,37 +96,33 @@ Phases; every check raises on failure and the script then exits non-zero:
    ``impl="ref"`` run, ``resync`` clearing the staleness, ``fail_fast``
    raising at the chunk of its code; (b) the same for ``dsim_dist``
    K=8 at int8 R=4 and bit-plane R=64 (with codes against the
-   ``device="cpu"`` twin), the checked exchange's time per call beside
-   the unchecked one's (CUDA events) for both engines, and measured eta
-   with ``effective_eta`` at ``sync_every`` 1 and 8 under injected
-   drops; (c) ``repro_torch.serve.SampleServer`` on the card answering
+   ``device="cpu"`` twin), and ``effective_eta`` at ``sync_every`` 8
+   under injected drops 7/8 of the measured eta; (c)
+   ``repro_torch.serve.SampleServer`` on the card answering
    ``SERVER_JOBS`` at L=100 (a packed int8 pair, bit-plane, f32, a
    degraded mesh job with a drop, a ``fail_fast`` dsim_dist job that ends
    ``failed`` with ``StateCorruption``), every job equal to a direct
    ``make_engine`` run of its seeds, the packed job equal to its solo
    run, the launch counters (0 just before the server is driven) showing
    kernels #1-#4 and B7 (as the fused colour phase) launched from within
-   it, and the
-   server's jobs/s and flips/s beside the direct runs';
-9. APT+ICM (``repro_torch.core.apt_icm.APTICM``) on the G81 shape
+   it, and the same jobs again on the warm server each from a pooled
+   engine;
+8. APT+ICM (``repro_torch.core.apt_icm.APTICM``) on the G81 shape
    (N=20,000, 2 chains x 64 temperatures): with ``HostDraws`` the card
    reproduces ``APT_GOLDEN`` (the JAX reference's digests, recomputed by
    ``tests/test_torch_golden.py``) in ``rng="lfsr"`` and packed mode and
    equals its ``device="cpu"`` twin bitwise over 16 sweeps; the fused
    colour phase against its plain version at the packed shape (K=1, W=4,
    words, LFSR states and energies bitwise, from the initial state and
-   after 16 sweeps), timed beside its bound and the standalone
-   gather-count; ``philox`` f32, ``lfsr`` and packed (W=4) timed over 256
-   sweeps with an ICM every 10th (sweeps/s, p-bit updates/s, best cut;
-   packed launches the fused phase once per colour phase, the others no
-   kernel), packed == lfsr bitwise with the card's generator, the ICM's
-   share of the time and host syncs per ICM, one profiled packed run, and
-   one ``adapt_ladder`` call;
-10. ``repro_torch.analyze``'s IR audit with every one-process chunk on the
+   after 16 sweeps); ``philox`` f32, ``lfsr`` and packed (W=4) over 256
+   sweeps with an ICM every 10th (packed launches the fused phase once
+   per colour phase, the others no kernel), packed == lfsr bitwise with
+   the card's generator, and one ``adapt_ladder`` call;
+9. ``repro_torch.analyze``'s IR audit with every one-process chunk on the
    card: IR-A, IR-D and IR-E (no float arithmetic in integer bodies, host
    syncs as declared, modular counters) over the glue of the hand
    kernels;
-11. the paper's six examples on the port (``examples/torch_*.py``), each
+10. the paper's six examples on the port (``examples/torch_*.py``), each
    ``main`` in its own subprocess at the reference's defaults with a
    timeout of its own, reporting its result and launch counts through a
    record file (``example_child``): quickstart's int8 per-replica
@@ -149,12 +133,12 @@ Phases; every check raises on failure and the script then exits non-zero:
    finite kappa in every row; serve_sampling's recovered jobs are
    bitwise its uninterrupted ones; the dashboard's degraded job has a
    detection and a held exchange, its probe launches the fused phase,
-   and its Prometheus head is not empty; one line per example of its
-   seconds and headline rate; then, in this process, quickstart's three
-   lattice runs and packed APT+ICM and the dashboard's eta probe again
-   at the examples' defaults, with every kernel launch held to its plain
-   version on the same inputs (f32 as in phase 2, the rest bitwise);
-12. LM serving through ``repro_torch.configs.get_config``,
+   and its Prometheus head is not empty; then, in this process,
+   quickstart's three lattice runs and packed APT+ICM and the
+   dashboard's eta probe again at the examples' defaults, with every
+   kernel launch held to its plain version on the same inputs (f32 as in
+   phase 2, the rest bitwise);
+11. LM serving through ``repro_torch.configs.get_config``,
    ``repro_torch.models.lm.build_model`` and
    ``repro_torch.serve.serve_step``: (a) six reduced configs
    (``LM_GOLDEN_ARCHS``, f32) from ``init(LM_SEED)``, their greedy tokens
@@ -164,54 +148,52 @@ Phases; every check raises on failure and the script then exits non-zero:
    (b) h2o-danube-1.8b at its published widths and depth in f32: decode
    == forward and the rolling ring at its full 4,096-token window within
    the reference's bound; (c) the same weights in bf16 serving 4 requests
-   of 512 prompt tokens, 64 new tokens each: prefill and decode timed
-   against the decode step's byte floor, peak memory, one profiled run;
+   of 512 prompt tokens, 64 new tokens each, with their peak memory;
    (d) mamba2-370m at full width: f32 decode == forward and the SSD's
    chunk invariance, then bf16 serving as (c); (e)
    ``examples/torch_serve_lm.py`` at its defaults in a subprocess; (f)
    none of the hand kernels launched in the phase;
-13. LM training through ``repro_torch.train`` (``make_train_step``,
+12. LM training through ``repro_torch.train`` (``make_train_step``,
    ``AdamW``, ``checkpoint``, ``compression``) and ``launch.train``: (a)
    the seven ``TRAIN_RUNS`` (``LM_GOLDEN_ARCHS`` reduced in f32, and
    deepseek-7b with int8 moments) from ``init(LM_SEED)``, four steps on
    ``train_batches``: each step's loss and gradient norm within 1e-4
    relative of the JAX reference's (``TRAIN_GOLDEN``, recomputed by
    ``tests/test_torch_golden.py``) and within 1e-5 of the same runs on the
-   CPU; (b) h2o-danube-1.8b at its published widths in f32 (phase 12's
+   CPU; (b) h2o-danube-1.8b at its published widths in f32 (phase 11's
    host draw), B=2 x S=512: ``grad_accum=2`` == ``grad_accum=1`` within
    the reference's bounds (loss 1e-4, parameters 1e-5) and the gradients
    with remat on == off within 1e-6 of their largest magnitude, with the
    peak memory of each run; (c) the same weights in bf16 with f32 AdamW
    moments and remat, B=2 x S=4096 (the train_4k sequence; its global
    batch of 256 cut to one card) on ``MarkovLM(4096)`` batches through
-   ``prefetch``: 8 timed steps (seconds per step, tokens/s, model FLOPs
-   and their share of the dense bf16 peak, peak memory), one profiled
-   step, then 2 steps with int8 moments and their bytes per parameter;
-   (d) mamba2-370m the same at B=4 x S=2048; (e) (c)'s int8 state saved
-   with ``blocking=False``, restored bitwise, one further step from each
-   equal bitwise; (f) local SGD with 2 replicas in one process against
-   its CPU twin, and the EF all-reduce's mean; (g)
-   ``examples/torch_train_lm.py`` at its defaults in a subprocess (loss
-   falls), and again to 140 steps: it resumes at step 120; (h) none of
-   the hand kernels launched in the phase;
-14. the dry run (``python -m repro_torch.launch.dryrun``): kernel #3 held
+   ``prefetch``: 8 finite steps after a first, then 2 steps with int8
+   moments and their bytes per parameter; (d) mamba2-370m the same at
+   B=4 x S=2048;
+   (e) (c)'s int8 state saved with ``blocking=False``, restored bitwise,
+   one further step from each equal bitwise; (f) local SGD with 2
+   replicas in one process against its CPU twin, and the EF all-reduce's
+   mean; (g) ``examples/torch_train_lm.py`` at its defaults in a
+   subprocess (loss falls), and again to 140 steps: it resumes at step
+   120; (h) none of the hand kernels launched in the phase;
+13. the dry run (``python -m repro_torch.launch.dryrun``): kernel #3 held
    to its plain version (as in phase 2) at the dry run's bricks, rank
    17's 7x7x100 (16x16 mesh) and 7x7x50 (2x16x16) and rank 255's
-   all-padding 7x7x100, and timed there beside its bound; then ``--all``
+   all-padding 7x7x100; then ``--all``
    (both meshes) and rank 255 alone, each a subprocess with its own
    timeout on a "fake" process group of 256 or 512 ranks: every record
    ``ok`` on the card with the reference's chips, extras and wire bytes
    per rank (``collective-permute`` 704.0 and 380.0, rank 255 its two
    faces), #3 launched once per iteration, ``chunk_s`` no less than the
-   roofline's bound / 1.05, the memory within the card's, the rank
+   record's roofline bound / 1.05, the memory within the card's, the rank
    holding only its brick's constants (``resident_problem_bytes`` 31 B a
    site: 151,900 B at 7x7x100, 75,950 B at 7x7x50) and the chunk's peak
-   allocation below 1,000,000 B, one line per record;
-15. print one JSON line of kernels (``launches`` over the main and mesh
-   paths, the bit-plane dist run's and the packed APT run's for B7's
-   fused colour phase, whose entry also holds its times at the APT shape
-   (``apt``) and the standalone gather-count's route (``count``), the
-   examples' and the dry run's; ``mesh_launches`` the mesh path's,
+   allocation below 1,000,000 B;
+14. print the seconds of each phase, one JSON line of kernels (each
+   kernel's largest difference from its plain version, and its
+   ``launches`` over the main and mesh paths, the bit-plane dist run's
+   and the packed APT run's for B7's fused colour phase, the examples'
+   and the dry run's; ``mesh_launches`` the mesh path's,
    ``server_launches`` the server path's, ``apt_launches`` the APT
    path's, ``example_launches`` each example's, ``dryrun_launches`` the
    dry run's records'), the card's name and power limit, and last
@@ -258,14 +240,12 @@ MAIN_RUNS = {
     "int8 per-phase R=4": dict(precision="int8", replicas=4, fused=False),
     "f32 per-phase bx R=4": dict(replicas=4, kernel_bx=BX),
 }
-PROFILED = ("int8 R=4", "bitplane R=64", "f32 R=4", "f32 s41 R=4",
-            "int8 per-phase R=4", "f32 per-phase bx R=4")
 LATTICE_KERNELS = ("pbit_brick_sweep_int", "pbit_bitplane_sweep",
                    "brick_energy", "pbit_brick_sweep", "pbit_brick_update_int",
                    "pbit_brick_update")
 # the kernels line: the six lattice kernels and B7, the ELL word
-# gather-count of the bit-plane general-graph path, whose main-path route
-# is the fused colour phase (phases 7 and 9)
+# gather-count of the bit-plane general-graph path, launched as the fused
+# colour phase (phases 6 and 8)
 KERNELS = LATTICE_KERNELS + ("bitplane_gather_count",)
 # an f32 site may be decided differently from the plain version only
 # within this many ulp of tanh(act) of its boundary
@@ -295,8 +275,7 @@ GOLDEN_F32 = {
 
 # The mesh path: the lattice cut into bricks on one card (make_mesh with
 # no process group), each configuration at L=100 over
-# ea_schedule(MAIN_SWEEPS) as the main path, and its exchange cadence eta
-# read at sync_every 1 and SYNC.
+# ea_schedule(MAIN_SWEEPS) as the main path.
 AXES = ("x", "y", "z")
 MESH_RUNS = {
     "int8 R=4 mesh (2,2,2)": dict(precision="int8", replicas=4,
@@ -307,8 +286,9 @@ MESH_RUNS = {
                                        mesh=(2, 2, 2)),
     "f32 R=4 mesh (2,2,2)": dict(replicas=4, mesh=(2, 2, 2)),
 }
-ETA_RUN = "int8 R=4 mesh (2,2,2)"
-MESH_PROFILED = "int8 R=4 mesh (2,2,2)"
+# the MESH_RUNS engine that the meters (phases 4 and 7) and phase 7's
+# freeze, resync and fail_fast drive
+ONE_MESH = "int8 R=4 mesh (2,2,2)"
 # The JAX reference on 8 forced host devices, mesh (2,2,2), otherwise the
 # GOLDEN run (int8, R=2; bit-plane R=32 lanes 0-1 and f32 equal it; the
 # LFSR states do not depend on the partition or the precision).
@@ -343,12 +323,10 @@ GRAPH_RUNS = {
     # colouring), as benchmarks/tableS2_maxcut.py anneals it
     "maxcut G81 gibbs R=4": dict(engine="gibbs", replicas=4, graph="g81"),
 }
-GRAPH_PROFILED = ("gibbs f32 R=4", "dsim int8 R=4 K=8")
-# phases 6 and 7 hold each configuration to its device="cpu" twin over
+# phases 5 and 6 hold each configuration to its device="cpu" twin over
 # the first TWIN_SWEEPS sweeps, or its first sync period where that is
-# longer (cut from 16 to 8 with phase 12, to 4 with phase 13, to keep the
-# whole script under 900 s: the CPU twins at L=100 take most of those
-# phases)
+# longer (cut from 16 to 8, then to 4, to keep the whole script within
+# one call: the CPU twins at L=100 take most of those phases)
 TWIN_SWEEPS = 4
 
 
@@ -378,7 +356,7 @@ DSIM_GOLDEN = {
                 "b46dce4046fd6572679d8124a6e8f48a",
 }
 
-# APT+ICM (phase 9) on the G81 shape: APT_CHAINS chains over an APT_T
+# APT+ICM (phase 8) on the G81 shape: APT_CHAINS chains over an APT_T
 # ladder apt_betas(), in three modes (f32 philox, lfsr, lfsr packed into
 # W = 4 word planes), each over APT_SWEEPS sweeps with an ICM every
 # APT_ICM_EVERY-th, from init_state(seed=SEED).
@@ -386,7 +364,6 @@ APT_CHAINS, APT_T = 2, 64
 APT_SWEEPS, APT_ICM_EVERY = 256, 10
 APT_MODES = {"philox": dict(rng="philox"), "lfsr": dict(rng="lfsr"),
              "packed": dict(rng="lfsr", packed=True)}
-APT_PROFILED = "packed"
 # The JAX reference's APTICM (rng="lfsr", run eagerly, every uniform from
 # HostDraws(APT_DRAW_SEED) through a patched jax.random.uniform) from the
 # port's init_state(seed=SEED): APT_GOLDEN_SWEEPS sweeps, an ICM and a
@@ -406,12 +383,12 @@ APT_GOLDEN = {
     "best": [-24360.0, -25620.0, -26064.0, -26368.0],
 }
 
-# Phase 11: the port's examples, each run as ``python3
+# Phase 10: the port's examples, each run as ``python3
 # examples/torch_<name>.py`` with its seconds allowed.
 EXAMPLES = {"quickstart": 150, "sat3_invertible": 120, "maxcut_gset": 150,
             "eta_sweep": 300, "serve_sampling": 180, "serve_dashboard": 120}
 # the longest example runs beside the other five (to keep the whole
-# script inside its time with phase 13)
+# script inside one call)
 EXAMPLE_BESIDE = "eta_sweep"
 # a process run beside others drives the card from one host thread: no
 # pool of CPU threads to contend with theirs
@@ -428,7 +405,7 @@ QUICKSTART_GOLDEN = {"int8": [-1684.0, -1700.0, -1688.0, -1692.0],
 ETA_REFERENCE_KAPPA = {1: 0.646, 256: 0.900}
 
 
-# Phase 12: LM serving.  (a) LM_GOLDEN: for each LM_GOLDEN_ARCHS config's
+# Phase 11: LM serving.  (a) LM_GOLDEN: for each LM_GOLDEN_ARCHS config's
 # reduced() variant, the JAX reference's greedy_generate over the
 # lm_prompt batch (max_new LM_MAX_NEW) on the port's init(LM_SEED)
 # weights: its tokens, and its prefill's last-position logits digested by
@@ -544,11 +521,10 @@ LM_GOLDEN = {
 # (tests/test_models.py); SSD chunk invariance: its rtol = atol
 LM_REL_TOL, LM_CHUNK_TOL = 2e-2, 2e-4
 LM_SERVE = dict(batch=4, prompt=512, max_new=64)
-LM_FULL = ("h2o-danube-1.8b", "mamba2-370m")   # at full width, phases 12-13
-LM_PROFILED_STEPS = 8
+LM_FULL = ("h2o-danube-1.8b", "mamba2-370m")   # at full width, phases 11-12
 EXAMPLE_SERVE_LM_TIMEOUT = 180
 
-# Phase 13 (LM training).  (a) TRAIN_GOLDEN: each TRAIN_RUNS run (name,
+# Phase 12 (LM training).  (a) TRAIN_GOLDEN: each TRAIN_RUNS run (name,
 # int8 moments) on its reduced config in f32 from init(LM_SEED) takes
 # TRAIN_STEPS make_train_step steps on train_batches(cfg) with
 # AdamW(lr=TRAIN_LR, warmup=TRAIN_WARMUP): each step's loss and gradient
@@ -593,14 +569,14 @@ ACCUM_LOSS_TOL, ACCUM_PARAM_TOL, REMAT_TOL = 1e-4, 1e-5, 1e-6
 # within ACCUM_GRAD_TOL of their largest magnitude (f32 sums over 1,024
 # rows against two of 512)
 ACCUM_SURE_M, ACCUM_GRAD_TOL = 1e-7, 1e-5
-# (c)-(d) timed at full width in bf16 with remat; the train_4k cell's
-# sequence, its global batch of 256 cut to fit one card.  Tokens from
+# (c)-(d) at full width in bf16 with remat, TRAIN_TIMED_STEPS steps
+# after a first; the train_4k cell's sequence, its global batch of 256
+# cut to fit one card.  Tokens from
 # MarkovLM(TRAIN_DATA_VOCAB): its vocab x vocab f64 table would be 8.2 GB
 # at 32,000, and every id below 4,096 is valid in both vocabularies.
 TRAIN_TIMED = {"h2o-danube-1.8b": dict(batch=2, seq=4096),
                "mamba2-370m": dict(batch=4, seq=2048)}
 TRAIN_TIMED_STEPS, TRAIN_INT8_STEPS, TRAIN_DATA_VOCAB = 8, 2, 4096
-BF16_PEAK_FLOPS = 989e12     # H100 SXM dense bf16, NVIDIA's data sheet
 # (f) local SGD with its replicas in one process, and the EF all-reduce
 SGD_RUN = dict(name="h2o-danube-1.8b", replicas=2, sync_every=2, outer=3,
                batch=4, seq=32)
@@ -609,7 +585,7 @@ EXAMPLE_TRAIN_LM_TIMEOUT = 240
 
 
 def train_batches(cfg) -> list:
-    """Phase 13a's TRAIN_STEPS batches (numpy) for ``cfg``: MarkovLM(256,
+    """Phase 12a's TRAIN_STEPS batches (numpy) for ``cfg``: MarkovLM(256,
     seed=1) tokens, and standard-normal frames for an encoder-decoder."""
     from repro_torch.train.data import MarkovLM
     B, S = TRAIN_BATCH
@@ -662,7 +638,7 @@ def lm_param_count(cfg) -> int:
 
 
 def lm_prompt(cfg) -> dict:
-    """Phase 12a's batch (numpy): LM_PROMPT tokens, and frames for an
+    """Phase 11a's batch (numpy): LM_PROMPT tokens, and frames for an
     encoder-decoder config."""
     rng = np.random.default_rng(LM_SEED)
     b = {"tokens": rng.integers(0, cfg.vocab, LM_PROMPT).astype(np.int32)}
@@ -686,7 +662,7 @@ def lm_digest(tokens, logits) -> dict:
 
 
 def apt_betas() -> np.ndarray:
-    """Phase 9's ladder, the reference's T=64 case
+    """Phase 8's ladder, the reference's T=64 case
     (tests/test_problems.py)."""
     return np.linspace(0.2, 3.0, APT_T)
 
@@ -704,9 +680,13 @@ DIST_RUNS = {
     "dsim_dist f32 R=4 K=8": dict(replicas=4, sync=SYNC),
     "dsim_dist cmft f32 R=4 K=8": dict(replicas=4, mode="cmft", sync=SYNC),
 }
+# the dsim_dist run whose meter phase 6 checks, and the bit-plane run
+# whose operands phase 6 holds the fused colour phase to its plain
+# version on
 DIST_ETA_RUN = "dsim_dist int8 R=4 K=8"
-DIST_PROFILED = "dsim_dist bitplane R=64 K=8"
-# the gather-count is also held to its plain version at these degrees
+DIST_BITPLANE = "dsim_dist bitplane R=64 K=8"
+# the fused colour phase is also held to its plain version at these
+# degrees
 GATHER_DEGREES = (3, 4, 12)
 # The JAX reference's DistDSIMEngine on 8 forced host devices, f32
 # (bitpack), rng="lfsr", R=2, sync_every=SYNC, every replica started from
@@ -721,14 +701,14 @@ DIST_GOLDEN = {
                 "207778984a7f44badfdb469252d3ac3f",
 }
 
-# The degraded mesh (phase 8): DEG_SWEEPS sweeps at sync_every DEG_SYNC
+# The degraded mesh (phase 7): DEG_SWEEPS sweeps at sync_every DEG_SYNC
 # (eight exchanges), record points DEG_POINTS; DEG_CODES[seq] injects a
 # drop (1) or a corruption (2) on the received planes of exchange seq:
 # four bad exchanges of eight, two of them consecutive.
 DEG_SWEEPS, DEG_SYNC, DEG_POINTS = 32, 4, [16, 32]
 DEG_CODES = [0, 1, 0, 2, 2, 0, 1, 0]
 DEG_POLICY = "stale_hold:8"
-# The server path (phase 8c): label -> (problem, submit keywords), each
+# The server path (phase 7c): label -> (problem, submit keywords), each
 # job over ea_schedule(MAIN_SWEEPS) at sync_every SYNC; the first two pack
 # into one R=8 call.  The server's FaultPlan corrupts exchange 1 and drops
 # exchange SERVER_DROP of every degraded job: the mesh job holds both, the
@@ -754,7 +734,7 @@ def graph_m0(n: int) -> np.ndarray:
         np.array([-1, 1], np.int8), size=n)
 
 
-# Phase 14, the dry run: its records of rank 17 on the two production
+# Phase 13, the dry run: its records of rank 17 on the two production
 # meshes (the wire per rank is the JAX reference's, which
 # tests/test_torch_dryrun.py holds on the CPU), and rank 255, whose brick
 # is all padding (x and y from 105 to 111) and which has two neighbours.
@@ -795,21 +775,6 @@ MESH_BUILD_WHOLE = {
 # nor the held bytes may exceed the bricks' constants by
 BUILD_SLACK = 1 << 20
 
-# H100 SXM published HBM3 bandwidth (NVIDIA data sheet), for the byte
-# floors of the glue; the kernels' bounds come from the package's work
-# model and roofline (repro_torch.kernels.work, repro_torch.launch.
-# roofline.HW at the SM count PyTorch reports and the maximum SM clock
-# nvidia-smi reports).
-HBM_BYTES_PER_S = 3.35e12
-# the redesigned kernels, by what the profiler's CUDA kernel names hold
-# (the energy: both of its passes)
-REDESIGNED = {"pbit_bitplane_sweep": ("bitplane_color_kernel",),
-              "pbit_brick_sweep": ("persistent_sweep", "F32Update"),
-              "pbit_brick_sweep_int": ("persistent_sweep", "Int8Update"),
-              "pbit_brick_update": ("word_phase_kernel", "F32Update"),
-              "pbit_brick_update_int": ("word_phase_kernel", "Int8Update"),
-              "brick_energy": ("energy_",)}
-
 
 class CheckFailed(RuntimeError):
     pass
@@ -844,14 +809,6 @@ def check(cond, what: str):
     if not cond:
         raise CheckFailed(what)
     print(f"  ok  {what}", flush=True)
-
-
-def max_sm_clock_hz() -> float:
-    out = subprocess.run(
-        ["nvidia-smi", "--query-gpu=clocks.max.sm",
-         "--format=csv,noheader,nounits"], capture_output=True, text=True,
-        check=True, timeout=60)
-    return float(out.stdout.strip().splitlines()[0]) * 1e6
 
 
 def card_line() -> str:
@@ -939,10 +896,9 @@ class Smoke:
     def __init__(self, torch):
         self.torch = torch
         self.dev = torch.device("cuda", 0)
-        self.results = {}     # kernel name -> dict of measured fields
-        # B7's standalone gather-count route (the kernels line's "count")
-        self.gather_count = {"max_abs_err": 0.0}
-        self.inputs_energy = {}   # R -> the energy's +-J inputs
+        # kernel name -> {"max_abs_err": its largest difference from its
+        # plain version over every comparison}
+        self.results = {}
 
     # -- helpers ---------------------------------------------------------
 
@@ -963,20 +919,6 @@ class Smoke:
             a, b = u32_to_i64(a), u32_to_i64(b)
         return float((a.double() - b.double()).abs().max()) \
             if a.numel() else 0.0
-
-    def time_ms(self, fn, reps: int, warm: int = 2) -> float:
-        t = self.torch
-        for _ in range(warm):
-            fn()
-        t.cuda.synchronize()
-        a = t.cuda.Event(enable_timing=True)
-        b = t.cuda.Event(enable_timing=True)
-        a.record()
-        for _ in range(reps):
-            fn()
-        b.record()
-        b.synchronize()
-        return a.elapsed_time(b) / reps
 
     def rand_halos(self, rng, lead: int, shapes, words: bool):
         from repro_torch.core.bits import u32_from_numpy
@@ -1003,29 +945,30 @@ class Smoke:
         for phase, args in (
                 (self.phase_build, ()), (self.phase_kernels, ()),
                 (self.phase_main_path, ()), (self.phase_mesh, (card,)),
-                (self.phase_timing, (card,)), (self.phase_graph, (card,)),
-                (self.phase_dist, (card,)), (self.phase_degraded, (card,)),
-                (self.phase_server, (card,)), (self.phase_apt, (card,)),
-                (self.phase_audit, (card,)), (self.phase_examples, ()),
-                (self.phase_lm, (card,)), (self.phase_train, (card,)),
-                (self.phase_dryrun, (card,))):
+                (self.phase_graph, ()), (self.phase_dist, (card,)),
+                (self.phase_degraded, ()), (self.phase_server, ()),
+                (self.phase_apt, ()), (self.phase_audit, ()),
+                (self.phase_examples, ()), (self.phase_lm, ()),
+                (self.phase_train, (card,)), (self.phase_dryrun, ())):
             phase(*args)
             t1 = time.perf_counter()
             laps.append(f"{phase.__name__[6:]} {t1 - t0:.1f}")
             t0 = t1
         print("seconds per phase: " + ", ".join(laps), flush=True)
-        r = self.results["bitplane_gather_count"]
-        r["launches"] += self.apt_launches
-        r["apt_launches"] = self.apt_launches
+        self.launches["bitplane_gather_count"] += self.apt_launches
+        kernels = []
         for k in KERNELS:
-            self.results[k]["mesh_launches"] = self.mesh_launches[k]
-            self.results[k]["server_launches"] = self.server_launches[k]
             per = {n: c[k] for n, c in self.example_launches.items()}
-            self.results[k]["launches"] += sum(per.values())
-            self.results[k]["example_launches"] = per
-            self.results[k]["launches"] += self.dryrun_launches[k]
-            self.results[k]["dryrun_launches"] = self.dryrun_launches[k]
-        print(json.dumps({"kernels": [self.results[k] for k in KERNELS]}))
+            kernels.append(dict(
+                name=k, **self.results[k],
+                launches=self.launches[k] + sum(per.values())
+                + self.dryrun_launches[k],
+                mesh_launches=self.mesh_launches[k],
+                server_launches=self.server_launches[k],
+                example_launches=per,
+                dryrun_launches=self.dryrun_launches[k]))
+        kernels[-1]["apt_launches"] = self.apt_launches
+        print(json.dumps({"kernels": kernels}))
         print(card)
         print(json.dumps({"ok": True, "device": {
             "platform": "gpu", "kind": t.cuda.get_device_name(0),
@@ -1035,11 +978,9 @@ class Smoke:
     def phase_build(self):
         from repro_torch.kernels import _build
         print("== 1. build", flush=True)
-        t0 = time.perf_counter()
         lib = _build.build()
         _build.library()
-        print(f"  built {lib.name} in {time.perf_counter() - t0:.1f} s",
-              flush=True)
+        print(f"  built {lib.name}", flush=True)
         log = (lib.parent / "build.log")
         if log.exists():
             for line in log.read_text().splitlines():
@@ -1099,8 +1040,7 @@ class Smoke:
                   f"{tuple(rows.shape)}, flips {want[2].tolist()})")
         check(persistent_mode(m) == "lfsr_smem",
               f"int8 sweep at L={L}, R={R}: LFSR states in shared memory")
-        self.inputs_int8 = (m, s, prob.masks, eng.h_q, eng.w6_q, halos, lut,
-                            beta_row_indices(betas[:SYNC], table))
+        self.inputs_int8 = (m, s, prob.masks, eng.h_q, eng.w6_q, halos, lut)
 
         # the same kernel with its LFSR states in device memory: R = 16
         R16 = 16
@@ -1128,8 +1068,6 @@ class Smoke:
               f"(R={R16}, S={S}, per-replica rows, flips "
               f"{want[2].tolist()[:4]}...)")
         self.results["pbit_brick_sweep_int"] = {"max_abs_err": max(errs)}
-        self.inputs_int8_global = (m16, s16, t.from_numpy(beta_row_indices(
-            betas[:SYNC], table)).to(self.dev)) + args16[3:]
 
         # bit-plane sweep: a full word, a partial word and two words
         errs = []
@@ -1158,10 +1096,6 @@ class Smoke:
                       f"bit-plane sweep == plain, bitwise (R={R}, W={W}, "
                       f"rows {tuple(rows.shape)}, lane-0 flips "
                       f"{int(want[2][0])})")
-            if R == 64:
-                self.inputs_bp = args[:2] + (t.from_numpy(
-                    beta_row_indices(betas[:SYNC], table)).to(self.dev),) + \
-                    args[3:]
         self.results["pbit_bitplane_sweep"] = {"max_abs_err": max(errs)}
 
         self.phase_kernels_energy()
@@ -1232,7 +1166,6 @@ class Smoke:
                 if label == "+-J":
                     check(self.same(brick_energy(*args, bx=BX), got),
                           f"energy with bx={BX} == bx=None (R={R})")
-                    self.inputs_energy[R] = args
 
         # rows not word-aligned (Z = 99): one site per thread
         shape = (L, L, L - 1)
@@ -1277,9 +1210,6 @@ class Smoke:
                 errs.append(self.check_energy(
                     f"word-plane energy == plain ({label}, R={R})", got,
                     want, (m, prob.active, h, w6, halos), label == "+-J"))
-                if label == "+-J" and R == 64:
-                    self.inputs_energy_words = (mw, R, prob.active, h, w6,
-                                                hw)
         self.results["brick_energy"] = {"max_abs_err": max(errs)}
 
     def phase_kernels_f32_and_per_phase(self, betas, table, S: int):
@@ -1297,7 +1227,7 @@ class Smoke:
                                                       pbit_brick_update_int,
                                                       persistent_mode)
         rng, prob = self.rng, self.prob
-        m, s, masks, h_q, w6_q, halos, lut, _ = self.inputs_int8
+        m, s, masks, h_q, w6_q, halos, lut = self.inputs_int8
         R = int(m.shape[0])
         on_card = lambda a: t.from_numpy(  # noqa: E731
             np.ascontiguousarray(a)).to(self.dev)
@@ -1320,8 +1250,6 @@ class Smoke:
                                    what, args, fmt, got))
         check(persistent_mode(m) == "lfsr_smem",
               f"f32 sweep at L={L}, R={R}: LFSR states in shared memory")
-        self.inputs_f32 = (m, s, on_card(betas[:SYNC]), masks, prob.h,
-                           prob.w6, halos)
 
         # the same kernel with its LFSR states in device memory: R = 16
         R16 = 16
@@ -1351,8 +1279,6 @@ class Smoke:
                            fmt=fmt, got=got: self.f32_steps(
                                what, args, fmt, got))
         self.results["pbit_brick_sweep"] = {"max_abs_err": max(errs)}
-        self.inputs_f32_global = (m16, s16, on_card(betas[:SYNC]), masks,
-                                  prob.h, prob.w6, halos16)
 
         # int8 phase: shared and per-replica LUT rows, bx None and BX
         errs_int = []
@@ -1371,9 +1297,7 @@ class Smoke:
         check(_build.launch_counts["pbit_brick_update_int:word"] ==
               words + 4, f"int8 phase at L={L}: one thread per word of 4 "
               f"z-sites")
-        self.inputs_update_int = (m, s, row, masks[0], h_q, w6_q, halos,
-                                  lut)
-        self.check_int_flips(self.inputs_update_int)
+        self.check_int_flips((m, s, row, masks[0], h_q, w6_q, halos, lut))
 
         # f32 phase: per-replica betas, fmt None and s{4}{1}, bx None and BX
         errs = []
@@ -1393,8 +1317,6 @@ class Smoke:
                     self.f32_boundary(what, args, fmt, got[0], want[0]))
         check(_build.launch_counts["pbit_brick_update:word"] == words + 4,
               f"f32 phase at L={L}: one thread per word of 4 z-sites")
-        self.inputs_update_f32 = (m, s, beta, masks[1], prob.h, prob.w6,
-                                  halos)
 
         # the phases at an odd Z (rows not word-aligned: one site per
         # thread), random Gaussian constants (int8: quantized, multi-bit),
@@ -1561,6 +1483,7 @@ class Smoke:
         from repro_torch.core import lattice_dsim
         from repro_torch.core.packing import unpack_lanes
         from repro_torch.kernels import _build, ref
+        from repro_torch.kernels.lattice_energy import brick_energy
         print("== 3. main path: make_engine('lattice', L=100)", flush=True)
 
         # golden values from the JAX reference
@@ -1657,8 +1580,6 @@ class Smoke:
         handles = {label: self.engine(kw) for label, kw in MAIN_RUNS.items()}
         inits = {label: hh.init_state(seed=SEED)
                  for label, hh in handles.items()}
-        t.cuda.synchronize()
-        self.rates = {}
         self.launches = dict.fromkeys(_build.launch_counts, 0)
         unpacked = [0]
 
@@ -1674,12 +1595,9 @@ class Smoke:
             for mod, fn in patched:
                 mod.unpack_lanes = counting(fn)
             try:
-                t0 = time.perf_counter()
                 st, rec = hh.run_recorded(inits[label],
                                           ea_schedule(MAIN_SWEEPS),
                                           MAIN_POINTS, sync_every=SYNC)
-                t.cuda.synchronize()
-                dt = time.perf_counter() - t0
             finally:
                 for mod, fn in patched:
                     mod.unpack_lanes = fn
@@ -1688,7 +1606,6 @@ class Smoke:
                 self.launches[k] += v
             R = hh.replicas
             e = rec.energies
-            self.rates[label] = (L ** 3 * R * MAIN_SWEEPS / dt, dt, rec.flips)
             check(tuple(e.shape) == (len(MAIN_POINTS), R) and
                   bool(t.isfinite(e).all()),
                   f"{label}: energies finite, shape {tuple(e.shape)}")
@@ -1731,7 +1648,19 @@ class Smoke:
         for name in LATTICE_KERNELS:
             check(self.launches[name] > 0,
                   f"main path launched {name} {self.launches[name]} times")
-        self.handles, self.inits = handles, inits
+
+        # the bit-plane engine's energy readout (exchange of the word
+        # planes, the word-plane energy) against the readout it replaced
+        # (unpack the lanes, an int8 exchange, the int8 energy), on the
+        # same state
+        eng = handles["bitplane R=64"].eng
+        st = inits["bitplane R=64"]
+        m = unpack_lanes(st.m, eng.replicas)
+        check(self.same(eng.energy(st), brick_energy(
+            m, eng.p.active, eng.p.h, eng.p.w6,
+            eng._squeeze(eng._exchange(m)))),
+            f"bit-plane readout (R={eng.replicas}) == the unpack-first "
+            f"readout, bitwise")
 
     def engine(self, kw):
         """``make_engine("lattice", L=100)`` of the main path with ``kw``
@@ -1770,8 +1699,8 @@ class Smoke:
     def phase_mesh(self, card: str):
         """The mesh path: the golden values of the JAX reference's (2,2,2)
         mesh, the first 16 sweeps of each MESH_RUNS configuration against
-        its impl="ref" run on the card, the full runs timed with their
-        launches counted, eta at two exchange cadences, a profiled run."""
+        its impl="ref" run on the card, the full runs with their
+        launches counted, and the eta meter's report."""
         t = self.torch
         from repro_torch.core.annealing import ea_schedule
         from repro_torch.core.bits import u32_to_numpy
@@ -1851,37 +1780,20 @@ class Smoke:
                   f"halos, flips, energies; E[0]={float(ea[0, 0])})")
 
         # the full runs, each with its launches counted on their own
-        self.mesh_handles = {label: self.engine(kw)
-                             for label, kw in MESH_RUNS.items()}
+        handles = {label: self.engine(kw) for label, kw in MESH_RUNS.items()}
         inits = {label: hh.init_state(seed=SEED)
-                 for label, hh in self.mesh_handles.items()}
-        self.mesh_inits = inits
+                 for label, hh in handles.items()}
         self.mesh_launches = dict.fromkeys(_build.launch_counts, 0)
-        self.mesh_rates = {}
-        for label, hh in self.mesh_handles.items():
+        for label, hh in handles.items():
             K = len(hh.eng.coords)
-            # a first run (the engine's first: its exchange maps and, on
-            # the bit-plane path, its bricks' layouts are built in it),
-            # its launches counted, then a second run timed again
-            walls = []
-            for turn in range(2):
-                _build.reset_launch_counts()
-                t0 = time.perf_counter()
-                st, rec = hh.run_recorded(inits[label],
-                                          ea_schedule(MAIN_SWEEPS),
-                                          MAIN_POINTS, sync_every=SYNC)
-                t.cuda.synchronize()
-                walls.append(time.perf_counter() - t0)
-                if turn == 0:
-                    counts = {k: v for k, v in _build.launch_counts.items()
-                              if v}
-            dt = walls[1]
+            _build.reset_launch_counts()
+            st, rec = hh.run_recorded(inits[label], ea_schedule(MAIN_SWEEPS),
+                                      MAIN_POINTS, sync_every=SYNC)
+            counts = {k: v for k, v in _build.launch_counts.items() if v}
             for k, v in counts.items():
                 self.mesh_launches[k] += v
             R = hh.replicas
             e = rec.energies
-            rate = L ** 3 * R * MAIN_SWEEPS / dt
-            self.mesh_rates[label] = (rate, dt, rec.flips)
             per_spin = (e[-1] / L ** 3).cpu()
             check(tuple(e.shape) == (len(MAIN_POINTS), R) and
                   bool(t.isfinite(e).all()) and bool((e[-1] < e[0]).all())
@@ -1909,346 +1821,42 @@ class Smoke:
                    K * len(MAIN_POINTS)),
                   f"{label}: one energy launch per brick and record point, "
                   f"brick {hh.eng.brick} on the {path} path")
-            unit = "lane-flips/s" if hh.precision == "bitplane" \
-                else "flips/s"
-            print(f"  mesh path {label}: {K} bricks of {hh.eng.brick}, "
-                  f"{MAIN_SWEEPS} sweeps in {dt:.4f} s = {rate:.4e} {unit} "
-                  f"(first run {walls[0]:.4f} s; {rec.flips} accepted "
-                  f"flips); launches {counts}; on {card}", flush=True)
         for name in ("pbit_brick_sweep_int", "pbit_bitplane_sweep",
                      "pbit_brick_sweep", "brick_energy"):
             check(self.mesh_launches[name] > 0,
                   f"mesh path launched {name} {self.mesh_launches[name]} "
                   f"times")
             self.launches[name] += self.mesh_launches[name]
-        self.mesh_eta(card)
-        self.profile_mesh(card)
+        self.mesh_eta(handles[ONE_MESH], inits[ONE_MESH])
 
-    def mesh_eta(self, card: str):
-        """The exchange alone (boundary_exchange_fn, CUDA events) and the
-        EtaMeter's measured eta of ETA_RUN at sync_every 1 and SYNC."""
+    def mesh_eta(self, hh, st):
+        """The EtaMeter's report of one run of ``hh`` from ``st`` at
+        sync_every SYNC, its exchange measured alone: finite."""
         from repro_torch.core.annealing import ea_schedule
         from repro_torch.obs.timing import EtaMeter
-        hh = self.mesh_handles[ETA_RUN]
-        st = self.mesh_inits[ETA_RUN]
         fn = hh.eng.boundary_exchange_fn()
-        ms = self.time_ms(lambda: fn(st), reps=200, warm=5)
-        print(f"  mesh exchange ({ETA_RUN}, {len(hh.eng.coords)} bricks): "
-              f"{ms * 1e3:.1f} us per call (CUDA events); an in-process "
-              f"gather on one card, not a network link; on {card}",
-              flush=True)
-        for sync in (1, SYNC):
-            hh.run_recorded(st, ea_schedule(MAIN_SWEEPS), MAIN_POINTS,
-                            sync_every=sync)                    # warm
-            cur = hh.start_recorded(st, ea_schedule(MAIN_SWEEPS),
-                                    MAIN_POINTS, sync_every=sync)
-            meter = EtaMeter(n_color=hh.eng.p.n_colors,
-                             sync_every=sync).attach(cur)
-            while not cur.done:
-                cur.advance(1)
-            meter.measure_exchange(lambda: fn(cur.state), reps=100,
-                                   warmup=5)
-            r = meter.report()
-            check(np.isnan(r["eta_threshold"]) and
-                  all(np.isfinite(r[k]) and r[k] > 0 for k in (
-                      "measured_eta", "f_comm_hz", "f_pbit_hz")),
-                  f"eta at sync_every={sync}: finite")
-            print(f"  eta {ETA_RUN}, sync_every={sync}: measured eta "
-                  f"{r['measured_eta']:.4e}, f_comm {r['f_comm_hz']:.4e} "
-                  f"Hz (exchange {r['t_exchange_s'] * 1e6:.1f} us), f_pbit "
-                  f"{r['f_pbit_hz']:.4e} Hz (sweep "
-                  f"{r['t_pbit_sweep_s'] * 1e6:.1f} us), "
-                  f"{r['chunks_recorded']} chunks, "
-                  f"{r['exchanges_attributed']:.0f} exchanges attributed; "
-                  f"the exchange is an in-process gather on one card, not "
-                  f"a network link; on {card}", flush=True)
-
-    def profile_mesh(self, card: str):
-        """Device time by kernel over one more run of MESH_PROFILED at
-        ``sync_every`` SYNC and 1, and the device's busy share of its wall
-        time; the int8 sweep's launch shape on one brick and its device
-        time per launch."""
-        t = self.torch
-        from torch.autograd import DeviceType
-        from torch.profiler import ProfilerActivity, profile
-        from repro_torch.core.annealing import ea_schedule
-        from repro_torch.kernels.pbit_lattice import (_persistent_config,
-                                                      persistent_mode)
-        hh = self.mesh_handles[MESH_PROFILED]
-        m = self.mesh_inits[MESH_PROFILED].m[0]
-        mode = persistent_mode(m)
-        grid, tile, smem, per_sm = _persistent_config(
-            0, "int8", mode == "lfsr_smem", int(m.shape[0]),
-            int(m[0].numel()))
-        print(f"  {MESH_PROFILED}: the int8 sweep on one brick of "
-              f"{tuple(m.shape[1:])}: persistent, {mode} (grid {grid} = "
-              f"{per_sm} per SM, tile {tile} sites, {smem} B shared)",
-              flush=True)
-        for sync in (SYNC, 1):
-            with profile(activities=[ProfilerActivity.CPU,
-                                     ProfilerActivity.CUDA]) as prof:
-                t0 = time.perf_counter()
-                hh.run_recorded(self.mesh_inits[MESH_PROFILED],
-                                ea_schedule(MAIN_SWEEPS), MAIN_POINTS,
-                                sync_every=sync)
-                t.cuda.synchronize()
-                wall = time.perf_counter() - t0
-            rows = [(e.key, e.count, e.self_device_time_total)
-                    for e in prof.key_averages()
-                    if e.device_type == DeviceType.CUDA
-                    and e.self_device_time_total > 0]
-            what = f"profile {MESH_PROFILED}, sync_every={sync}"
-            if not rows:
-                print(f"  {what}: the profiler saw no device time; device "
-                      f"busy share not measured", flush=True)
-                continue
-            busy = sum(us for _, _, us in rows) / 1e6
-            hits = [(c, us) for key, c, us in rows if all(
-                p in key for p in REDESIGNED["pbit_brick_sweep_int"])]
-            count, us = sum(c for c, _ in hits), sum(u for _, u in hits)
-            print(f"  {what}: wall {wall:.4f} s under the profiler, device "
-                  f"busy {busy:.4f} s ({100 * busy / wall:.1f}%); int8 "
-                  f"sweep {count} launches, {us / max(count, 1):.1f} us per "
-                  f"launch of {sync} sweeps on {card}", flush=True)
-            for key, count, us in sorted(rows, key=lambda r: -r[2])[:8]:
-                print(f"    {us / 1e3:10.3f} ms  {count:5d} x  {key[:90]}",
-                      flush=True)
-
-    def phase_timing(self, card: str):
-        t = self.torch
-        from repro_torch.kernels import ref
-        from repro_torch.kernels.lattice_energy import (brick_energy,
-                                                        brick_energy_words)
-        from repro_torch.kernels.pbit_bitplane import pbit_bitplane_sweep
-        from repro_torch.kernels import work
-        from repro_torch.kernels.pbit_lattice import (phase_width,
-                                                      pbit_brick_sweep,
-                                                      pbit_brick_sweep_int,
-                                                      pbit_brick_update,
-                                                      pbit_brick_update_int)
-        from repro_torch.launch.roofline import HW, work_bound
-        print(f"== 5. timing on {card}", flush=True)
-        self.hw = HW(sms=t.cuda.get_device_properties(0).multi_processor_count,
-                     sm_clock_hz=max_sm_clock_hz())
-        hw = self.hw
-        print(f"  peaks: {hw.sms} SMs at {hw.sm_clock_hz / 1e6:.0f} MHz: "
-              f"{hw.int32_peak:.4e} INT32 and {hw.fp32_peak:.4e} FP32 "
-              f"operations/s; HBM {hw.hbm_bw:.3e} B/s", flush=True)
-        for label, (rate, dt, flips) in self.rates.items():
-            unit = "lane-flips/s" if "bitplane" in label else "flips/s"
-            print(f"  main path {label}: {MAIN_SWEEPS} sweeps in "
-                  f"{dt:.4f} s = {rate:.4e} {unit} (p-bit updates; "
-                  f"{flips} accepted flips) on {card}", flush=True)
-        self.profile_main_path(card)
-
-        # Each bound is the least time for the kernel's work on this run's
-        # data (repro_torch.kernels.work, whose docstring counts it).
-        m, s, masks, h_q, w6_q, halos, lut, rows = self.inputs_int8
-        R, nc = int(m.shape[0]), int(masks.shape[0])
-        X, Y, Z = (int(d) for d in m.shape[-3:])
-        args = (m, s, t.from_numpy(rows).to(self.dev), masks, h_q, w6_q,
-                halos, lut)
-        self._timed("pbit_brick_sweep_int", "src/repro_torch/kernels/csrc/"
-                    "pbit_lattice.cu", "src/repro/kernels/pbit_lattice.py:235",
-                    lambda: pbit_brick_sweep_int(*args),
-                    lambda: ref.pbit_brick_sweep_int_ref(*args),
-                    work.sweep_int(R, X, Y, Z, nc, SYNC, work.decided(masks),
-                                   lut.numel(), SYNC),
-                    f"{SYNC} sweeps, R={R}, 1 launch")
-        g = self.inputs_int8_global
-        R16 = int(g[0].shape[0])
-        ms = self.time_ms(lambda: pbit_brick_sweep_int(*g), reps=20)
-        print(f"  pbit_brick_sweep_int, R={R16}, LFSR in device memory "
-              f"({SYNC} sweeps, 1 launch): {ms:.4f} ms; on {card}",
-              flush=True)
-
-        mw, s, rows, masks_w, signs6, nz6, base, hwords, lut = self.inputs_bp
-        W, R, nc = int(mw.shape[0]), int(s.shape[0]), int(masks_w.shape[0])
-        args = (mw, s, rows, masks_w, signs6, nz6, base, hwords, lut)
-        self._timed("pbit_bitplane_sweep", "src/repro_torch/kernels/csrc/"
-                    "pbit_bitplane.cu",
-                    "src/repro/kernels/pbit_bitplane.py:135",
-                    lambda: pbit_bitplane_sweep(*args),
-                    lambda: ref.pbit_bitplane_sweep_ref(*args),
-                    work.bitplane_sweep(W, R, X, Y, Z, nc, SYNC,
-                                        work.decided(masks_w[:, 0]),
-                                        lut.numel(), SYNC),
-                    f"{SYNC} sweeps, R={R}, W={W}, {SYNC * nc} launches")
-
-        args = self.inputs_energy[64]
-        R = int(args[0].shape[0])
-        self._timed("brick_energy", "src/repro_torch/kernels/csrc/"
-                    "lattice_energy.cu",
-                    "src/repro/kernels/lattice_energy.py:57",
-                    lambda: brick_energy(*args),
-                    lambda: ref.brick_energy_ref(*args),
-                    work.energy(R, X, Y, Z), f"R={R} int8 spins, 2 launches")
-        for what, fn, r in (
-                ("int8 spins", lambda: brick_energy(*self.inputs_energy[4]),
-                 4),
-                ("word planes", lambda: brick_energy_words(
-                    *self.inputs_energy_words), 64)):
-            ms = self.time_ms(fn, reps=50)
-            bound = work_bound(work.energy(r, X, Y, Z), hw)[1]
-            print(f"  brick_energy, R={r} {what}: {ms:.4f} ms per call, "
-                  f"bound {bound * 1e3:.4f} ms; on {card}", flush=True)
-        self.time_readout(card)
-
-        args = self.inputs_f32
-        m, masks = args[0], args[3]
-        R, nc = int(m.shape[0]), int(masks.shape[0])
-        self._timed("pbit_brick_sweep", "src/repro_torch/kernels/csrc/"
-                    "pbit_lattice.cu", "src/repro/kernels/pbit_lattice.py:287",
-                    lambda: pbit_brick_sweep(*args),
-                    lambda: ref.pbit_brick_sweep_ref(*args),
-                    work.sweep_f32(R, X, Y, Z, nc, SYNC, work.decided(masks)),
-                    f"{SYNC} sweeps, R={R}, 1 launch")
-        g = self.inputs_f32_global
-        R16 = int(g[0].shape[0])
-        ms16 = self.time_ms(lambda: pbit_brick_sweep(*g), reps=20)
-        byts16 = work.sweep_f32(R16, X, Y, Z, nc, SYNC, 0).bytes
-        print(f"  pbit_brick_sweep, LFSR in device memory (R={R16}, "
-              f"{SYNC} sweeps, 1 launch): {ms16:.4f} ms, byte floor "
-              f"{byts16 / hw.hbm_bw * 1e3:.4f} ms; on {card}",
-              flush=True)
-
-        args = self.inputs_update_int
-        lut = args[-1]
-        R = int(args[0].shape[0])
-        self._timed("pbit_brick_update_int", "src/repro_torch/kernels/csrc/"
-                    "pbit_lattice.cu", "src/repro/kernels/pbit_lattice.py:450",
-                    lambda: pbit_brick_update_int(*args),
-                    lambda: ref.pbit_brick_update_int_ref(*args),
-                    work.update_int(R, X, Y, Z, work.decided(args[3]),
-                                    lut.numel()),
-                    f"one phase, R={R}, 1 launch")
-        args = self.inputs_update_f32
-        self._timed("pbit_brick_update", "src/repro_torch/kernels/csrc/"
-                    "pbit_lattice.cu", "src/repro/kernels/pbit_lattice.py:340",
-                    lambda: pbit_brick_update(*args),
-                    lambda: ref.pbit_brick_update_ref(*args),
-                    work.update_f32(R, X, Y, Z, work.decided(args[3])),
-                    f"one phase, R={R}, 1 launch")
-        # the host time of the wrapper's word-or-site choice (14 pointers
-        # read, their alignment tested), part of each call above
-        m, s, _, mask, h, w6, halos = args
-        wide, narrow = (s, s, h, *w6), (m, m, mask, *halos)
-        t0 = time.perf_counter()
-        for _ in range(10000):
-            phase_width(int(m.shape[-1]), [x.data_ptr() for x in wide],
-                        [x.data_ptr() for x in narrow])
-        print(f"  pbit_brick_update: the word-or-site choice takes "
-              f"{(time.perf_counter() - t0) * 100:.2f} us of host time "
-              f"per call; on {card}", flush=True)
-        for name, r in self.results.items():
-            print(f"  {name}: {r['ms']:.4f} ms ({r['work']}), plain "
-                  f"{r['plain_ms']:.4f} ms, bound {r['bound_ms']:.4f} ms "
-                  f"by {r['bound_by']} ({r['bounds']}); {r['launches']} "
-                  f"launches on the main path; on {card}", flush=True)
-            del r["work"], r["bounds"]
-
-    def time_readout(self, card: str):
-        """The bit-plane main path's energy readout (exchange of the word
-        planes, the word-plane energy) against the readout it replaces
-        (unpack the lanes, an int8 exchange, the int8 energy), on the same
-        state; they must agree bitwise (+-J)."""
-        from repro_torch.core.packing import unpack_lanes
-        from repro_torch.kernels.lattice_energy import brick_energy
-        eng = self.handles["bitplane R=64"].eng
-        st = self.inits["bitplane R=64"]
-        R = eng.replicas
-
-        def unpack_first():
-            m = unpack_lanes(st.m, R)
-            return brick_energy(m, eng.p.active, eng.p.h, eng.p.w6,
-                                eng._squeeze(eng._exchange(m)))
-        check(self.same(eng.energy(st), unpack_first()),
-              f"bit-plane readout (R={R}) == the unpack-first readout, "
-              f"bitwise")
-        new = self.time_ms(lambda: eng.energy(st), reps=50)
-        old = self.time_ms(unpack_first, reps=50)
-        unpack = self.time_ms(lambda: unpack_lanes(st.m, R), reps=50)
-        exch = self.time_ms(lambda: eng._exchange(st.m), reps=50)
-        print(f"  bit-plane readout (R={R}): {new:.4f} ms per record point "
-              f"(word exchange {exch:.4f} ms + word-plane energy); the "
-              f"unpack-first readout {old:.4f} ms (unpack {unpack:.4f} ms); "
-              f"on {card}", flush=True)
-
-    def profile_main_path(self, card: str):
-        """Device time by kernel over one more run of each main-path
-        configuration, and the device's busy share of its wall time (the
-        profiler's own cost is in that wall time); the redesigned kernels'
-        mode and device time per launch."""
-        t = self.torch
-        from torch.autograd import DeviceType
-        from torch.profiler import ProfilerActivity, profile
-        from repro_torch.core.annealing import ea_schedule
-        from repro_torch.kernels import _build
-        from repro_torch.kernels.pbit_lattice import (_persistent_config,
-                                                      persistent_mode)
-        for label in PROFILED:
-            hh = self.handles[label]
-            _build.reset_launch_counts()
-            with profile(activities=[ProfilerActivity.CPU,
-                                     ProfilerActivity.CUDA]) as prof:
-                t0 = time.perf_counter()
-                hh.run_recorded(self.inits[label],
-                                ea_schedule(MAIN_SWEEPS), MAIN_POINTS,
+        cur = hh.start_recorded(st, ea_schedule(MAIN_SWEEPS), MAIN_POINTS,
                                 sync_every=SYNC)
-                t.cuda.synchronize()
-                wall = time.perf_counter() - t0
-            # device events only: an aten operator's row repeats the
-            # device time of the kernels it launched
-            rows = [(e.key, e.count, e.self_device_time_total)
-                    for e in prof.key_averages()
-                    if e.device_type == DeviceType.CUDA
-                    and e.self_device_time_total > 0]
-            busy = sum(us for _, _, us in rows) / 1e6
-            if not rows:
-                print(f"  profile {label}: the profiler saw no device "
-                      f"time; device busy share not measured", flush=True)
-                continue
-            print(f"  profile {label}: wall {wall:.4f} s under the "
-                  f"profiler, device busy {busy:.4f} s "
-                  f"({100 * busy / wall:.1f}%) on {card}", flush=True)
-            for key, count, us in sorted(rows, key=lambda r: -r[2])[:6]:
-                print(f"    {us / 1e3:10.3f} ms  {count:5d} x  {key[:90]}",
-                      flush=True)
-            for name, parts in REDESIGNED.items():
-                hits = [(c, us) for key, c, us in rows
-                        if all(p in key for p in parts)]
-                if not hits or not _build.launch_counts[name]:
-                    continue
-                count, us = sum(c for c, _ in hits), sum(u for _, u in hits)
-                calls = _build.launch_counts[name]
-                mode = "per color phase"
-                if name in ("pbit_brick_sweep", "pbit_brick_sweep_int"):
-                    m = self.inits[label].m
-                    mode = persistent_mode(m)
-                    kind = "f32" if name == "pbit_brick_sweep" else "int8"
-                    grid, tile, smem, per_sm = _persistent_config(
-                        0, kind, mode == "lfsr_smem", int(m.shape[0]),
-                        int(m[0].numel()))
-                    mode = (f"persistent, {mode} (grid {grid} = {per_sm} "
-                            f"per SM, tile {tile} sites, {smem} B shared)")
-                elif name in ("pbit_brick_update", "pbit_brick_update_int"):
-                    mode = "per color phase, one thread per word"
-                elif name == "brick_energy":
-                    mode = "per record point, two passes, one thread per word"
-                print(f"  redesigned {name} in {label}: {mode}; {count} "
-                      f"kernel launches in {calls} calls, {us / calls:.1f} "
-                      f"us per call (profiler) on {card}", flush=True)
+        meter = EtaMeter(n_color=hh.eng.p.n_colors,
+                         sync_every=SYNC).attach(cur)
+        while not cur.done:
+            cur.advance(1)
+        meter.measure_exchange(lambda: fn(cur.state), reps=100, warmup=5)
+        r = meter.report()
+        check(np.isnan(r["eta_threshold"]) and
+              all(np.isfinite(r[k]) and r[k] > 0 for k in (
+                  "measured_eta", "f_comm_hz", "f_pbit_hz")),
+              f"eta at sync_every={SYNC}: finite")
 
     # -- the general-graph engines -----------------------------------------
 
-    def phase_graph(self, card: str):
+    def phase_graph(self):
         """The general-graph engines at L=100 through make_engine("gibbs")
         and make_engine("dsim"): the JAX golden values, every GRAPH_RUNS
         configuration against its device="cpu" twin over the first
-        TWIN_SWEEPS sweeps, then timed over MAIN_SWEEPS with the kernel
-        launch counts
-        read (these engines are PyTorch operations; they launch none of
-        the six kernels), and one profiled run of each engine."""
+        TWIN_SWEEPS sweeps, then run over MAIN_SWEEPS with the kernel
+        launch counts read (these engines are PyTorch operations; they
+        launch none of the six kernels)."""
         t = self.torch
         from repro_torch.core.annealing import ea_schedule
         from repro_torch.core.coloring import (greedy_coloring,
@@ -2259,15 +1867,13 @@ class Smoke:
         from repro_torch.kernels import _build
         from repro_torch.problems.maxcut import (cut_of, gset_like_toroidal,
                                                  maxcut_to_ising)
-        print(f"== 6. general-graph engines: make_engine('gibbs' | 'dsim') "
+        print(f"== 5. general-graph engines: make_engine('gibbs' | 'dsim') "
               f"at L={L}", flush=True)
-        t0 = time.perf_counter()
         self.g = ea3d(L, seed=SEED)
         self.col = lattice3d_coloring(L)
         self.prob = build_partitioned(
             self.g, self.col, brick_partition((L, L, L), BRICKS),
             int(np.prod(BRICKS)))
-        t1 = time.perf_counter()
         self.g81 = gset_like_toroidal(**G81)
         self.g81_ising = maxcut_to_ising(self.g81)
         self.col81 = greedy_coloring(self.g81_ising.idx, self.g81_ising.w)
@@ -2276,26 +1882,17 @@ class Smoke:
               f"graph ({self.g.n} p-bits), partition (K={self.prob.K}, "
               f"n_max {self.prob.n_max}, g_max {self.prob.g_max}) and G81 "
               f"graph ({self.g81.n} p-bits, {self.col81.n_colors} colours) "
-              f"built on {self.g.device} in {t1 - t0:.2f} s and "
-              f"{time.perf_counter() - t1:.2f} s of host time")
+              f"built on {self.g.device}")
         self.graph_golden()
-        self.graph_rates = {}
         for label, kw in GRAPH_RUNS.items():
             self.graph_vs_cpu(label, kw)
         for label, kw in GRAPH_RUNS.items():
             hh, sync = self.graph_engine(kw)
             n = hh.n_sites
             st0 = hh.init_state(seed=SEED)
-            walls = []
-            for _ in range(2):      # the engine's first run, then a second
-                t.cuda.synchronize()
-                _build.reset_launch_counts()
-                t0 = time.perf_counter()
-                st, rec = hh.run_recorded(st0, ea_schedule(MAIN_SWEEPS),
-                                          MAIN_POINTS, sync_every=sync)
-                t.cuda.synchronize()
-                walls.append(time.perf_counter() - t0)
-            dt = walls[1]
+            _build.reset_launch_counts()
+            st, rec = hh.run_recorded(st0, ea_schedule(MAIN_SWEEPS),
+                                      MAIN_POINTS, sync_every=sync)
             counts = {k: v for k, v in _build.launch_counts.items() if v}
             check(not counts, f"{label}: plain PyTorch operations, none of "
                   f"the six kernels launched ({counts})")
@@ -2317,14 +1914,6 @@ class Smoke:
                 check(all(c == (w_tot - float(er)) / 2
                           for c, er in zip(cuts, e[-1].tolist())),
                       f"{label}: Max-Cut values {cuts} == (W - E) / 2")
-            self.graph_rates[label] = (n * R * MAIN_SWEEPS / dt, dt,
-                                       rec.flips)
-            print(f"  {label}: {MAIN_SWEEPS} sweeps of {n} p-bits x R={R} in "
-                  f"{dt:.4f} s = {n * R * MAIN_SWEEPS / dt:.4e} flips/s "
-                  f"(first run {walls[0]:.4f} s; {rec.flips} accepted "
-                  f"flips) on {card}", flush=True)
-        for label in GRAPH_PROFILED:
-            self.profile_graph(label, card)
 
     def graph_engine(self, kw, device=None):
         """(handle, sync_every) of a GRAPH_RUNS configuration, on the card
@@ -2504,63 +2093,6 @@ class Smoke:
         eng._phase = held
         return tally
 
-    def phase_bytes(self, hh) -> float:
-        """Bytes one colour phase must move, averaged over the colours:
-        the colour's ELL rows (int32 neighbours, f32 couplings, its
-        biases) read once, every replica's spins (and on dsim its ghosts,
-        f32) read once, the colour's LFSR states read and written, its
-        spins written."""
-        R, eng = hh.replicas, hh.eng
-        if hh.name == "gibbs":
-            sites = [int(x.numel()) for x in eng._nodes]
-            D, spins = eng.g.max_degree, eng.n
-        else:
-            sites = [int(c.slots.numel()) for c in eng._colors]
-            D = int(eng.p.local_idx.shape[-1])
-            spins = eng.p.K * (eng.p.n_max + 4 * eng.p.g_max)
-        nc = sum(sites) / len(sites)
-        return nc * (8 * D + 4) + R * spins + R * nc * (4 + 4 + 1)
-
-    def profile_graph(self, label: str, card: str):
-        """One profiled run of a GRAPH_RUNS configuration: the device's
-        busy share of the wall time, device operations per colour phase,
-        the costliest operations."""
-        t = self.torch
-        from torch.autograd import DeviceType
-        from torch.profiler import ProfilerActivity, profile
-        from repro_torch.core.annealing import ea_schedule
-        hh, sync = self.graph_engine(GRAPH_RUNS[label])
-        st0 = hh.init_state(seed=SEED)
-        t.cuda.synchronize()
-        with profile(activities=[ProfilerActivity.CPU,
-                                 ProfilerActivity.CUDA]) as prof:
-            t0 = time.perf_counter()
-            hh.run_recorded(st0, ea_schedule(MAIN_SWEEPS), MAIN_POINTS,
-                            sync_every=sync)
-            t.cuda.synchronize()
-            wall = time.perf_counter() - t0
-        rows = [(e.key, e.count, e.self_device_time_total)
-                for e in prof.key_averages()
-                if e.device_type == DeviceType.CUDA
-                and e.self_device_time_total > 0]
-        if not rows:
-            print(f"  profile {label}: the profiler saw no device time; "
-                  f"device busy share not measured", flush=True)
-            return
-        busy = sum(us for _, _, us in rows) / 1e6
-        ops = sum(c for _, c, _ in rows)
-        phases = MAIN_SWEEPS * self.col.n_colors
-        bound = self.phase_bytes(hh) / HBM_BYTES_PER_S
-        print(f"  profile {label}: wall {wall:.4f} s under the profiler, "
-              f"device busy {busy:.4f} s ({100 * busy / wall:.1f}%), "
-              f"{ops} device operations = {ops / phases:.1f} per colour "
-              f"phase ({phases} phases, record points included); device "
-              f"time per phase {busy / phases * 1e3:.4f} ms against a "
-              f"byte floor of {bound * 1e3:.4f} ms on {card}", flush=True)
-        for key, count, us in sorted(rows, key=lambda r: -r[2])[:8]:
-            print(f"    {us / 1e3:10.3f} ms  {count:6d} x  {key[:90]}",
-                  flush=True)
-
     # -- the distributed DSIM -----------------------------------------------
 
     def dist_whole_tables(self, eng, card: str):
@@ -2585,22 +2117,20 @@ class Smoke:
 
     def phase_dist(self, card: str):
         """The distributed DSIM at L=100 through make_engine("dsim_dist"),
-        all K partitions on the card: B7's two routes against their plain
-        versions, the JAX golden values, every DIST_RUNS
+        all K partitions on the card: B7's fused colour phase against its
+        plain version, the JAX golden values, every DIST_RUNS
         configuration against its device="cpu" twin over the first
-        TWIN_SWEEPS sweeps, then timed over MAIN_SWEEPS with the launches
-        counted, the
-        exchange and eta at two cadences, and a profiled bit-plane run."""
+        TWIN_SWEEPS sweeps, then run over MAIN_SWEEPS with the launches
+        counted, and the eta meter's report."""
         t = self.torch
         from repro_torch.core.annealing import ea_schedule
         from repro_torch.kernels import _build
-        print(f"== 7. distributed DSIM: make_engine('dsim_dist') at L={L}, "
+        print(f"== 6. distributed DSIM: make_engine('dsim_dist') at L={L}, "
               f"K={self.prob.K} partitions on one card", flush=True)
-        self.dist_kernel()
+        self.dist_phase_kernel()
         self.dist_golden()
         for label, kw in DIST_RUNS.items():
             self.dist_vs_cpu(label, kw)
-        self.dist_rates = {}
         phases = MAIN_SWEEPS * self.col.n_colors
         for label, kw in DIST_RUNS.items():
             hh, sync = self.dist_engine(kw)
@@ -2608,25 +2138,17 @@ class Smoke:
             if label == next(iter(DIST_RUNS)):
                 self.dist_whole_tables(hh.eng, card)
             st0 = hh.init_state(seed=SEED)
-            walls = []
-            for _ in range(2):      # the engine's first run, then a second
-                t.cuda.synchronize()
-                _build.reset_launch_counts()
-                t0 = time.perf_counter()
-                st, rec = hh.run_recorded(st0, ea_schedule(MAIN_SWEEPS),
-                                          MAIN_POINTS, sync_every=sync)
-                t.cuda.synchronize()
-                walls.append(time.perf_counter() - t0)
+            _build.reset_launch_counts()
+            st, rec = hh.run_recorded(st0, ea_schedule(MAIN_SWEEPS),
+                                      MAIN_POINTS, sync_every=sync)
             counts = {k: v for k, v in _build.launch_counts.items() if v}
-            gathers, fused, alone = self.pop_b7(counts)
+            gathers, fused = self.pop_b7(counts)
             if hh.precision == "bitplane":
                 self.launches["bitplane_gather_count"] = fused
-                check(gathers == fused == phases and alone == 0
-                      and not counts,
+                check(gathers == fused == phases and not counts,
                       f"{label}: the fused colour-phase kernel launched "
-                      f"{fused} times, once per colour phase ({phases}); the "
-                      f"standalone gather-count {alone} times; no lattice "
-                      f"kernel ({counts})")
+                      f"{fused} times, once per colour phase ({phases}); no "
+                      f"lattice kernel ({counts})")
             else:
                 check(gathers == 0 and not counts,
                       f"{label}: plain PyTorch operations, no kernel "
@@ -2639,19 +2161,7 @@ class Smoke:
                   f"{label}: energies finite, shape {tuple(e.shape)}, "
                   f"annealed, E/N at {MAIN_SWEEPS} sweeps in "
                   f"[{float(per_spin.min()):.4f}, {float(per_spin.max()):.4f}]")
-            dt = walls[1]
-            unit = "lane-flips/s" if hh.precision == "bitplane" \
-                else "flips/s"
-            self.dist_rates[label] = (n * R * MAIN_SWEEPS / dt, dt, rec.flips)
-            print(f"  {label}: {MAIN_SWEEPS} sweeps of {n} p-bits x R={R} in "
-                  f"{dt:.4f} s = {n * R * MAIN_SWEEPS / dt:.4e} {unit} "
-                  f"(first run {walls[0]:.4f} s; {rec.flips} accepted "
-                  f"flips; payload {hh.eng.boundary_payload()['bytes']} B "
-                  f"per partition and exchange) on {card}", flush=True)
-        self.dist_eta(card)
-        self.profile_dist(card)
-        self.time_gather_count(card)
-        self.time_phase(card)
+        self.dist_eta()
 
     def dist_engine(self, kw, device=None):
         """(handle, sync_every) of a DIST_RUNS configuration on the K=8
@@ -2686,57 +2196,12 @@ class Smoke:
                  ghosts=np.ascontiguousarray(ghosts))
         return hh.eng.shard_state(state_from_numpy(**d, device=self.dev))
 
-    def dist_kernel(self):
-        """The gather-count kernel against its plain version on the card,
-        bitwise: on the bit-plane run's L=100 operands (each colour, from
-        its initial state), and at D in GATHER_DEGREES on random rows of
-        the same K, W, nc and word pool."""
-        t = self.torch
-        from repro_torch.core.bits import u32_from_numpy
-        from repro_torch.kernels import ref
-        from repro_torch.kernels.bitplane_gather import bitplane_gather_count
-        hh, _ = self.dist_engine(DIST_RUNS[DIST_PROFILED])
-        st = hh.init_state(seed=SEED)
-        mext = t.cat([st.m.view(t.int32), st.ghosts.view(t.int32)],
-                     dim=2).view(t.uint32)
-        K, W, n_ext = (int(d) for d in mext.shape)
-        cases = [(f"colour {c}", (mext, col.sites.idx, col.sites.signs,
-                                  col.sites.nz))
-                 for c, col in enumerate(hh.eng._colors)]
-        nc = int(cases[0][1][1].shape[1])
-        rng = np.random.default_rng(7)
-        ones = np.uint32(0xFFFFFFFF)
-        for D in GATHER_DEGREES:
-            planes = [u32_from_numpy(np.where(
-                rng.random((K, nc, D)) < q, ones, 0).astype(np.uint32),
-                self.dev) for q in (0.5, 0.8)]
-            idx = t.from_numpy(rng.integers(0, n_ext, (K, nc, D),
-                                            dtype=np.int32)).to(self.dev)
-            cases.append((f"random rows, D={D}", (mext, idx, *planes)))
-        errs = []
-        for what, args in cases:
-            got = bitplane_gather_count(*args)
-            want = ref.bitplane_gather_count_ref(*args)
-            t.cuda.synchronize()
-            errs += [self.max_abs(a, b) for a, b in zip(got, want)]
-            D = int(args[1].shape[2])
-            check(len(got) == len(want) == D.bit_length() and
-                  all(self.same(a, b) for a, b in zip(got, want)),
-                  f"bitplane_gather_count at L={L}, {what}: K={K}, W={W}, "
-                  f"nc={nc}, n_ext={n_ext}, D={D}: its {len(got)} planes "
-                  f"== the plain version's, bitwise")
-        self.results["bitplane_gather_count"] = {"max_abs_err": 0.0}
-        self.gather_count = {"max_abs_err": max(errs)}
-        self.gather_inputs = cases[0][1]
-        self.dist_phase_kernel()
-
     @staticmethod
     def pop_b7(counts):
-        """(B7's launches, the fused phase's, the standalone
-        gather-count's), popped from a dict of launch counts."""
+        """(B7's launches, the fused colour phase's), popped from a dict
+        of launch counts."""
         return tuple(counts.pop(k, 0) for k in (
-            "bitplane_gather_count", "bitplane_gather_count:phase",
-            "bitplane_gather_count:count"))
+            "bitplane_gather_count", "bitplane_gather_count:phase"))
 
     def hold_phase(self, what, kernel, plain, mutable, consts):
         """One fused colour-phase launch against its plain version on
@@ -2802,13 +2267,12 @@ class Smoke:
                         m, gh, s_, sites, lut, row, e.f_max, f,
                         impl="ref"), (mw, s, flips), ()))
 
-        hh, sync = self.dist_engine(DIST_RUNS[DIST_PROFILED])
+        hh, sync = self.dist_engine(DIST_RUNS[DIST_BITPLANE])
         st0 = hh.init_state(seed=SEED)
         run(hh, st0, "initial state")
         st16, _ = hh.run_recorded(st0, ea_schedule(16), [16],
                                   sync_every=sync)
         run(hh, st16, "after 16 sweeps")
-        self.phase_inputs = (hh, st0)
         # random rows over the other colour's slots and the ghosts, odd
         # partitions padded
         e = hh.eng
@@ -2849,10 +2313,10 @@ class Smoke:
                   f"colour 1's padding owns slot 0")
             run(hh, st16, f"random rows D={D}, odd partitions padded",
                 colors)
-        hh40, _ = self.dist_engine(dict(DIST_RUNS[DIST_PROFILED],
+        hh40, _ = self.dist_engine(dict(DIST_RUNS[DIST_BITPLANE],
                                         replicas=40))
         run(hh40, hh40.init_state(seed=SEED), "R=40")
-        self.results["bitplane_gather_count"]["max_abs_err"] = max(errs)
+        self.results["bitplane_gather_count"] = {"max_abs_err": max(errs)}
 
     def dist_golden(self):
         """The JAX reference's L=100 dist runs from graph_m0: int8 R=2 and
@@ -2930,204 +2394,26 @@ class Smoke:
               f"E[0]="
               f"{float(ea[0, 0])})")
 
-    def dist_eta(self, card: str):
-        """The exchange alone (boundary_exchange_fn, CUDA events) and
-        dist_eta_meter's measured eta of DIST_ETA_RUN at sync_every 1 and
-        SYNC."""
+    def dist_eta(self):
+        """dist_eta_meter's report of one run of DIST_ETA_RUN at
+        sync_every SYNC, its exchange measured alone: finite."""
         from repro_torch.core.annealing import ea_schedule
         from repro_torch.obs.timing import dist_eta_meter
         hh, _ = self.dist_engine(DIST_RUNS[DIST_ETA_RUN])
         st = hh.init_state(seed=SEED)
         fn = hh.eng.boundary_exchange_fn()
-        ms = self.time_ms(lambda: fn(st), reps=200, warm=5)
-        pay = hh.eng.boundary_payload()
-        print(f"  dist exchange ({DIST_ETA_RUN}): {ms * 1e3:.1f} us per call "
-              f"(CUDA events; {pay['bytes']} B of {pay['dtype']} payload per "
-              f"partition); an in-process gather on one card, not a network "
-              f"link; on {card}", flush=True)
-        for sync in (1, SYNC):
-            hh.run_recorded(st, ea_schedule(MAIN_SWEEPS), MAIN_POINTS,
-                            sync_every=sync)                    # warm
-            cur = hh.start_recorded(st, ea_schedule(MAIN_SWEEPS),
-                                    MAIN_POINTS, sync_every=sync)
-            meter = dist_eta_meter(hh.eng, sync_every=sync).attach(cur)
-            while not cur.done:
-                cur.advance(1)
-            meter.measure_exchange(lambda: fn(cur.state), reps=100,
-                                   warmup=5)
-            r = meter.report()
-            check(all(np.isfinite(r[k]) and r[k] > 0 for k in (
-                "measured_eta", "eta_threshold", "f_comm_hz", "f_pbit_hz")),
-                f"dist eta at sync_every={sync}: finite")
-            print(f"  dist eta {DIST_ETA_RUN}, sync_every={sync}: measured "
-                  f"eta {r['measured_eta']:.4e} against the threshold "
-                  f"{r['eta_threshold']:.4e} (n_color {r['n_color']}, C_max "
-                  f"{r['c_max']:.0f}; margin {r['margin']:.4e}), f_comm "
-                  f"{r['f_comm_hz']:.4e} Hz (exchange "
-                  f"{r['t_exchange_s'] * 1e6:.1f} us), f_pbit "
-                  f"{r['f_pbit_hz']:.4e} Hz (sweep "
-                  f"{r['t_pbit_sweep_s'] * 1e6:.1f} us), "
-                  f"{r['chunks_recorded']} chunks; the exchange is an "
-                  f"in-process gather on one card; on {card}", flush=True)
+        cur = hh.start_recorded(st, ea_schedule(MAIN_SWEEPS), MAIN_POINTS,
+                                sync_every=SYNC)
+        meter = dist_eta_meter(hh.eng, sync_every=SYNC).attach(cur)
+        while not cur.done:
+            cur.advance(1)
+        meter.measure_exchange(lambda: fn(cur.state), reps=100, warmup=5)
+        r = meter.report()
+        check(all(np.isfinite(r[k]) and r[k] > 0 for k in (
+            "measured_eta", "eta_threshold", "f_comm_hz", "f_pbit_hz")),
+            f"dist eta at sync_every={SYNC}: finite")
 
-    def profile_dist(self, card: str):
-        """One profiled run of DIST_PROFILED: the device's busy share of
-        the wall time, the device time per colour phase and the fused
-        colour-phase kernel's launches, time per launch and share of the
-        device time."""
-        t = self.torch
-        from torch.autograd import DeviceType
-        from torch.profiler import ProfilerActivity, profile
-        from repro_torch.core.annealing import ea_schedule
-        hh, sync = self.dist_engine(DIST_RUNS[DIST_PROFILED])
-        st0 = hh.init_state(seed=SEED)
-        t.cuda.synchronize()
-        with profile(activities=[ProfilerActivity.CPU,
-                                 ProfilerActivity.CUDA]) as prof:
-            t0 = time.perf_counter()
-            hh.run_recorded(st0, ea_schedule(MAIN_SWEEPS), MAIN_POINTS,
-                            sync_every=sync)
-            t.cuda.synchronize()
-            wall = time.perf_counter() - t0
-        rows = [(e.key, e.count, e.self_device_time_total)
-                for e in prof.key_averages()
-                if e.device_type == DeviceType.CUDA
-                and e.self_device_time_total > 0]
-        if not rows:
-            print(f"  profile {DIST_PROFILED}: the profiler saw no device "
-                  f"time; device busy share not measured", flush=True)
-            return
-        busy = sum(us for _, _, us in rows) / 1e6
-        hits = [(c, us) for key, c, us in rows
-                if "bitplane_phase_kernel" in key]
-        count, us = sum(c for c, _ in hits), sum(u for _, u in hits)
-        phases = MAIN_SWEEPS * self.col.n_colors
-        n, R = hh.n_sites, hh.replicas
-        print(f"  profile {DIST_PROFILED}: wall {wall:.4f} s under the "
-              f"profiler, device busy {busy:.4f} s ({100 * busy / wall:.1f}"
-              f"%), device time per colour phase "
-              f"{busy / phases * 1e3:.4f} ms; fused colour-phase kernel "
-              f"{count} launches, {us / max(count, 1):.1f} us per launch, "
-              f"{100 * us / 1e6 / busy:.1f}% of the device time; "
-              f"{n * R * MAIN_SWEEPS / wall:.4e} lane-flips/s under the "
-              f"profiler; on {card}", flush=True)
-        for key, count, us in sorted(rows, key=lambda r: -r[2])[:8]:
-            print(f"    {us / 1e3:10.3f} ms  {count:6d} x  {key[:90]}",
-                  flush=True)
-
-    def time_gather_count(self, card: str):
-        """The standalone gather-count wrapper (B7's first route, which no
-        engine launches any more) against its plain version at one colour
-        of the bit-plane run; bound: every input read once (the rows' D
-        indices, signs and nonzero masks, and of the word pool only the
-        words the rows reach with a nonzero mask: the distinct slots per
-        partition), every output plane written once, and per (partition,
-        word, site) the XOR and AND of each neighbour plus 2 ops per slice
-        it ripples through.  Kept under the B7 entry's "count"."""
-        from repro_torch.kernels import ref
-        from repro_torch.kernels.bitplane_gather import bitplane_gather_count
-        args = self.gather_inputs
-        K, W, n_ext = (int(d) for d in args[0].shape)
-        nc, D = int(args[1].shape[1]), int(args[1].shape[2])
-        w, reached = self.gather_work(args)
-        by, _, times = self.bound(w)
-        r = self.gather_count
-        r.update({
-            "name": "bitplane_gather_count:count", "route": "cuda",
-            "source": "src/repro_torch/kernels/csrc/bitplane_gather.cu",
-            "replaces": "src/repro/kernels/ops.py:120", "launches": 0,
-            "ms": self.time_ms(lambda: bitplane_gather_count(*args),
-                               reps=50),
-            "plain_ms": self.time_ms(
-                lambda: ref.bitplane_gather_count_ref(*args), reps=3,
-                warm=1),
-            "bound_ms": times[by],
-            "bound_by": "bytes" if by == "bytes" else "operations",
-            "library_ms": None})
-        print(f"  bitplane_gather_count (standalone): {r['ms']:.4f} ms (one "
-              f"colour, K={K}, W={W}, nc={nc}, D={D}, {reached} of "
-              f"{K * n_ext} pool slots reached, 1 launch), plain "
-              f"{r['plain_ms']:.4f} ms, bound {r['bound_ms']:.4f} ms by "
-              f"{by} (" + ", ".join(f"{k} {v:.4f} ms" for k, v in
-                                   times.items()) + f"); on {card}",
-              flush=True)
-
-    def phase_work(self, sites, W: int, R: int, lut_bytes: int):
-        """(work, what) of one fused colour phase on ``sites``
-        (``repro_torch.kernels.work.colour_phase``)."""
-        from repro_torch.kernels import work
-        c = work.phase_counts(sites)
-        what = (f"K={c['K']}, W={W}, R={R}, nc={c['nc']}, D={c['D']}: "
-                f"{c['real']} real entries, {c['owners']} owners, "
-                f"{c['reached']} neighbour slots reached")
-        return work.colour_phase(W=W, R=R, lut_bytes=lut_bytes, **c), what
-
-    def time_phase(self, card: str):
-        """The fused colour phase (B7's route on the main path) against
-        its plain version at colour 0 of the bit-plane run (CUDA events
-        over 50 launches, in place: the work per launch does not depend
-        on the data), beside its bound (``phase_work``)."""
-        t = self.torch
-        from repro_torch.core.annealing import beta_table, ea_schedule
-        from repro_torch.core.bits import u32_to_i64
-        from repro_torch.kernels import ops
-        from repro_torch.kernels.bitplane_phase import (bitplane_phase,
-                                                        phase_sites)
-        hh, st = self.phase_inputs
-        e = hh.eng
-        lut = u32_to_i64(e._lut_for(beta_table(
-            ea_schedule(MAIN_SWEEPS).beta_array())))
-        row = int(lut.shape[0]) // 2
-        mw, gh = st.m.view(t.int32).clone(), st.ghosts.view(t.int32)
-        s = u32_to_i64(st.rng)
-        flips = t.zeros(hh.replicas, dtype=t.int64, device=self.dev)
-        sites = e._colors[0].sites
-        W, R = int(mw.shape[1]), hh.replicas
-        w, what = self.phase_work(sites, W, R, 8 * int(lut.shape[1]))
-        self._timed("bitplane_gather_count", "src/repro_torch/kernels/csrc/"
-                    "bitplane_phase.cu", "src/repro/kernels/ops.py:120",
-                    lambda: bitplane_phase(mw, gh, s, sites, lut, row,
-                                           e.f_max, flips),
-                    lambda: ops.bitplane_phase_op(mw, gh, s, sites, lut, row,
-                                                  e.f_max, flips,
-                                                  impl="ref"),
-                    w, f"one colour, {what}, 1 launch")
-        r = self.results["bitplane_gather_count"]
-        print(f"  bitplane_gather_count (fused colour phase): "
-              f"{r['ms']:.4f} ms ({r['work']}), plain {r['plain_ms']:.4f} "
-              f"ms, bound {r['bound_ms']:.4f} ms by {r['bound_by']} "
-              f"({r['bounds']}; {w.bytes} bytes); {r['launches']} launches on "
-              f"the bit-plane dist run; on {card}", flush=True)
-        del r["work"], r["bounds"]
-        r["count"] = self.gather_count
-        # the cost of the colour's interleaved slots: the same launch with
-        # its entries on slots 0 .. nc-1 of each partition (a timing probe
-        # only: those slots overlap the neighbours it reads)
-        K, nc = (int(d) for d in sites.slots.shape)
-        contig = phase_sites(
-            t.arange(nc, device=self.dev).expand(K, nc),
-            t.ones((K, nc), dtype=t.bool, device=self.dev), None,
-            sites.idx, sites.signs, sites.nz, sites.base)
-        ms = self.time_ms(lambda: bitplane_phase(mw, gh, s, contig, lut, row,
-                                                 e.f_max, flips), reps=50)
-        r["contiguous_ms"] = ms
-        print(f"  the same launch on slots 0..{nc - 1} of each partition "
-              f"(whole 32 B sectors of LFSR states and words): {ms:.4f} ms; "
-              f"the colour's interleaved slots cost {r['ms'] - ms:.4f} ms "
-              f"({100 * (r['ms'] - ms) / r['ms']:.1f}% of the launch); on "
-              f"{card}", flush=True)
-
-    def gather_work(self, args):
-        """(work, pool slots reached) of one gather-count call on
-        ``args`` (``repro_torch.kernels.work.gather_count``)."""
-        from repro_torch.kernels import work
-        mext, idx, nz = args[0], args[1], args[3]
-        K, W = int(mext.shape[0]), int(mext.shape[1])
-        nc, D = int(idx.shape[1]), int(idx.shape[2])
-        reached = work.reached_slots(idx, nz.view(self.torch.int32) != 0)
-        return work.gather_count(K, W, nc, D, reached), reached
-
-    # -- phase 8: the degraded mesh and the sampling server ---------------
+    # -- phase 7: the degraded mesh and the sampling server ---------------
 
     def deg_run(self, hh, codes, st0=None):
         """A degraded run of DEG_SWEEPS chunk by chunk with ``codes``
@@ -3157,14 +2443,13 @@ class Smoke:
             all(self.same(x, y) for x, y in zip(getattr(a, "halos", ()),
                                                 getattr(b, "halos", ())))
 
-    def phase_degraded(self, card: str):
+    def phase_degraded(self):
         """(a) the lattice mesh and (b) dsim_dist with a degrade policy at
         L=100: without faults bitwise the unchecked run, with DEG_CODES
         equal to the plain run (impl="ref" on the card, or the CPU twin)
         with the same codes and the report the codes predict, freeze,
-        resync and fail_fast; the checked exchange timed against the
-        unchecked one; eta and effective_eta under injected drops."""
-        print(f"== 8. degraded mesh at L={L}: checked exchange, stale hold, "
+        resync and fail_fast; effective_eta under injected drops."""
+        print(f"== 7. degraded mesh at L={L}: checked exchange, stale hold, "
               f"freeze, resync", flush=True)
         lat_fields = ("m", "s", "sweep", "flips")
         bad = [i for i, c in enumerate(DEG_CODES) if c]
@@ -3218,7 +2503,7 @@ class Smoke:
               f"mesh (2,2,2) int8 R=2 {DEG_POLICY}: MESH_GOLDEN energies, "
               f"flips and sha256(m)")
         # freeze, resync, fail_fast on int8 R=4 (2,2,2)
-        kw = MESH_RUNS[ETA_RUN]
+        kw = MESH_RUNS[ONE_MESH]
         freeze = [0, 0, 2]
         hf = self.engine(dict(kw, degrade="freeze_boundary"))
         got = self.deg_run(hf, freeze)
@@ -3229,7 +2514,7 @@ class Smoke:
               rep == ref[2] and rep["detections"] == 1 and
               rep["stale_exchanges"] == 6 and rep["staleness"] == [6] * 6
               and rep["suspect"],
-              f"{ETA_RUN} freeze_boundary codes {freeze}: == impl='ref' "
+              f"{ONE_MESH} freeze_boundary codes {freeze}: == impl='ref' "
               f"bitwise; 1 detection, every face held from exchange 2 on "
               f"({rep['stale_exchanges']} held, staleness "
               f"{rep['staleness']})")
@@ -3243,86 +2528,59 @@ class Smoke:
         ff = [0, 0, 0, 0, 0, 2, 0, 0]
         got = self.deg_run(self.engine(dict(kw, degrade="fail_fast")), ff)
         check(got[3] and got[4] == 16 and got[2]["detections"] == 1,
-              f"{ETA_RUN} fail_fast codes {ff}: StateCorruption at the "
+              f"{ONE_MESH} fail_fast codes {ff}: StateCorruption at the "
               f"chunk of exchange 5 (stopped at sweep {got[4]})")
-        self.deg_lattice_exchange(card)
-        self.deg_dist(card)
+        self.deg_lattice_eta()
+        self.deg_dist()
 
-    def time_exchange(self, label, unchecked, checked, corrupt, card):
-        """µs per call of an exchange, unchecked, checked without faults
-        and checked with a corrupt code (CUDA events)."""
-        us = [self.time_ms(fn, reps=200, warm=5) * 1e3
-              for fn in (unchecked, checked, corrupt)]
-        print(f"  {label}: exchange {us[0]:.1f} us per call unchecked, "
-              f"{us[1]:.1f} us checked ({us[1] / us[0]:.2f}x), {us[2]:.1f} "
-              f"us checked with a corrupt code (CUDA events); an in-process "
-              f"gather on one card; on {card}", flush=True)
-        self.deg_exchange_us[label] = us
-
-    def deg_lattice_exchange(self, card: str):
-        t = self.torch
+    def deg_lattice_eta(self):
+        """``deg_eta`` of ONE_MESH under DEG_POLICY, its checked exchange
+        measured alone."""
         from repro_torch.core.degrade import carry_to_device, health_init
-        self.deg_exchange_us = {}
-        hh = self.engine(dict(MESH_RUNS[ETA_RUN], degrade=DEG_POLICY))
+        hh = self.engine(dict(MESH_RUNS[ONE_MESH], degrade=DEG_POLICY))
         eng = hh.eng
         st = hh.init_state(seed=SEED)
         m = eng._bricks_of(st.m)
         ex = eng._exchanger(int(m.shape[1]), m.dtype)
         buf = ex.buffer(st.halos)
         hc = carry_to_device(health_init(6), len(eng.coords), self.dev)
-        codes = t.tensor([2], dtype=t.int64, device=self.dev)
-        self.time_exchange(f"lattice {ETA_RUN}", lambda: ex(m),
-                           lambda: ex.checked(m, buf, hc, None, False),
-                           lambda: ex.checked(m, buf, hc, codes, False),
-                           card)
-        self.deg_eta(f"lattice {ETA_RUN}", hh, n_color=eng.p.n_colors,
+        self.deg_eta(f"lattice {ONE_MESH}", hh, n_color=eng.p.n_colors,
                      exchange=lambda s: ex.checked(
-                         eng._bricks_of(s.m), buf, hc, None, False),
-                     card=card)
+                         eng._bricks_of(s.m), buf, hc, None, False))
 
-    def deg_eta(self, label, hh, exchange, card, n_color=None):
-        """Measured eta and effective_eta at sync_every 1 and SYNC under
-        DEG_POLICY with every eighth exchange dropped: the checked
-        exchange timed alone, the held exchanges fed to the meter from
-        the health report."""
+    def deg_eta(self, label, hh, exchange, n_color=None):
+        """Measured eta and effective_eta of one run at sync_every SYNC
+        under DEG_POLICY with every eighth exchange dropped, the held
+        exchanges fed to the meter from the health report: effective eta
+        is 7/8 of eta."""
         from repro_torch.core.annealing import ea_schedule
         from repro_torch.obs.timing import EtaMeter, dist_eta_meter
-        for sync in (1, SYNC):
-            n_ex = MAIN_SWEEPS // sync
-            codes = [1 if i % 8 == 3 else 0 for i in range(n_ex)]
-            hh.eng.set_exchange_faults(codes)
-            st = hh.init_state(seed=SEED)
-            hh.run_recorded(st, ea_schedule(MAIN_SWEEPS), MAIN_POINTS,
-                            sync_every=sync)                    # warm
-            cur = hh.start_recorded(st, ea_schedule(MAIN_SWEEPS),
-                                    MAIN_POINTS, sync_every=sync)
-            meter = (EtaMeter(n_color=n_color, sync_every=sync)
-                     if n_color is not None else
-                     dist_eta_meter(hh.eng, sync_every=sync)).attach(cur)
-            while not cur.done:
-                cur.advance(1)
-            meter.measure_exchange(lambda: exchange(cur.state), reps=100,
-                                   warmup=5)
-            rep = hh.eng.health.report()
-            meter.note_stale(rep["stale_exchanges"], rep["exchanges_total"],
-                             rep["max_staleness_seen"])
-            r = meter.report()
-            check(rep["stale_exchanges"] == n_ex // 8 and
-                  abs(r["effective_eta"] - r["measured_eta"] * 7 / 8)
-                  <= 1e-9 * r["measured_eta"] and
-                  np.isfinite(r["effective_eta"]) and r["effective_eta"] > 0,
-                  f"{label} sync_every={sync}: {rep['stale_exchanges']} of "
-                  f"{n_ex} exchanges held, effective eta = 7/8 of eta")
-            print(f"  {label}, {DEG_POLICY}, sync_every={sync}: measured "
-                  f"eta {r['measured_eta']:.4e}, effective eta "
-                  f"{r['effective_eta']:.4e} (delivered "
-                  f"{r['delivered_fraction']:.4f}), checked exchange "
-                  f"{r['t_exchange_s'] * 1e6:.1f} us, sweep "
-                  f"{r['t_pbit_sweep_s'] * 1e6:.1f} us; on {card}",
-                  flush=True)
+        n_ex = MAIN_SWEEPS // SYNC
+        hh.eng.set_exchange_faults([1 if i % 8 == 3 else 0
+                                    for i in range(n_ex)])
+        cur = hh.start_recorded(hh.init_state(seed=SEED),
+                                ea_schedule(MAIN_SWEEPS), MAIN_POINTS,
+                                sync_every=SYNC)
+        meter = (EtaMeter(n_color=n_color, sync_every=SYNC)
+                 if n_color is not None else
+                 dist_eta_meter(hh.eng, sync_every=SYNC)).attach(cur)
+        while not cur.done:
+            cur.advance(1)
+        meter.measure_exchange(lambda: exchange(cur.state), reps=100,
+                               warmup=5)
+        rep = hh.eng.health.report()
+        meter.note_stale(rep["stale_exchanges"], rep["exchanges_total"],
+                         rep["max_staleness_seen"])
+        r = meter.report()
+        check(rep["stale_exchanges"] == n_ex // 8 and
+              abs(r["effective_eta"] - r["measured_eta"] * 7 / 8)
+              <= 1e-9 * r["measured_eta"] and
+              np.isfinite(r["effective_eta"]) and r["effective_eta"] > 0,
+              f"{label} sync_every={SYNC}: {rep['stale_exchanges']} of "
+              f"{n_ex} exchanges held, effective eta = 7/8 of eta")
         hh.eng.set_exchange_faults(None)
 
-    def deg_dist(self, card: str):
+    def deg_dist(self):
         t = self.torch
         from repro_torch import make_engine
         from repro_torch.core.annealing import ea_schedule
@@ -3375,21 +2633,10 @@ class Smoke:
             check(got[3] and got[4] == 16,
                   f"{label} fail_fast: StateCorruption at the chunk of "
                   f"exchange 5 (stopped at sweep {got[4]})")
-            # the exchange alone: unchecked, checked, checked and corrupt
-            eng = hd.eng
-            st = hd.init_state(seed=SEED)
-            word = prec == "bitplane"
-            x = st.m.view(t.int32) if word else st.m
-            gh = st.ghosts.view(t.int32) if word else st.ghosts
-            hc = carry_to_device(health_init(self.prob.K), 1, self.dev)
-            one = t.tensor([2], dtype=t.int64, device=self.dev)
-            self.time_exchange(label, lambda: eng._refresh(x),
-                               lambda: eng._exchange_checked(
-                                   x, gh, hc, None, False),
-                               lambda: eng._exchange_checked(
-                                   x, gh, hc, one, False), card)
             if prec == "int8":
-                self.deg_eta(label, hd, card=card, exchange=lambda s:
+                eng = hd.eng
+                hc = carry_to_device(health_init(self.prob.K), 1, self.dev)
+                self.deg_eta(label, hd, exchange=lambda s:
                              eng._exchange_checked(s.m, s.ghosts, hc, None,
                                                    False))
 
@@ -3421,7 +2668,7 @@ class Smoke:
         return FaultPlan([FaultRule(site="exchange_corrupt", index=1),
                           FaultRule(site="exchange_drop", index=SERVER_DROP)])
 
-    def phase_server(self, card: str):
+    def phase_server(self):
         """(c) repro_torch.serve.SampleServer on the card at L=100."""
         t = self.torch
         from repro_torch.core.partition import brick_partition
@@ -3429,7 +2676,7 @@ class Smoke:
         from repro_torch.kernels import _build
         from repro_torch.core.mesh import make_mesh
         from repro_torch.serve import SampleServer
-        print(f"== 8c. sampling server: repro_torch.serve.SampleServer at "
+        print(f"== 7c. sampling server: repro_torch.serve.SampleServer at "
               f"L={L} on the card", flush=True)
 
         def server():
@@ -3465,8 +2712,6 @@ class Smoke:
             check(self.server_launches[name] > 0,
                   f"server path launched {name} "
                   f"{self.server_launches[name]} times")
-        check(self.server_launches["bitplane_gather_count:count"] == 0,
-              "server path: B7 only as the fused colour phase")
         bad = out.pop("failing")
         check(bad["status"] == "failed" and
               "StateCorruption" in (bad["error"] or "") and
@@ -3528,52 +2773,14 @@ class Smoke:
               np.array_equal(rs["best_spins"], out[first[1]]["best_spins"]),
               f"packed job {first[1]!r} == its solo run bitwise (energies, "
               f"flips, best spins)")
-        # throughput: the jobs again on the warm server, then directly
-        walls, flips = [], 0
-        for _ in range(2):
-            t.cuda.synchronize()
-            t0 = time.perf_counter()
-            ids = submit(srv, SERVER_JOBS)
-            srv.drain()
-            t.cuda.synchronize()
-            walls.append(time.perf_counter() - t0)
+        # the jobs again on the warm server
+        ids = submit(srv, SERVER_JOBS)
+        srv.drain()
         res = [srv.result(j) for j in ids.values()]
         check(all(r["status"] == "done" and r["pool_hit"] for r in res),
-              "warm rounds: every job done from a pooled engine")
-        flips = sum(r["flips"] for r in res)
-        dt = walls[1]
-        updates = sum(L ** 3 * kw["replicas"] * MAIN_SWEEPS
-                      for _, kw in SERVER_JOBS.values())
-        # the direct baseline: each job on its own engine, built and run
-        # once before the timed pass (as the server's pooled engines)
-        handles = {}
-        for label, (name, kw) in SERVER_JOBS.items():
-            handles[label] = self.server_direct(name, kw, MAIN_SWEEPS, pts,
-                                             seeds[label])[0]
-        t.cuda.synchronize()
-        t0 = time.perf_counter()
-        for label, (name, kw) in SERVER_JOBS.items():
-            self.server_direct(name, kw, MAIN_SWEEPS, pts, seeds[label],
-                               hh=handles[label])
-        t.cuda.synchronize()
-        dd = time.perf_counter() - t0
-        # the part of each job that is host work: its initial state (spins
-        # and LFSR columns drawn per replica with numpy, then copied in)
-        t0 = time.perf_counter()
-        for label, (_, kw) in SERVER_JOBS.items():
-            handles[label].init_state_packed(seeds[label])
-        t.cuda.synchronize()
-        di = time.perf_counter() - t0
-        n = len(SERVER_JOBS)
-        print(f"  server: {n} jobs in {dt:.4f} s (first warm round "
-              f"{walls[0]:.4f} s) = {n / dt:.4f} jobs/s, "
-              f"{updates / dt:.4e} flips/s ({flips} accepted flips); "
-              f"the same jobs run one by one on warm make_engine handles "
-              f"{dd:.4f} s = {n / dd:.4f} jobs/s, {updates / dd:.4e} "
-              f"flips/s; their initial states alone {di:.4f} s; on {card}",
-              flush=True)
+              "a warm round: every job done from a pooled engine")
 
-    # -- phase 9: APT+ICM on the G81 shape ----------------------------------
+    # -- phase 8: APT+ICM on the G81 shape ----------------------------------
 
     def apt(self, mode, device=None, draws=None):
         from repro_torch.core.apt_icm import APTICM
@@ -3594,53 +2801,45 @@ class Smoke:
                     sweeps=np.asarray(ts).tolist(),
                     best=np.asarray(best).tolist())
 
-    def phase_apt(self, card: str):
+    def phase_apt(self):
         """APT+ICM (repro_torch.core.apt_icm) on the G81 shape at full
         width: APT_GOLDEN and the device="cpu" twin with HostDraws, the
         fused colour phase against its plain version at the packed
-        shape, the three modes timed over APT_SWEEPS sweeps with the
-        launches counted, packed == lfsr with the card's generator, the
-        ICM's share of the time and its host syncs, one profiled packed
-        run and one adapt_ladder call."""
+        shape, the three modes over APT_SWEEPS sweeps with the launches
+        counted, packed == lfsr with the card's generator, and one
+        adapt_ladder call."""
         t = self.torch
         from repro_torch.core.apt_icm import HostDraws, adapt_ladder
         from repro_torch.core.energy import energy
-        from repro_torch.kernels import _build
         from repro_torch.problems.maxcut import cut_of
         g, col = self.g81_ising, self.col81
         N, P, T = g.n, APT_CHAINS, APT_T
-        print(f"== 9. APT+ICM on the G81 shape: N={N}, P={P} chains x T={T} "
+        print(f"== 8. APT+ICM on the G81 shape: N={N}, P={P} chains x T={T} "
               f"temperatures, {col.n_colors} colours", flush=True)
         for mode in ("lfsr", "packed"):
             got = {}
             for dev in (None, "cpu"):
                 apt = self.apt(mode, dev, HostDraws(APT_DRAW_SEED))
-                t0 = time.perf_counter()
                 st, (ts, best) = apt.run(
                     apt.init_state(seed=SEED), APT_GOLDEN_SWEEPS,
                     icm_every=APT_GOLDEN_ICM, record_every=APT_GOLDEN_ICM)
                 if dev is None:
-                    t.cuda.synchronize()
                     check(apt.device.type == "cuda" and
                           st.m.device.type == "cuda",
                           f"APT {mode} runs on {apt.device}")
                     if mode == "packed":
                         self.apt_golden_state = st
-                got[dev] = (self.apt_digest(apt, st, ts, best),
-                            time.perf_counter() - t0)
-            check(got[None][0] == APT_GOLDEN,
+                got[dev] = self.apt_digest(apt, st, ts, best)
+            check(got[None] == APT_GOLDEN,
                   f"APT {mode} on the card with HostDraws({APT_DRAW_SEED}) "
                   f"reproduces APT_GOLDEN: spins, energies and LFSR digests, "
                   f"{APT_GOLDEN['swaps']} swaps, {APT_GOLDEN['icms']} ICMs, "
                   f"best-energy trace {APT_GOLDEN['best']}")
-            check(got["cpu"][0] == got[None][0],
+            check(got["cpu"] == got[None],
                   f"APT {mode}: card == device='cpu' twin bitwise over "
-                  f"{APT_GOLDEN_SWEEPS} sweeps ({got[None][1]:.2f} s on the "
-                  f"card, {got['cpu'][1]:.2f} s on the CPU)")
-        self.apt_kernel(card, self.apt_golden_state)
-        runs = {}
-        for mode in APT_MODES:
-            runs[mode] = self.apt_main(mode, card)
+                  f"{APT_GOLDEN_SWEEPS} sweeps")
+        self.apt_kernel(self.apt_golden_state)
+        runs = {mode: self.apt_main(mode) for mode in APT_MODES}
         (lu, lst, lb), (pk, pst, pb) = runs["lfsr"][:3], runs["packed"][:3]
         check(t.equal(lu.spins(lst), pk.spins(pst)) and t.equal(lst.E, pst.E)
               and self.same(lst.lfsr.reshape(-1), pst.lfsr.reshape(-1))
@@ -3651,7 +2850,7 @@ class Smoke:
               f"card's generator (spins, energies, LFSR, {int(pst.swaps)} "
               f"swaps, {int(pst.icms)} ICMs, generator state, trace)")
         w_tot = float(self.g81.w.sum()) / 2
-        for mode, (apt, st, best, wall, launches) in runs.items():
+        for mode, (apt, st, best) in runs.items():
             spins, e_best = apt.best_config(st)
             cut = cut_of(self.g81, spins)
             E = st.E
@@ -3661,65 +2860,43 @@ class Smoke:
                   f"APT {mode}: energies finite (P, T), tracked == direct, "
                   f"best cut {cut:.0f} == (W - E_best) / 2, best energy "
                   f"{best[0]:.0f} -> {best[-1]:.0f}")
-            rate = N * P * T * APT_SWEEPS / wall
-            print(f"  APT {mode}: {APT_SWEEPS} sweeps of {N} p-bits x "
-                  f"{P * T} replicas in {wall:.4f} s = "
-                  f"{APT_SWEEPS / wall:.2f} sweeps/s, {rate:.4e} p-bit "
-                  f"updates/s; best cut {cut:.0f}; on {card}", flush=True)
-        self.apt_shares(card)
-        self.profile_apt(card)
-        t.cuda.synchronize()
-        t0 = time.perf_counter()
         ladder = adapt_ladder(g, col, 1.0, 6.0, T)
-        t.cuda.synchronize()
-        dt = time.perf_counter() - t0
         check(len(ladder) == T and bool((np.diff(ladder) > 0).all()) and
               abs(ladder[0] - 1.0) < 1e-9 and abs(ladder[-1] - 6.0) < 1e-9,
               f"adapt_ladder(G81, 1.0, 6.0, {T}) on the card: increasing "
-              f"from 1.0 to 6.0, in {dt:.3f} s on {card}")
+              f"from 1.0 to 6.0")
 
-    def apt_main(self, mode, card):
-        """One warm short run, then APT_SWEEPS sweeps timed with the launch
-        counters at 0 just before; returns (engine, state, best trace,
-        wall seconds, launches)."""
-        t = self.torch
+    def apt_main(self, mode):
+        """APT_SWEEPS sweeps with the launch counters at 0 just before;
+        returns (engine, state, best trace)."""
         from repro_torch.kernels import _build
         apt = self.apt(mode)
         st0 = apt.init_state(seed=SEED)
-        apt.run(st0, 2, icm_every=1, record_every=2)
-        t.cuda.synchronize()
         _build.reset_launch_counts()
-        t0 = time.perf_counter()
         st, (_, best) = apt.run(st0, APT_SWEEPS, icm_every=APT_ICM_EVERY,
                                 record_every=APT_ICM_EVERY)
-        t.cuda.synchronize()
-        wall = time.perf_counter() - t0
         counts = {k: v for k, v in _build.launch_counts.items() if v}
-        gathers, fused, alone = self.pop_b7(counts)
+        gathers, fused = self.pop_b7(counts)
         phases = APT_SWEEPS * self.col81.n_colors
         if mode == "packed":
             self.apt_launches = fused
-            check(gathers == fused == phases and alone == 0 and not counts,
+            check(gathers == fused == phases and not counts,
                   f"APT packed: the fused colour-phase kernel launched "
-                  f"{fused} times, once per colour phase ({phases}); the "
-                  f"standalone gather-count {alone} times; no other kernel "
-                  f"({counts})")
+                  f"{fused} times, once per colour phase ({phases}); no "
+                  f"other kernel ({counts})")
         else:
             check(gathers == 0 and not counts,
                   f"APT {mode}: plain PyTorch operations, no kernel "
                   f"launched ({counts})")
-        return apt, st, best, wall, fused
+        return apt, st, best
 
-    def apt_kernel(self, card, st16):
+    def apt_kernel(self, st16):
         """The fused colour phase against its plain version at the packed
         APT shape (K=1, W=4, every colour), bitwise (words, LFSR states,
         energies), from the initial state and from ``st16`` (the golden
-        run's state after APT_GOLDEN_SWEEPS sweeps); then timed beside its
-        bound, and the standalone gather-count at the same shape."""
-        t = self.torch
+        run's state after APT_GOLDEN_SWEEPS sweeps)."""
         from repro_torch.core.bits import u32_to_i64
-        from repro_torch.kernels import ops, ref
-        from repro_torch.kernels.bitplane_gather import bitplane_gather_count
+        from repro_torch.kernels import ops
         from repro_torch.kernels.bitplane_phase import bitplane_phase_apt
         apt = self.apt("packed")
         errs = []
@@ -3740,129 +2917,10 @@ class Smoke:
                     (mw, s, E), consts))
         r = self.results["bitplane_gather_count"]
         r["max_abs_err"] = max([r["max_abs_err"]] + errs)
-        st = apt.init_state(seed=SEED)
-        for c, sites in enumerate(apt._sites):
-            garg = (st.m[None], sites.idx, sites.signs, sites.nz)
-            got = bitplane_gather_count(*garg)
-            want = ref.bitplane_gather_count_ref(*garg)
-            t.cuda.synchronize()
-            err = max(self.max_abs(a, b) for a, b in zip(got, want))
-            self.gather_count["max_abs_err"] = max(
-                self.gather_count["max_abs_err"], err)
-            check(len(got) == len(want) and
-                  all(self.same(a, b) for a, b in zip(got, want)),
-                  f"bitplane_gather_count (standalone) at the APT shape, "
-                  f"colour {c}: K=1, W={apt.words}, "
-                  f"nc={int(sites.idx.shape[1])}, n_ext={apt.n}, "
-                  f"D={int(sites.idx.shape[2])}: == the plain version "
-                  f"bitwise")
-        mw, s, E = st.m.clone(), u32_to_i64(st.lfsr), st.E.reshape(-1)
-        sites = apt._sites[0]
-        args = (mw, s, sites, apt._thr_lanes, apt.f_max, E.clone(),
-                apt._scale_f32)
-        ms = self.time_ms(lambda: bitplane_phase_apt(*args), reps=50)
-        plain = self.time_ms(lambda: ops.bitplane_phase_apt_op(
-            *args, impl="ref"), reps=3, warm=1)
-        lw = int(apt._thr_lanes.shape[1])
-        w, what = self.phase_work(sites, apt.words, apt.L,
-                                  8 * apt.L * lw + 8 * apt.L)
-        by, bound, _ = self.bound(w)
-        garg = (st.m[None], sites.idx, sites.signs, sites.nz)
-        gms = self.time_ms(lambda: bitplane_gather_count(*garg), reps=50)
-        gplain = self.time_ms(lambda: ref.bitplane_gather_count_ref(*garg),
-                              reps=3, warm=1)
-        gw, _ = self.gather_work(garg)
-        gby, gbound, _ = self.bound(gw)
-        # the whole packed sweep, to see what the phases cost in it
-        lfsr = u32_to_i64(st.lfsr)
-        sweep = self.time_ms(lambda: apt._gibbs_sweep_packed(
-            st.m, st.E, lfsr), reps=10)
-        n_col = self.col81.n_colors
-        r["apt"] = {"ms": ms, "plain_ms": plain, "bound_ms": bound,
-                    "bound_by": "bytes" if by == "bytes" else "operations",
-                    "count_ms": gms, "count_plain_ms": gplain,
-                    "count_bound_ms": gbound}
-        print(f"  fused colour phase at the APT shape: {ms:.4f} ms per "
-              f"colour ({what}; plain {plain:.4f} ms, bound {bound:.4f} ms "
-              f"by {by}: {w.bytes} bytes, {w.int32} INT32 ops); the standalone "
-              f"gather-count there {gms:.4f} ms (plain {gplain:.4f} ms, "
-              f"bound {gbound:.4f} ms by {gby}); one packed sweep "
-              f"{sweep:.4f} ms, of which the {n_col} fused phases "
-              f"{100 * n_col * ms / sweep:.1f}%; on {card}", flush=True)
 
-    def apt_shares(self, card):
-        """Per mode, one run with every ICM bracketed by synchronises: the
-        ICM's share of the wall time and its host syncs per ICM."""
-        t = self.torch
-        for mode in APT_MODES:
-            apt = self.apt(mode)
-            st0 = apt.init_state(seed=SEED)
-            spent = [0.0]
-            for name in ("_icm", "_icm_packed"):
-                fn = getattr(apt, name)
+    # -- phase 9: the static audit on the card's path ----------------------
 
-                def timed(*a, fn=fn):
-                    t.cuda.synchronize()
-                    t0 = time.perf_counter()
-                    out = fn(*a)
-                    t.cuda.synchronize()
-                    spent[0] += time.perf_counter() - t0
-                    return out
-                setattr(apt, name, timed)
-            t.cuda.synchronize()
-            t0 = time.perf_counter()
-            apt.run(st0, APT_SWEEPS, icm_every=APT_ICM_EVERY,
-                    record_every=APT_ICM_EVERY)
-            t.cuda.synchronize()
-            wall = time.perf_counter() - t0
-            print(f"  APT {mode}: ICM {spent[0]:.4f} s of {wall:.4f} s "
-                  f"({100 * spent[0] / wall:.1f}%), {apt.icm_calls} ICMs, "
-                  f"{apt.icm_syncs / max(apt.icm_calls, 1):.2f} host syncs "
-                  f"per ICM; on {card}", flush=True)
-
-    def profile_apt(self, card):
-        """One profiled APT_PROFILED run: device busy share and the
-        fused colour-phase kernel's share of the device time."""
-        t = self.torch
-        from torch.autograd import DeviceType
-        from torch.profiler import ProfilerActivity, profile
-        apt = self.apt(APT_PROFILED)
-        st0 = apt.init_state(seed=SEED)
-        apt.run(st0, 2, icm_every=1, record_every=2)
-        t.cuda.synchronize()
-        with profile(activities=[ProfilerActivity.CPU,
-                                 ProfilerActivity.CUDA]) as prof:
-            t0 = time.perf_counter()
-            apt.run(st0, APT_SWEEPS, icm_every=APT_ICM_EVERY,
-                    record_every=APT_ICM_EVERY)
-            t.cuda.synchronize()
-            wall = time.perf_counter() - t0
-        rows = [(e.key, e.count, e.self_device_time_total)
-                for e in prof.key_averages()
-                if e.device_type == DeviceType.CUDA
-                and e.self_device_time_total > 0]
-        if not rows:
-            print(f"  profile APT {APT_PROFILED}: the profiler saw no device "
-                  f"time; device busy share not measured", flush=True)
-            return
-        busy = sum(us for _, _, us in rows) / 1e6
-        hits = [(c, us) for key, c, us in rows
-                if "bitplane_phase_kernel" in key]
-        count, us = sum(c for c, _ in hits), sum(u for _, u in hits)
-        print(f"  profile APT {APT_PROFILED}: wall {wall:.4f} s under the "
-              f"profiler, device busy {busy:.4f} s "
-              f"({100 * busy / wall:.1f}%); fused colour phase {count} "
-              f"launches, "
-              f"{us / max(count, 1):.1f} us each, "
-              f"{100 * us / 1e6 / busy:.1f}% of the device time; on {card}",
-              flush=True)
-        for key, count, us in sorted(rows, key=lambda r: -r[2])[:8]:
-            print(f"    {us / 1e3:10.3f} ms  {count:6d} x  {key[:90]}",
-                  flush=True)
-
-    # -- phase 10: the static audit on the card's path ----------------------
-
-    def phase_audit(self, card: str):
+    def phase_audit(self):
         """``repro_torch.analyze``'s IR audit with every one-process chunk
         on the card (the hand kernels launch; their glue is recorded):
         IR-A, IR-D and IR-E hold there as on the CPU.  The gloo rank
@@ -3871,9 +2929,8 @@ class Smoke:
         from repro_torch.analyze.findings import Waivers
         from repro_torch.analyze.ir_rules import audit_chunk
         from repro_torch.analyze.runner import DEFAULT_WAIVER_FILE
-        print("== 10. static audit: python -m repro_torch.analyze ir on the "
+        print("== 9. static audit: python -m repro_torch.analyze ir on the "
               "card's path", flush=True)
-        t0 = time.perf_counter()
         audits, failures = build_audits(self.dev, ranks=False)
         waivers = Waivers.load(DEFAULT_WAIVER_FILE)
         found = [f for a in audits for f in audit_chunk(a)]
@@ -3886,7 +2943,7 @@ class Smoke:
               f"{self.dev}: no float arithmetic in an integer body, "
               f"{syncs} host syncs as declared, modular counters "
               f"({len(failures)} failed to run, {len(bad)} unwaived "
-              f"findings; {time.perf_counter() - t0:.1f} s)")
+              f"findings)")
 
     def start_example(self, name: str, args=(), timeout=None, env=None):
         """Start ``examples/torch_<name>.py``'s ``main`` in a process of its
@@ -3910,9 +2967,9 @@ class Smoke:
         return name, proc, tmp, record, time.perf_counter(), timeout
 
     def finish_example(self, started):
-        """Wait for a ``start_example`` process; returns its stdout, its
-        record (result and launch counts) and its seconds.  A timeout or a
-        non-zero exit fails the phase."""
+        """Wait for a ``start_example`` process; returns its stdout and its
+        record (result and launch counts).  A timeout or a non-zero exit
+        fails the phase."""
         name, proc, tmp, record, t0, timeout = started
         with tmp:
             try:
@@ -3923,15 +2980,14 @@ class Smoke:
                 proc.communicate()
                 raise CheckFailed(f"examples/torch_{name}.py ran past "
                                   f"{timeout} s")
-            sec = time.perf_counter() - t0
             for line in out.splitlines():
                 print(f"  | {line}")
             if proc.returncode != 0:
                 print(err[-4000:], file=sys.stderr)
             check(proc.returncode == 0,
-                  f"examples/torch_{name}.py exited 0 in {sec:.1f} s")
+                  f"examples/torch_{name}.py exited 0")
             rec = json.loads(record.read_text())
-        return out, rec, sec
+        return out, rec
 
     def run_example(self, name: str, args=(), timeout=None, env=None):
         """``start_example`` then ``finish_example``."""
@@ -3941,28 +2997,23 @@ class Smoke:
     def phase_examples(self, args=()):
         """The paper's six examples on the port, at the reference's
         defaults, each in its own process (``EXAMPLES``): the longest,
-        ``EXAMPLE_BESIDE``, runs beside the other five, one at a time (so
-        their seconds are taken two processes to the card); meanwhile
-        this process draws the LM host weights of phases 12 and 13
-        (``lm_prefetch``)."""
-        print("== 11. the examples (examples/torch_*.py)", flush=True)
+        ``EXAMPLE_BESIDE``, runs beside the other five, one at a time;
+        meanwhile this process draws the LM host weights of phases 11 and
+        12 (``lm_prefetch``)."""
+        print("== 10. the examples (examples/torch_*.py)", flush=True)
         self.lm_prefetch()
         beside = self.start_example(EXAMPLE_BESIDE, args, env=BESIDE_ENV)
         runs = {name: self.run_example(name, args) for name in EXAMPLES
                 if name != EXAMPLE_BESIDE}
         runs[EXAMPLE_BESIDE] = self.finish_example(beside)
-        self.example_launches, self.example_b7, heads = {}, {}, []
+        self.example_launches, self.example_b7 = {}, {}
         for name in EXAMPLES:
-            out, rec, sec = runs[name]
-            res = rec["result"]
+            out, rec = runs[name]
             self.example_launches[name] = {k: rec["launches"][k]
                                            for k in KERNELS}
-            self.example_b7[name] = {k: rec["launches"][k] for k in (
-                "bitplane_gather_count:phase",
-                "bitplane_gather_count:count")}
-            heads.append(getattr(self, f"check_{name}")(out, res, sec))
-        for line in heads:
-            print(line, flush=True)
+            self.example_b7[name] = rec["launches"][
+                "bitplane_gather_count:phase"]
+            getattr(self, f"check_{name}")(out, rec["result"])
         self.hold_examples()
 
     def hold_examples(self):
@@ -4028,17 +3079,17 @@ class Smoke:
     @contextlib.contextmanager
     def held_kernels(self):
         """Within the scope every launch of a lattice kernel or of B7
-        (the gather-count, or the fused colour phase on copies of what it
-        updates in place) first runs its plain version on the same inputs
+        (the fused colour phase, on copies of what it updates in place)
+        first runs its plain version on the same inputs
         and is held to it: the f32 sweep's LFSR states bitwise and its spins
         bitwise or, where they differ, phase by phase within TANH_ULPS ulp
         of the boundary (``f32_steps``); every other kernel bitwise.
         Yields ({kernel: [calls held, largest difference]}, the launch
         counters' increments made within the held calls, comparisons
         included)."""
-        from repro_torch.kernels import (_build, bitplane_gather,
-                                         bitplane_phase, lattice_energy, ops,
-                                         pbit_bitplane, pbit_lattice, ref)
+        from repro_torch.kernels import (_build, bitplane_phase,
+                                         lattice_energy, ops, pbit_bitplane,
+                                         pbit_lattice, ref)
         tally, busy, saved = {}, [], []
         covered = dict.fromkeys(_build.launch_counts, 0)
 
@@ -4091,8 +3142,6 @@ class Smoke:
              lambda *a, bx=None: ref.brick_energy_ref(*a))
         hold(lattice_energy, "brick_energy_words", "brick_energy",
              lambda *a, bx=None: ref.brick_energy_words_ref(*a))
-        hold(bitplane_gather, "bitplane_gather_count",
-             "bitplane_gather_count", ref.bitplane_gather_count_ref)
 
         def hold_inplace(attr, mut, plain):
             """The fused colour phases update the arguments at positions
@@ -4129,7 +3178,7 @@ class Smoke:
             for mod, attr, kernel in saved:
                 setattr(mod, attr, kernel)
 
-    def check_quickstart(self, out, res, sec) -> str:
+    def check_quickstart(self, out, res):
         lines = out.splitlines()
 
         def line(prefix):
@@ -4164,36 +3213,27 @@ class Smoke:
         got = self.example_launches["quickstart"]
         b7 = self.example_b7["quickstart"]
         check(all(got[k] > 0 for k in want)
-              and b7["bitplane_gather_count:phase"] == got[
-                  "bitplane_gather_count"]
-              and b7["bitplane_gather_count:count"] == 0,
+              and b7 == got["bitplane_gather_count"],
               "quickstart launched #1, #2, #3, #4 and B7 as the fused "
               "colour phase (packed APT): "
-              + ", ".join(f"{k} {got[k]}" for k in want) + f", {b7}")
-        return (f"  example quickstart: {sec:.1f} s; int8 lattice "
-                f"{res['int8']['updates_per_s']:.4e} p-bit updates/s, "
-                f"bit-plane {res['bitplane']['lane_updates_per_s']:.4e} "
-                f"lane updates/s")
+              + ", ".join(f"{k} {got[k]}" for k in want)
+              + f", the fused colour phase {b7}")
 
-    def check_sat3_invertible(self, out, res, sec) -> str:
+    def check_sat3_invertible(self, out, res):
         m = re.search(r"^best: (\d+)/(\d+) ", out, re.M)
         best, m_cl = int(m.group(1)), int(m.group(2))
         check(best >= 0.9 * m_cl,
               f"sat3: best {best}/{m_cl} satisfied >= 90%")
-        return (f"  example sat3_invertible: {sec:.1f} s; "
-                f"{res['updates_per_s']:.4e} p-bit updates/s (DSIM, S=4)")
 
-    def check_maxcut_gset(self, out, res, sec) -> str:
+    def check_maxcut_gset(self, out, res):
         cuts = re.findall(r"^trial \d+: cut = (\d+) ", out, re.M)
         check(len(cuts) == 5, f"maxcut: a cut for each of 5 trials {cuts}")
         lines = out.splitlines()
         at = lines.index("verification hex (paper S9 format):")
         check(re.fullmatch(r"[0-9A-F]+\.\.\.", lines[at + 1]) is not None,
               f"maxcut: the hex line {lines[at + 1][:40]}")
-        return (f"  example maxcut_gset: {sec:.1f} s; "
-                f"{res['updates_per_s']:.4e} p-bit updates/s (APT+ICM)")
 
-    def check_eta_sweep(self, out, res, sec) -> str:
+    def check_eta_sweep(self, out, res):
         mono = re.findall(r"^\s+mono\s+(\S+)", out, re.M)
         rows = re.findall(r"^\s*(\d+)\s+(\S+)\s+(\S+)$", out, re.M)
         vals = [float(mono[0])] + [float(v) for r in rows for v in r[1:]] \
@@ -4206,19 +3246,14 @@ class Smoke:
         print("  eta_sweep kappa_DSIM (not gated; statistical): " + ", ".join(
             f"S={s} {kd[s]:.3f} (reference on the CPU {k:.3f})"
             for s, k in ETA_REFERENCE_KAPPA.items()))
-        return (f"  example eta_sweep: {sec:.1f} s; "
-                f"{res['updates_per_s']:.4e} p-bit updates/s (DSIM/CMFT)")
 
-    def check_serve_sampling(self, out, res, sec) -> str:
+    def check_serve_sampling(self, out, res):
         verdicts = re.findall(r"bitwise == uninterrupted run: (\w+)", out)
         check(verdicts == ["True", "True"] and res["recovered_bitwise"],
               "serve_sampling: both recovered jobs bitwise-identical to "
               "their uninterrupted runs")
-        return (f"  example serve_sampling: {sec:.1f} s; "
-                f"{res['jobs_per_s']:.4f} jobs/s (the burst of "
-                f"{res['burst_jobs']})")
 
-    def check_serve_dashboard(self, out, res, sec) -> str:
+    def check_serve_dashboard(self, out, res):
         m = re.search(r"(\d+) detection\(s\), (\d+)/(\d+) held", out)
         check(m is not None and int(m.group(1)) >= 1
               and int(m.group(2)) >= 1,
@@ -4229,33 +3264,29 @@ class Smoke:
               "serve_dashboard: the Prometheus head is not empty")
         n = self.example_launches["serve_dashboard"]["bitplane_gather_count"]
         b7 = self.example_b7["serve_dashboard"]
-        check(n > 0 and b7["bitplane_gather_count:phase"] == n
-              and b7["bitplane_gather_count:count"] == 0,
+        check(n > 0 and b7 == n,
               f"serve_dashboard's eta probe launched B7 {n} times, as the "
               f"fused colour phase ({b7})")
-        return (f"  example serve_dashboard: {sec:.1f} s; "
-                f"{res['jobs_per_s']:.4f} done-jobs/s, measured eta "
-                f"{res['eta']['measured_eta']:.4f}")
 
-    # -- phase 12: LM serving ------------------------------------------------
+    # -- phase 11: LM serving ------------------------------------------------
 
-    def phase_lm(self, card: str):
+    def phase_lm(self):
         """LM serving through ``repro_torch.configs``, ``build_model`` and
         ``serve_step`` (``LM_*``): the reduced golden runs, then
         h2o-danube-1.8b and mamba2-370m at full width, then the serve_lm
         example; none of the seven hand kernels may launch."""
         from repro_torch.kernels import _build
-        print("== 12. LM serving (repro_torch.models, serve.serve_step)",
+        print("== 11. LM serving (repro_torch.models, serve.serve_step)",
               flush=True)
         _build.reset_launch_counts()
         self.lm_fit()
         self.lm_golden()
-        self.lm_danube(card)
-        self.lm_mamba2(card)
+        self.lm_danube()
+        self.lm_mamba2()
         ex = self.lm_example()
         launched = {k: v for k, v in _build.launch_counts.items() if v}
         check(not launched and not ex,
-              f"phase 12 launched none of the seven hand kernels (this "
+              f"phase 11 launched none of the seven hand kernels (this "
               f"process {launched or 'none'}, the example "
               f"{ex or 'none'})")
 
@@ -4323,8 +3354,8 @@ class Smoke:
                   f"tokens, every logit within {cpu_err:.2e}")
 
     def lm_prefetch(self):
-        """Draw the host weights of LM_FULL (``lm_host``) and phase 13's
-        Markov table on a thread of this process, while phase 11's
+        """Draw the host weights of LM_FULL (``lm_host``) and phase 12's
+        Markov table on a thread of this process, while phase 10's
         examples run in theirs (numpy fills release the GIL)."""
         import threading
 
@@ -4337,7 +3368,7 @@ class Smoke:
 
     def lm_host(self, name):
         """``name``'s f32 weights at its published widths, ``init(LM_SEED)``
-        drawn on the host once for phases 12 and 13 (the card's ``init``
+        drawn on the host once for phases 11 and 12 (the card's ``init``
         draws the same numbers on the host and copies them over)."""
         from repro_torch.configs import get_config
         from repro_torch.models.lm import build_model
@@ -4348,11 +3379,9 @@ class Smoke:
         cache = self.__dict__.setdefault("lm_host_params", {})
         if name not in cache:
             cfg = dataclasses.replace(get_config(name), dtype="float32")
-            t0 = time.perf_counter()
             cache[name] = build_model(cfg, "cpu").init(LM_SEED)
-            print(f"  {name}: init(LM_SEED) drawn on the host in "
-                  f"{time.perf_counter() - t0:.1f} s (kept for phases 12 "
-                  f"and 13)", flush=True)
+            print(f"  {name}: init(LM_SEED) drawn on the host (kept for "
+                  f"phases 11 and 12)", flush=True)
         return cache[name]
 
     def lm_full(self, name, dtype):
@@ -4366,16 +3395,13 @@ class Smoke:
         cfg = dataclasses.replace(get_config(name), dtype=dtype)
         model = build_model(cfg)
         host = self.lm_host(name)
-        t0 = time.perf_counter()
         params = tree_map(lambda x: x.to(self.dev), host)
         if dtype != "float32":
             params = self.lm_cast(params, getattr(t, dtype))
-        t.cuda.synchronize()
-        sec = time.perf_counter() - t0
         n, byts = self.lm_size(params)
         print(f"  {name}: {cfg.n_layers} layers, d={cfg.d_model}, "
-              f"{n:,} parameters, {byts / 1e9:.3f} GB in {dtype}; host to "
-              f"card {sec:.1f} s", flush=True)
+              f"{n:,} parameters, {byts / 1e9:.3f} GB in {dtype}",
+              flush=True)
         return model, params
 
     def lm_size(self, tree):
@@ -4394,7 +3420,6 @@ class Smoke:
         rng = np.random.default_rng(LM_SEED + S)
         toks = t.from_numpy(rng.integers(0, cfg.vocab, (B, S)).astype(
             np.int32)).to(self.dev)
-        t0 = time.perf_counter()
         with t.no_grad():
             full, _, _ = model.forward(params, toks)
             want = full[:, -1].clone()
@@ -4406,10 +3431,10 @@ class Smoke:
         got = last[:, 0]
         rel = float((got - want).abs().max()) / float(want.abs().max())
         check(bool(t.isfinite(got).all()) and rel < LM_REL_TOL,
-              f"{label}: relative difference {rel:.3e} (bound {LM_REL_TOL}; "
-              f"{time.perf_counter() - t0:.1f} s)")
+              f"{label}: relative difference {rel:.3e} (bound "
+              f"{LM_REL_TOL})")
 
-    def lm_danube(self, card: str):
+    def lm_danube(self):
         """(b) h2o-danube-1.8b at full width in f32: decode == forward and
         the rolling ring at its full window; (c) the same weights cast
         to bf16, serving."""
@@ -4431,136 +3456,38 @@ class Smoke:
             f"chunked forward; 5116 tokens prefilled into {cfg.window} "
             f"slots, 4 decode steps)", model, params, 1, 5120, cfg.window, 4)
         peak = t.cuda.max_memory_allocated() / 1e9
-        print(f"  {name} f32 checks: peak {peak:.2f} GB allocated on {card}",
+        print(f"  {name} f32 checks: peak {peak:.2f} GB allocated",
               flush=True)
         params16 = self.lm_cast(params, t.bfloat16)
         del params
         t.cuda.empty_cache()
-        self.lm_serve(name, params16, card)
+        self.lm_serve(name, params16)
 
-    def lm_serve(self, name, params, card: str):
+    def lm_serve(self, name, params):
         """(c)/(d) ``greedy_generate`` at LM_SERVE on the bf16 ``params``
-        of ``name`` (its published dtype) after one warm-up call, with
-        bf16 caches; the prefill and the decode step timed alone against
-        the decode step's byte floor (weights and cache read once); the
-        decode step with greedy_generate's default f32 caches; one
-        profiled run of LM_PROFILED_STEPS decode steps."""
+        of ``name`` (its published dtype), with bf16 caches: the tokens'
+        shape and range, and the peak memory."""
         t = self.torch
         from repro_torch.configs import get_config
         from repro_torch.models.lm import build_model
-        from repro_torch.serve.serve_step import (cache_len_for,
-                                                  greedy_generate,
-                                                  make_decode_step,
-                                                  make_prefill_step)
+        from repro_torch.serve.serve_step import greedy_generate
         cfg = get_config(name)
         model = build_model(cfg)
         B, P, M = LM_SERVE["batch"], LM_SERVE["prompt"], LM_SERVE["max_new"]
         rng = np.random.default_rng(LM_SEED + 1)
         batch = {"tokens": t.from_numpy(rng.integers(
             0, cfg.vocab, (B, P)).astype(np.int32)).to(self.dev)}
-        gen = lambda: greedy_generate(  # noqa: E731
-            model, cfg, params, batch, M, cache_dtype=t.bfloat16)
-        gen()
-        t.cuda.synchronize()
         t.cuda.reset_peak_memory_stats()
-        t0 = time.perf_counter()
-        out = gen().cpu()
-        wall = time.perf_counter() - t0
+        out = greedy_generate(model, cfg, params, batch, M,
+                              cache_dtype=t.bfloat16).cpu()
         peak = t.cuda.max_memory_allocated()
         check(tuple(out.shape) == (B, M) and int(out.min()) >= 0
               and int(out.max()) < cfg.vocab_padded,
               f"{name} bf16 greedy_generate: {B} requests of {P} prompt "
-              f"tokens, {M} new tokens each, in {wall:.3f} s "
-              f"({B * M / wall:.1f} generated tokens/s end to end); peak "
-              f"{peak / 1e9:.2f} GB allocated")
-        prefill, decode = make_prefill_step(model, cfg), \
-            make_decode_step(model, cfg)
-        smax = cache_len_for(cfg, P + M)
+              f"tokens, {M} new tokens each; peak {peak / 1e9:.2f} GB "
+              f"allocated")
 
-        def steps(cache_dtype, n):
-            with t.no_grad():
-                caches = model.init_cache(B, smax, dtype=cache_dtype)
-                t.cuda.synchronize()
-                t0 = time.perf_counter()
-                logits, caches, _ = prefill(params, batch, caches)
-                tok = t.argmax(logits[:, -1], dim=-1)[:, None].to(t.int32)
-                t.cuda.synchronize()
-                t1 = time.perf_counter()
-                for _ in range(n):
-                    logits, caches = decode(params, tok, caches)
-                    tok = t.argmax(logits[:, -1], dim=-1)[:, None].to(
-                        t.int32)
-                t.cuda.synchronize()
-                return t1 - t0, (time.perf_counter() - t1) / n, caches
-
-        steps(t.bfloat16, 2)
-        pre_s, dec_s, caches = steps(t.bfloat16, M)
-        w_bytes = self.lm_size(params)[1]
-        c_bytes = self.lm_size(caches)[1]
-        floor = (w_bytes + c_bytes) / HBM_BYTES_PER_S
-        print(f"  {name} bf16 serving, B={B}, prompt {P}, {M} new: prefill "
-              f"{pre_s:.4f} s ({B * P / pre_s:.1f} prompt tokens/s); decode "
-              f"{dec_s * 1e3:.3f} ms per token step ({B / dec_s:.1f} "
-              f"generated tokens/s); byte floor of a step "
-              f"{floor * 1e3:.3f} ms ({w_bytes / 1e9:.3f} GB of weights + "
-              f"{c_bytes / 1e9:.4f} GB of cache over "
-              f"{HBM_BYTES_PER_S / 1e12:.2f} TB/s), the step at "
-              f"{dec_s / floor:.1f}x its floor; on {card}", flush=True)
-        steps(t.float32, 2)
-        _, dec32, _ = steps(t.float32, 16)
-        why = ("an attention layer's f32 output turns the residual stream "
-               "and every later weight read f32" if any(
-                   b.mixer in ("attn", "swa") for b in cfg.group)
-               else "f32 conv window and SSM state")
-        print(f"  {name} bf16 with greedy_generate's default f32 caches: "
-              f"decode {dec32 * 1e3:.3f} ms per token step "
-              f"({dec32 / floor:.1f}x the bf16-cache floor; {why})",
-              flush=True)
-        self.lm_profile(name, model, params, batch, prefill, decode, smax,
-                        card)
-
-    def lm_profile(self, name, model, params, batch, prefill, decode, smax,
-                   card):
-        """LM_PROFILED_STEPS decode steps under the profiler: device busy
-        share, device operations per step, the top five by time."""
-        t = self.torch
-        from torch.autograd import DeviceType
-        from torch.profiler import ProfilerActivity, profile
-        n = LM_PROFILED_STEPS
-        B = batch["tokens"].shape[0]
-        with t.no_grad():
-            caches = model.init_cache(B, smax, dtype=t.bfloat16)
-            logits, caches, _ = prefill(params, batch, caches)
-            tok = t.argmax(logits[:, -1], dim=-1)[:, None].to(t.int32)
-            t.cuda.synchronize()
-            with profile(activities=[ProfilerActivity.CPU,
-                                     ProfilerActivity.CUDA]) as prof:
-                t0 = time.perf_counter()
-                for _ in range(n):
-                    logits, caches = decode(params, tok, caches)
-                    tok = t.argmax(logits[:, -1], dim=-1)[:, None].to(
-                        t.int32)
-                t.cuda.synchronize()
-                wall = time.perf_counter() - t0
-        rows = [(e.key, e.count, e.self_device_time_total)
-                for e in prof.key_averages()
-                if e.device_type == DeviceType.CUDA
-                and e.self_device_time_total > 0]
-        if not rows:
-            print(f"  profile {name} decode: the profiler saw no device "
-                  f"time; device busy share not measured", flush=True)
-            return
-        busy = sum(us for _, _, us in rows) / 1e6
-        ops = sum(c for _, c, _ in rows)
-        print(f"  profile {name} bf16 decode, {n} steps: wall {wall:.4f} s "
-              f"under the profiler, device busy {busy:.4f} s "
-              f"({100 * busy / wall:.1f}%), {ops / n:.0f} device operations "
-              f"per step; top five by device time on {card}:", flush=True)
-        for key, count, us in sorted(rows, key=lambda r: -r[2])[:5]:
-            print(f"    {us / 1e3:10.3f} ms  {count:6d} x  {key[:90]}",
-                  flush=True)
-
-    def lm_mamba2(self, card: str):
+    def lm_mamba2(self):
         """(d) mamba2-370m at full width: f32 decode == forward and the
         SSD's chunk invariance (its first layer, B=2, S=512, chunks 64,
         128 and 256); then bf16 serving as (c)."""
@@ -4594,21 +3521,19 @@ class Smoke:
         params16 = self.lm_cast(params, t.bfloat16)
         del params, p0, ys
         t.cuda.empty_cache()
-        self.lm_serve(name, params16, card)
+        self.lm_serve(name, params16)
 
     def lm_example(self) -> dict:
         """(e) examples/torch_serve_lm.py at its defaults in a process of
         its own; returns the kernels it launched."""
-        out, rec, sec = self.run_example("serve_lm",
-                                         timeout=EXAMPLE_SERVE_LM_TIMEOUT)
+        out, rec = self.run_example("serve_lm",
+                                    timeout=EXAMPLE_SERVE_LM_TIMEOUT)
         res = rec["result"]
         lines = [x for x in out.splitlines() if "reduced config" in x]
         check(len(lines) == 4 and all(v["shape"] == [4, 16]
                                       for v in res.values()),
               f"examples/torch_serve_lm.py: one line per architecture, "
-              f"(4, 16) tokens each ({sec:.1f} s): " + ", ".join(
-                  f"{k} {v['tokens_per_s']:.1f} tok/s"
-                  for k, v in res.items()))
+              f"(4, 16) tokens each: " + ", ".join(res))
         return {k: v for k, v in rec["launches"].items() if v}
 
     def lm_cast(self, tree, dtype, key=None):
@@ -4622,27 +3547,19 @@ class Smoke:
         return tree if key in ("router", "A_log", "D", "dt_bias") \
             else tree.to(dtype)
 
-    # -- phase 13: LM training -----------------------------------------------
+    # -- phase 12: LM training -----------------------------------------------
 
     def phase_train(self, card: str):
         """LM training through ``repro_torch.train``, ``sharding`` and
         ``launch.train``: TRAIN_GOLDEN at reduced widths, h2o-danube-1.8b
-        at full width in f32 (grad_accum, remat), then timed in bf16 with
-        its checkpoint, mamba2-370m timed, local SGD and the EF all-reduce,
+        at full width in f32 (grad_accum, remat), then in bf16 with its
+        checkpoint, mamba2-370m in bf16, local SGD and the EF all-reduce,
         the train_lm example; none of the seven hand kernels may launch."""
         t = self.torch
         from repro_torch.kernels import _build
-        print("== 13. LM training (repro_torch.train, launch.train)",
+        print("== 12. LM training (repro_torch.train, launch.train)",
               flush=True)
         _build.reset_launch_counts()
-        laps, t0 = [], time.perf_counter()
-
-        def lap(what):
-            nonlocal t0
-            t1 = time.perf_counter()
-            laps.append(f"{what} {t1 - t0:.1f}")
-            t0 = t1
-
         # (g)'s first run, in its own process beside (a) and (b)
         tmp = tempfile.TemporaryDirectory()
         child = self.start_example(
@@ -4650,32 +3567,24 @@ class Smoke:
             env={"TMPDIR": tmp.name, **BESIDE_ENV})
         try:
             self.train_golden()
-            lap("golden")
             self.train_checks(card)
-            lap("danube f32 checks")
             ex = self.train_example(child, tmp.name)
-            lap("example")
         finally:
             if child[1].poll() is None:
                 child[1].kill()
                 child[1].wait()
             tmp.cleanup()
-        run = self.train_timed("h2o-danube-1.8b", card)
-        lap("danube bf16")
-        self.train_checkpoint(card, *run)
+        run = self.train_bf16("h2o-danube-1.8b")
+        self.train_checkpoint(*run)
         del run
         t.cuda.empty_cache()
-        lap("checkpoint")
-        self.train_timed("mamba2-370m", card)
+        self.train_bf16("mamba2-370m")
         self.__dict__.pop("lm_host_params", None)
         t.cuda.empty_cache()
-        lap("mamba2 bf16")
         self.train_local_sgd()
-        lap("local SGD")
-        print("  phase 13 seconds: " + ", ".join(laps), flush=True)
         launched = {k: v for k, v in _build.launch_counts.items() if v}
         check(not launched and not ex,
-              f"phase 13 launched none of the seven hand kernels (this "
+              f"phase 12 launched none of the seven hand kernels (this "
               f"process {launched or 'none'}, the example runs "
               f"{ex or 'none'})")
 
@@ -4780,12 +3689,10 @@ class Smoke:
         for accum, b in ((1, batch), (2, b2)):
             t.cuda.synchronize()
             t.cuda.reset_peak_memory_stats()
-            t0 = time.perf_counter()
             st, m = make_train_step(model, opt, grad_accum=accum)(
                 TrainState(params, opt.init(params)), b)
             t.cuda.synchronize()
-            runs.append((float(m["loss"]), t.cuda.max_memory_allocated(),
-                         time.perf_counter() - t0))
+            runs.append((float(m["loss"]), t.cuda.max_memory_allocated()))
             # after one step from zero moments m = 0.1 g, the clipped
             # gradient; the first run's waits on the host
             pm = list(zip(tree_leaves(st.params), tree_leaves(st.opt.m)))
@@ -4793,7 +3700,7 @@ class Smoke:
                 first = [(a.cpu(), g.cpu()) for a, g in pm]
                 pm = None
             del st, m
-        (l1, pk1, s1), (l2, pk2, s2) = runs
+        (l1, pk1), (l2, pk2) = runs
         scale = max(float(g.abs().max()) for _, g in first)
         dm = dp = dp_all = 0.0
         loose = 0
@@ -4819,8 +3726,7 @@ class Smoke:
               f"over all {self.lm_size(params)[0]:,} parameters within "
               f"{dp_all:.2e}, {loose:,} of them beyond {ACCUM_PARAM_TOL}, "
               f"all where |g| < {10 * ACCUM_SURE_M:.0e}; peak "
-              f"{pk1 / 1e9:.2f} and {pk2 / 1e9:.2f} GB allocated, "
-              f"{s1:.2f} and {s2:.2f} s, on {card}")
+              f"{pk1 / 1e9:.2f} and {pk2 / 1e9:.2f} GB allocated, on {card}")
         t.cuda.empty_cache()
         lon, gon, pkon = self.grads(model, params, batch)
         loff, goff, pkoff = self.grads(
@@ -4837,26 +3743,11 @@ class Smoke:
         del gon, goff, params
         t.cuda.empty_cache()
 
-    def train_flops(self, cfg, n, B, S):
-        """(model FLOPs of a step, of it the causal attention's, remat's
-        recomputed forward): 6 N tokens for the weights (N with the
-        embedding), the attention scores and their product with V over
-        the (windowed) causal pairs, 2 FLOP per multiply-add, forward and
-        twice that backward; remat recomputes one forward."""
-        T = B * S
-        blocks = list(cfg.prelude) + list(cfg.group) * cfg.n_groups
-        n_attn = sum(b.mixer in ("attn", "swa") for b in blocks)
-        win = cfg.window if any(b.mixer == "swa" for b in blocks) else None
-        pairs = sum(min(q + 1, win or S) for q in range(S))
-        attn_fwd = n_attn * 2 * 2 * B * pairs * cfg.n_heads * cfg.d_head
-        return 6 * n * T + 3 * attn_fwd, 3 * attn_fwd, 2 * n * T + attn_fwd
-
-    def train_timed(self, name: str, card: str):
+    def train_bf16(self, name: str):
         """(c)/(d) ``name`` at its published widths in bf16, f32 AdamW
-        moments, remat on: TRAIN_TIMED_STEPS steps after one warm-up on
-        MarkovLM(TRAIN_DATA_VOCAB) batches through ``prefetch``, timed
-        (a host read of the loss per step, as the launcher's), model
-        FLOPs against the bf16 peak, peak memory, one profiled step; then
+        moments, remat on: TRAIN_TIMED_STEPS finite steps after a first on
+        MarkovLM(TRAIN_DATA_VOCAB) batches through ``prefetch`` (a host
+        read of the loss per step, as the launcher's), and one more; then
         TRAIN_INT8_STEPS steps with int8 moments on the weights it
         reached.  Returns (step, state, batch) of the int8 run."""
         t = self.torch
@@ -4875,36 +3766,17 @@ class Smoke:
         step = make_train_step(model, opt)
         it = prefetch(self.train_data().batches(B, S), depth=2)
         state, m = step(state, self.on_card(next(it)))
-        t.cuda.synchronize()
-        t.cuda.reset_peak_memory_stats()
         losses = []
-        t0 = time.perf_counter()
         for _ in range(TRAIN_TIMED_STEPS):
             state, m = step(state, self.on_card(next(it)))
             losses.append(float(m["loss"]))
-        t.cuda.synchronize()
-        sec = (time.perf_counter() - t0) / TRAIN_TIMED_STEPS
-        peak = t.cuda.max_memory_allocated()
-        flops, attn, rem = self.train_flops(cfg, n, B, S)
         check(all(math.isfinite(x) for x in losses),
               f"{name} bf16 at its published widths ({cfg.n_layers} "
               f"layers, d={cfg.d_model}, {n:,} parameters), f32 AdamW "
               f"moments, remat: {TRAIN_TIMED_STEPS} finite steps at B={B} x "
               f"S={S} (one card's cut of the train_4k cell's global batch "
               f"of 256), losses " + ", ".join(f"{x:.4f}" for x in losses))
-        print(f"  {name} bf16 training, B={B} x S={S}: {sec:.4f} s per "
-              f"step, {B * S / sec:,.0f} tokens/s; model FLOPs per step "
-              f"{flops:.4e} (6 N tokens {6 * n * B * S:.4e} + causal "
-              f"attention {attn:.4e}), {flops / sec / 1e12:.1f} TFLOP/s = "
-              f"{100 * flops / sec / BF16_PEAK_FLOPS:.1f}% of the "
-              f"{BF16_PEAK_FLOPS / 1e12:.0f} TFLOP/s dense bf16 peak; with "
-              f"remat's recomputed forward ({rem:.4e}) "
-              f"{100 * (flops + rem) / sec / BF16_PEAK_FLOPS:.1f}%; peak "
-              f"{peak / 1e9:.2f} GB allocated; optimizer state "
-              f"{f32_opt / n:.4f} B per parameter; on {card}", flush=True)
-        state = self.train_profile(name, step, state,
-                                   self.on_card(next(it)), card)
-        params = state.params
+        params = step(state, self.on_card(next(it)))[0].params
         del state
         t.cuda.empty_cache()
         opt8 = AdamW(int8_state=True)
@@ -4924,44 +3796,7 @@ class Smoke:
               f"(f32 moments {f32_opt / n:.4f})")
         return step8, st8, self.on_card(next(it))
 
-    def train_profile(self, name, step, state, batch, card):
-        """One training step under the profiler (device activity only: a
-        step is tens of thousands of operations): device busy share,
-        device operations, the top five by device time; the new state."""
-        t = self.torch
-        from torch.autograd import DeviceType
-        from torch.profiler import (ProfilerActivity, profile,
-                                    supported_activities)
-        if ProfilerActivity.CUDA not in supported_activities():
-            print(f"  profile {name} training step: no CUDA profiling in "
-                  f"this build; device busy share not measured", flush=True)
-            return step(state, batch)[0]
-        t.cuda.synchronize()
-        with profile(activities=[ProfilerActivity.CUDA]) as prof:
-            t0 = time.perf_counter()
-            state, m = step(state, batch)
-            t.cuda.synchronize()
-            wall = time.perf_counter() - t0
-        rows = [(e.key, e.count, e.self_device_time_total)
-                for e in prof.key_averages()
-                if e.device_type == DeviceType.CUDA
-                and e.self_device_time_total > 0]
-        if not rows:
-            print(f"  profile {name} training step: the profiler saw no "
-                  f"device time; device busy share not measured", flush=True)
-            return state
-        busy = sum(us for _, _, us in rows) / 1e6
-        ops = sum(c for _, c, _ in rows)
-        print(f"  profile {name} bf16 training step: wall {wall:.4f} s "
-              f"under the profiler, device busy {busy:.4f} s "
-              f"({100 * busy / wall:.1f}%), {ops} device operations; top "
-              f"five by device time on {card}:", flush=True)
-        for key, count, us in sorted(rows, key=lambda r: -r[2])[:5]:
-            print(f"    {us / 1e3:10.3f} ms  {count:6d} x  {key[:90]}",
-                  flush=True)
-        return state
-
-    def train_checkpoint(self, card, step, state, batch):
+    def train_checkpoint(self, step, state, batch):
         """(e) ``checkpoint.save(blocking=False)`` of (c)'s int8 state,
         ``wait_pending``, ``restore`` into a fresh template: bitwise; then
         one further step from each, with deterministic algorithms: the
@@ -4973,14 +3808,9 @@ class Smoke:
         k = int(state.opt.step)
         with tempfile.TemporaryDirectory() as d:
             free = shutil.disk_usage(d).free
-            t0 = time.perf_counter()
-            ckpt.save(d, k, state, meta={"phase": 13}, blocking=False)
-            t1 = time.perf_counter()
+            ckpt.save(d, k, state, meta={"phase": 12}, blocking=False)
             ckpt.wait_pending()
-            t2 = time.perf_counter()
             restored = ckpt.restore(d, tree_map(t.empty_like, state))
-            t.cuda.synchronize()
-            t3 = time.perf_counter()
             on_disk = sum(f.stat().st_size for f in Path(d).rglob("*")
                           if f.is_file())
         pairs = list(zip(tree_leaves(state), tree_leaves(restored)))
@@ -4989,9 +3819,8 @@ class Smoke:
         check(same,
               f"checkpoint of the h2o-danube-1.8b int8 state at step {k} "
               f"({len(pairs)} tensors, {on_disk / 1e9:.3f} GB on disk of "
-              f"{free / 1e9:.0f} GB free): save(blocking=False) returned "
-              f"in {t1 - t0:.2f} s, wait_pending {t2 - t1:.2f} s, restore "
-              f"{t3 - t2:.2f} s; restored == saved bitwise")
+              f"{free / 1e9:.0f} GB free): save(blocking=False), "
+              f"wait_pending, restore; restored == saved bitwise")
         t.use_deterministic_algorithms(True, warn_only=True)
         try:
             a, ma = step(state, batch)
@@ -5067,42 +3896,39 @@ class Smoke:
         again in this process to 140 steps: it resumes at step 120.
         Returns the kernels the child launched (this process's launches
         are counted with the phase's)."""
-        out, rec, sec = self.finish_example(child)
+        out, rec = self.finish_example(child)
         losses = rec["result"]["losses"]
         first, last = np.mean(losses[:10]), np.mean(losses[-10:])
         check(len(losses) == 120 and last < first and "final loss" in out,
               f"examples/torch_train_lm.py at its defaults (mamba2-370m "
-              f"reduced, 120 steps, {sec:.1f} s beside (a) and (b)): final "
-              f"loss {last:.4f} < start {first:.4f}")
+              f"reduced, 120 steps, beside (a) and (b)): final loss "
+              f"{last:.4f} < start {first:.4f}")
         args = ["--arch", "mamba2-370m", "--reduced", "--steps", "140",
                 "--batch", "8", "--seq", "64", "--ckpt",
                 os.path.join(tmp, "repro_torch_ck"), "--ckpt-every", "60"]
         out2 = io.StringIO()
-        t0 = time.perf_counter()
         with contextlib.redirect_stdout(out2):
             res = load_example("train_lm").main(args)
-        sec2 = time.perf_counter() - t0
         for line in out2.getvalue().splitlines():
             print(f"  | {line}")
         check(res["start_step"] == 120 and len(res["losses"]) == 20
               and "restored checkpoint at step 120" in out2.getvalue()
               and all(math.isfinite(x) for x in res["losses"]),
               f"a second invocation (in this process) to 140 steps resumed "
-              f"from the checkpoint at step 120 and took 20 finite steps "
-              f"({sec2:.1f} s)")
+              f"from the checkpoint at step 120 and took 20 finite steps")
         return {k: v for k, v in rec["launches"].items() if v}
 
     # -- phase 14: the dry run --------------------------------------------
 
-    def phase_dryrun(self, card: str):
+    def phase_dryrun(self):
         """#3 at the dry run's bricks (``dryrun_bricks``), then the dry run
         itself as two subprocesses on the card, started together: ``--all``
         (rank 17 of both meshes) and rank 255 of 16x16, each record checked
         against the reference's wire bytes, extras and mesh size, its
-        launches and its reading against the roofline's bound."""
-        print("== 14. the dry run (python -m repro_torch.launch.dryrun)",
+        launches and its reading against the bound the record holds."""
+        print("== 13. the dry run (python -m repro_torch.launch.dryrun)",
               flush=True)
-        self.dryrun_bricks(card)
+        self.dryrun_bricks()
         root = Path(__file__).resolve().parent
         env = dict(os.environ, PYTHONPATH=str(root / "src") + os.pathsep
                    + os.environ.get("PYTHONPATH", ""))
@@ -5142,11 +3968,11 @@ class Smoke:
                 f"{DRYRUN_PADDING['rank']}.json").read_text())
         for mesh, want in DRYRUN_MESHES.items():
             self.check_dryrun(mesh, recs[mesh], want["chips"],
-                              want["permute"], want["brick"], card)
+                              want["permute"], want["brick"])
         self.check_dryrun("single_pod_16x16, the all-padding rank", pad, 256,
-                          DRYRUN_PADDING["permute"], [7, 7, 100], card)
+                          DRYRUN_PADDING["permute"], [7, 7, 100])
 
-    def check_dryrun(self, label, r, chips, permute, brick, card):
+    def check_dryrun(self, label, r, chips, permute, brick):
         """One dry-run record: ``ok`` on the card with the reference's
         chips, extras and wire per rank, #3 launched once per iteration,
         the reading no faster than the bound allows, the memory within the
@@ -5186,33 +4012,19 @@ class Smoke:
               f"{DRYRUN_PEAK_MAX} B ("
               + ("not measured" if was is None else f"{was} B")
               + " when every rank held the whole problem)")
-        print(f"  dry run {label}: chunk {r['chunk_s'] * 1e3:.4f} ms "
-              f"(build {r['build_s']} s), bound {r['bound_s'] * 1e3:.6f} ms "
-              f"by {rf['bottleneck']} (compute {rf['t_compute'] * 1e3:.6f}, "
-              f"memory {rf['t_memory'] * 1e3:.6f}, collective "
-              f"{rf['t_collective'] * 1e3:.8f} ms): "
-              f"{rf['bytes_accessed']:.0f} B, of them the kernels' "
-              f"{rf['kernel_bytes']:.0f} B, {rf['int32_ops']:.0f} INT32 and "
-              f"{rf['fp32_ops']:.0f} FP32 operations, {r['ops']} aten ops, "
-              f"wire {rf['wire_bytes']} B; arguments "
-              f"{mem['argument_size_in_bytes']} B, peak "
-              f"{mem['peak_allocated_bytes']} B, temporaries "
-              f"{mem['temp_size_in_bytes']} B, resident problem "
-              f"{mem['resident_problem_bytes']} B; on {card}", flush=True)
         for k, n in r["launches"].items():
             self.dryrun_launches[k] += n
 
-    def dryrun_bricks(self, card: str):
+    def dryrun_bricks(self):
         """#3 against its plain version at the dry run's bricks of the
         padded L=100 instance, as phase 2 holds f32 (LFSR states bitwise,
         spins bitwise or phase by phase within TANH_ULPS ulp): R=1, the
-        chunk's S=4 betas, random spins, states and halos; then timed
-        beside its bound."""
+        chunk's S=4 betas, random spins, states and halos."""
         t = self.torch
         from repro_torch.core.annealing import ea_schedule
         from repro_torch.core.bits import u32_from_numpy
         from repro_torch.core.lattice import build_ea3d_lattice
-        from repro_torch.kernels import ref, work
+        from repro_torch.kernels import ref
         from repro_torch.kernels.pbit_lattice import (halo_shapes,
                                                       pbit_brick_sweep,
                                                       persistent_mode)
@@ -5243,48 +4055,12 @@ class Smoke:
             errs += [self.max_abs(g, w) for g, w in zip(got, want)]
             what = (f"f32 sweep at the dry run's brick {shape[1:]} ({label}), "
                     f"R=1, S={S} == plain ({persistent_mode(args[0])}, "
-                    f"{work.decided(masks)} decided sites, flips "
+                    f"{int((masks != 0).sum())} decided sites, flips "
                     f"{want[2].tolist()})")
             self.check_f32(what, got, want, lambda what, args=args, got=got:
                            self.f32_steps(what, args, None, got))
-            ms = self.time_ms(lambda args=args: pbit_brick_sweep(*args),
-                              reps=50)
-            by, bound, _ = self.bound(work.sweep_f32(
-                1, 7, 7, Z, int(masks.shape[0]), S, work.decided(masks)))
-            print(f"  pbit_brick_sweep at {shape[1:]} ({label}): {ms:.4f} ms "
-                  f"per launch ({S} sweeps), bound {bound:.6f} ms by {by}; "
-                  f"on {card}", flush=True)
         r = self.results["pbit_brick_sweep"]
         r["max_abs_err"] = max([r["max_abs_err"]] + errs)
-
-    def bound(self, w):
-        """(what bounds it, bound ms, {bytes, int32, fp32: ms}) of the
-        work ``w`` on this card (``repro_torch.launch.roofline.
-        work_bound``)."""
-        from repro_torch.launch.roofline import work_bound
-        by, _, times = work_bound(w, self.hw)
-        times = {k: v * 1e3 for k, v in times.items()}
-        return by, times[by], times
-
-    def _timed(self, name, source, replaces, kernel, plain, w, work):
-        """Time a kernel's wrapper and its plain version beside the bound
-        of its work ``w`` (``bound``)."""
-        by, _, times = self.bound(w)
-        r = self.results[name]
-        r.update({
-            "name": name, "route": "cuda", "source": source,
-            "replaces": replaces, "launches": self.launches[name],
-            "ms": self.time_ms(kernel, reps=50),
-            "plain_ms": self.time_ms(plain, reps=3, warm=1),
-            "bound_ms": times[by],
-            "bound_by": "bytes" if by == "bytes" else "operations",
-            "library_ms": None, "work": work,
-            "bounds": ", ".join(f"{k} {v:.4f} ms" for k, v in times.items())})
-        # key order of the kernels line
-        self.results[name] = {k: r[k] for k in (
-            "name", "route", "source", "replaces", "launches", "max_abs_err",
-            "ms", "plain_ms", "bound_ms", "bound_by", "library_ms", "work",
-            "bounds")}
 
 
 if __name__ == "__main__":

@@ -25,7 +25,7 @@ __all__ = ["SOURCES", "NVCC_FLAGS", "build", "library", "launch_counts",
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 SOURCES = ("pbit_lattice.cu", "pbit_bitplane.cu", "lattice_energy.cu",
-           "bitplane_gather.cu", "bitplane_phase.cu")
+           "bitplane_phase.cu")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "--fmad=false", "-Xptxas=-v", "-Xcompiler", "-fPIC")
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "kernels"
@@ -52,11 +52,9 @@ launch_counts = {"pbit_brick_sweep_int": 0, "pbit_bitplane_sweep": 0,
                  # the energy's launches on bit-plane word planes
                  "brick_energy:bitplane": 0,
                  # the ELL word gather-count of the general-graph
-                 # bit-plane path (no Pallas original): every launch of
-                 # the standalone count (":count") and of the fused colour
-                 # phase that redesigns it (":phase")
+                 # bit-plane path (no Pallas original), launched as the
+                 # fused colour phase that redesigns it (":phase")
                  "bitplane_gather_count": 0,
-                 "bitplane_gather_count:count": 0,
                  "bitplane_gather_count:phase": 0,
                  # no launch: each permutation of a brick's bit-plane LFSR
                  # columns into or out of #2's colour-major order
@@ -192,8 +190,6 @@ _SIGNATURES = {
     # out, stream
     "brick_energy_words": (_P, _P, _P, _P6, _P6, _I, _I, _I, _I, _I, _I,
                            _I, _P, _P, _P),
-    # mext, idx, signs, nz, out, K, W, n_ext, nc, D, stream
-    "bitplane_gather_count": (_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P),
     # mw, ghosts, s, slots, flags, base, idx, signs, nz, thr, lw, f_max, K,
     # W, R, n_max, g_max, nc, D, wpt, flips, stream
     "bitplane_phase_dist": (_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I,

@@ -1,7 +1,8 @@
 """Wrapper of the fused bit-plane colour phase (``csrc/bitplane_phase.cu``).
 
-The redesign of B7 (``bitplane_gather.py``, the reference's
-``bitplane_gather_count_op``, ``repro/kernels/ops.py:120``) for this card:
+The redesign of B7 (the reference's ``bitplane_gather_count_op``,
+``repro/kernels/ops.py:120``, whose plain version
+``ref.bitplane_gather_count_ref`` the port's op runs) for this card:
 one launch per colour phase that gathers and counts the neighbour words
 and runs the per-lane tail (LFSR step, LUT accept, word write, flip count
 or energy change) in the same pass.  Two entry points: the distributed
@@ -24,10 +25,18 @@ import torch
 from repro_torch.core.device import as_numpy
 from repro_torch.core.packing import LANE_WIDTH
 from . import _build, ref as _ref
-from .bitplane_gather import MAX_DEGREE
 
 __all__ = ["PhaseSites", "phase_sites", "MASK", "LOST", "OWNER",
-           "words_per_thread", "bitplane_phase", "bitplane_phase_apt"]
+           "MAX_DEGREE", "n_slices", "words_per_thread", "bitplane_phase",
+           "bitplane_phase_apt"]
+
+MAX_DEGREE = 31     # at most 5 bit-slice planes in the kernel's registers
+
+
+def n_slices(D: int) -> int:
+    """Bit-slice planes of a count of D contributions: ceil(log2(D+1))."""
+    return int(D).bit_length()
+
 
 # flag bits of a colour entry (the kernel's)
 MASK, LOST, OWNER = 1, 2, 4

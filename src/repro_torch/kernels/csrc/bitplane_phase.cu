@@ -2,7 +2,7 @@
 // gather-count, the per-lane LFSR step, the LUT accept, the word write and
 // the per-lane flip count (dsim_dist) or energy change (packed APT+ICM).
 //
-// The redesign of B7 (bitplane_gather.cu), which replaces
+// The redesign of B7, which replaces
 // repro/kernels/ops.py::bitplane_gather_count_op (the plain jnp
 // repro/kernels/ref.py::bitplane_gather_count_ref; no Pallas original),
 // together with the per-lane tail that followed it in PyTorch:
@@ -71,8 +71,8 @@ constexpr unsigned kOwnerBit = 4u;   // the first entry of its slot
 constexpr int kChunk = 16;
 
 // The D neighbour words of one site in one word plane, ripple-added into
-// bit slices as bitplane_gather.cu does (a slice is appended only when the
-// count can reach the next power of two).
+// bit slices as repro/kernels/ref.py::bitplane_count_planes_ref does (a
+// slice is appended only when the count can reach the next power of two).
 template <int kMaxD>
 __device__ __forceinline__ void count_slices(
     const uint32_t* plane, const uint32_t* ghost, int n_max,

@@ -21,8 +21,8 @@ import torch
 
 from repro_torch.core.pbit import FixedPoint
 from repro_torch.obs.trace import region
-from . import _build, bitplane_gather, bitplane_phase, lattice_energy, \
-    pbit_bitplane, pbit_lattice, ref as _ref
+from . import _build, bitplane_phase, lattice_energy, pbit_bitplane, \
+    pbit_lattice, ref as _ref
 
 __all__ = ["IMPLS", "resolve_impl", "pbit_update_op", "pbit_sweep_op",
            "pbit_update_int_op", "pbit_sweep_int_op",
@@ -143,11 +143,11 @@ def bitplane_gather_count_op(mext_w, idx_c, signs_c, nz_c,
     """Per-lane +1-contribution bit-slice planes of a gather-graph (ELL)
     site set, for K partitions: mext_w (K, W, n_ext), idx_c / signs_c /
     nz_c (K, nc, D); returns ``ceil(log2(D+1))`` (K, W, nc) planes (at
-    K=1 the reference's op)."""
-    if resolve_impl(impl, mext_w.is_cuda) == "ref":
-        return _ref.bitplane_gather_count_ref(mext_w, idx_c, signs_c, nz_c)
-    return bitplane_gather.bitplane_gather_count(mext_w, idx_c, signs_c,
-                                                 nz_c)
+    K=1 the reference's op).  Every impl runs the plain version on the
+    tensors' device: no engine counts alone, the card's engines run B7
+    fused into the colour phase (:func:`bitplane_phase_op`)."""
+    resolve_impl(impl, mext_w.is_cuda)
+    return _ref.bitplane_gather_count_ref(mext_w, idx_c, signs_c, nz_c)
 
 
 def bitplane_phase_op(mw, ghosts_w, s, sites, lut, row: int, f_max: int,

@@ -2,9 +2,8 @@
 INT32 and FP32 operations it must do.
 
 One model for every caller: ``launch/roofline.py`` costs the launches of
-a recorded chunk with it, and ``chip_smoke.py`` bounds each kernel's
-time with it, so a kernel's bound reads the same work whatever
-implements it.  Bytes count every input read once and every output
+a recorded chunk with it (the dry run's bound), so a kernel's bound reads
+the same work whatever implements it.  Bytes count every input read once and every output
 written once; operations count what this call's data needs (the sites a
 phase decides, the real entries of a colour, the slots its rows reach),
 not the most it could need.  Per replica-site and phase one LFSR step is
@@ -28,7 +27,7 @@ import torch
 
 __all__ = ["Work", "halo_sites", "sweep_int", "bitplane_sweep", "sweep_f32",
            "energy", "update_int", "update_f32", "colour_phase",
-           "gather_count", "decided", "phase_counts", "reached_slots",
+           "decided", "phase_counts", "reached_slots",
            "launch_work", "MODELS"]
 
 
@@ -135,15 +134,6 @@ def colour_phase(K, nc, D, W, R, real, keep, owners, reached,
     return Work(byts, ops)
 
 
-def gather_count(K, W, nc, D, reached) -> Work:
-    """B7's standalone gather-count: the words its rows reach with a
-    nonzero mask, the rows' D indices, signs and masks, the count planes
-    written; :func:`_gather_ops` per (partition, word, site)."""
-    byts = 4 * W * reached + 3 * 4 * K * nc * D \
-        + 4 * D.bit_length() * K * W * nc
-    return Work(byts, K * W * nc * _gather_ops(D))
-
-
 # -- the counts that depend on the data ---------------------------------------
 
 def decided(masks: torch.Tensor) -> int:
@@ -185,14 +175,8 @@ def _phase_note(sites, **kw):
     return colour_phase(**phase_counts(sites), **kw)
 
 
-def _count_note(idx, nz, W):
-    K, nc, D = (int(d) for d in idx.shape)
-    return gather_count(K, W, nc, D,
-                        reached_slots(idx, nz.view(torch.int32) != 0))
-
-
 # each kernel's model as its wrapper notes it: by the key it counts its
-# launches under (B7's two routes by theirs), from the operands it notes
+# launches under (B7 by its route's), from the operands it notes
 MODELS = {
     "pbit_brick_sweep_int": _with_decided(sweep_int, "masks"),
     "pbit_bitplane_sweep": _with_decided(bitplane_sweep, "masks"),
@@ -201,7 +185,6 @@ MODELS = {
     "pbit_brick_update_int": _with_decided(update_int, "masks"),
     "pbit_brick_update": _with_decided(update_f32, "masks"),
     "bitplane_gather_count:phase": _phase_note,
-    "bitplane_gather_count:count": _count_note,
 }
 
 

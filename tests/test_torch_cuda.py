@@ -1043,32 +1043,7 @@ def test_cuda_graph_engines_philox_resume_bitwise(cuda, name):
     assert torch.equal(h.energy(a), ra.energies[-1])
 
 
-# -- the ELL word gather-count kernel and the distributed DSIM ------------------
-
-@pytest.mark.cuda
-@pytest.mark.parametrize("K", [1, 4])
-@pytest.mark.parametrize("W", [1, 2, 3])
-@pytest.mark.parametrize("D", [1, 3, 4, 6, 12, 31])
-def test_cuda_gather_count_matches_plain(cuda, D, W, K):
-    """The kernel's bit-slice planes equal the plain version's bitwise
-    (random words, rows with repeats, zero couplings among them), one
-    launch per call."""
-    from repro_torch.kernels.bitplane_gather import bitplane_gather_count
-    rng = np.random.default_rng(D * 100 + W * 10 + K)
-    nc, n_ext = 1031, 2053
-    ones = np.uint32(0xFFFFFFFF)
-    args = (rng.integers(0, 2 ** 32, (K, W, n_ext), dtype=np.uint32),
-            rng.integers(0, n_ext, (K, nc, D), dtype=np.int32),
-            np.where(rng.random((K, nc, D)) < 0.5, ones, 0).astype(np.uint32),
-            np.where(rng.random((K, nc, D)) < 0.8, ones, 0).astype(np.uint32))
-    args = tuple(T(a) for a in args)
-    want = t_ref.bitplane_gather_count_ref(*args)
-    before = dict(_build.launch_counts)
-    got = bitplane_gather_count(*to(cuda, args))
-    torch.cuda.synchronize()
-    assert phase_launches(before) == (1, 0, 1)
-    assert len(got) == len(want) == D.bit_length()
-    assert_bitwise(got, want)
+# -- B7's fused colour phase and the distributed DSIM -----------------------
 
 
 def sites_on(dev, sites):
@@ -1080,10 +1055,9 @@ def sites_on(dev, sites):
 
 
 def phase_launches(before):
-    """Launch-count increments of the B7 key and its two sub-keys."""
+    """Launch-count increments of the B7 key and its fused phase's."""
     return tuple(_build.launch_counts[k] - before[k] for k in (
-        "bitplane_gather_count", "bitplane_gather_count:phase",
-        "bitplane_gather_count:count"))
+        "bitplane_gather_count", "bitplane_gather_count:phase"))
 
 
 @pytest.mark.cuda
@@ -1102,7 +1076,7 @@ def test_cuda_bitplane_phase_matches_plain(cuda, K, D, R, slot0):
     before = dict(_build.launch_counts)
     out = bitplane_phase(g[0], g[1], g[2], gsites, g[4], 1, c["f_max"], g[3])
     torch.cuda.synchronize()
-    assert out is g[3] and phase_launches(before) == (1, 1, 0)
+    assert out is g[3] and phase_launches(before) == (1, 1)
     assert_bitwise((g[0], g[2], g[3]), (mw, s, flips))
 
 
@@ -1135,7 +1109,7 @@ def test_cuda_bitplane_phase_apt_matches_plain(cuda, L, D):
         bitplane_phase_apt(g[0], g[1], gsites, g[2], c["f_max"], g[3],
                            float(c["scale"]))
         torch.cuda.synchronize()
-        assert phase_launches(before) == (1, 1, 0)
+        assert phase_launches(before) == (1, 1)
         assert_bitwise((g[0], g[1], g[3]), (mw, s, E))
     assert not bool(gsites.scratch.any())
 
@@ -1184,7 +1158,7 @@ def dist_runs(kind, sync, devices, replicas, **kw):
 def test_cuda_dsim_dist_fixed_point_matches_cpu_bitwise(cuda, kind, prec, R,
                                                         sync):
     """dsim_dist int8 and bit-plane on the card == device="cpu" bitwise;
-    the bit-plane path launches the gather-count kernel and no lattice
+    the bit-plane path launches the fused colour phase and no lattice
     kernel."""
     out = dist_runs(kind, sync, ("cpu", cuda), R, precision=prec)
     (sc, rc, _), (sg, rg, counts) = out["cpu"], out["cuda"]
@@ -1195,7 +1169,6 @@ def test_cuda_dsim_dist_fixed_point_matches_cpu_bitwise(cuda, kind, prec, R,
     gathers = counts.pop("bitplane_gather_count")
     assert (gathers > 0) == (prec == "bitplane")
     assert counts.pop("bitplane_gather_count:phase") == gathers
-    assert counts.pop("bitplane_gather_count:count") == 0
     assert not any(counts.values())
 
 
@@ -1288,7 +1261,7 @@ def test_cuda_server_matches_cpu_server(cuda):
     """The same jobs through SampleServer on the card and on the CPU: an
     int8 lattice pair packed into one call, a bit-plane job, a degraded
     mesh job with a drop and a fail_fast dsim_dist job; the card's jobs
-    launch the lattice and gather-count kernels."""
+    launch the lattice kernels and B7's fused colour phase."""
     from repro_torch.core.coloring import lattice3d_coloring
     from repro_torch.core.graph import ea3d
     from repro_torch.core.mesh import make_mesh
@@ -1344,7 +1317,7 @@ def test_cuda_server_matches_cpu_server(cuda):
                                               ("philox", False, True)])
 def test_cuda_apt_icm_matches_cpu(cuda, rng, packed, draws):
     """APT+ICM on the card == device="cpu" with the same HostDraws: lfsr
-    and packed bitwise (packed launching the gather-count kernel once per
+    and packed bitwise (packed launching the fused colour phase once per
     colour phase); f32 to tanh ties.  With the default generator (the
     card's Philox, not the CPU's stream) packed == unpacked on the card."""
     from repro_torch.core.apt_icm import APTICM, HostDraws
@@ -1372,7 +1345,6 @@ def test_cuda_apt_icm_matches_cpu(cuda, rng, packed, draws):
     gathers = counts.pop("bitplane_gather_count", 0)
     assert gathers == (12 * col.n_colors if packed else 0)
     assert counts.pop("bitplane_gather_count:phase") == gathers
-    assert counts.pop("bitplane_gather_count:count") == 0
     assert not any(counts.values())
     if not draws:
         return
@@ -1449,7 +1421,7 @@ def test_build_model_defaults_to_the_card(cuda):
 def test_train_steps_card_equal_cpu(cuda, name, int8):
     """Four reduced f32 ``make_train_step`` steps on the card, each also
     taken on the CPU from the card's state before it (as chip_smoke.py's
-    phase 13a: chained steps amplify rounding, and one ulp of jamba's
+    phase 12a: chained steps amplify rounding, and one ulp of jamba's
     weights moves its fourth step 2.4e-5, tests/test_torch_train.py): each
     loss and gradient norm within 1e-5 relative of the CPU step's, the
     parameters after it within 1e-3, and none of the hand kernels
@@ -1537,7 +1509,7 @@ def test_train_launcher_defaults_to_the_card(cuda, tmp_path, capsys):
 
 
 def inline_work(n, plane, S, lut, W, R, nc, decided, decided_one):
-    """(bytes, INT32, FP32) of each kernel as chip_smoke.py's phase 5
+    """(bytes, INT32, FP32) of each kernel as chip_smoke.py's timing phase
     wrote them inline before the model moved into
     ``repro_torch.kernels.work``: a frozen copy, at ``n`` sites of a cube
     with ``plane`` halo sites, S sweeps, ``lut`` LUT entries, R replicas
@@ -1564,9 +1536,9 @@ def inline_work(n, plane, S, lut, W, R, nc, decided, decided_one):
 @pytest.mark.cuda
 @pytest.mark.parametrize("R", [4, 16, 64])
 def test_work_model_equals_the_inline_bounds_at_the_main_path_shapes(cuda, R):
-    """At phase 5's L=100 brick (its masks on the card), the package's
-    work model gives the bytes and operations chip_smoke.py bounded each
-    kernel by before the move."""
+    """At the main path's L=100 brick (its masks on the card), the
+    package's work model gives the bytes and operations chip_smoke.py
+    bounded each kernel by before the move."""
     from repro_torch.core.lattice import build_ea3d_lattice
     from repro_torch.kernels import work
     L, S, lut = 100, 8, 13 * 40
@@ -1587,9 +1559,10 @@ def test_work_model_equals_the_inline_bounds_at_the_main_path_shapes(cuda, R):
 
 @pytest.mark.cuda
 def test_work_model_at_the_dsim_dist_and_apt_phase_shapes(cuda):
-    """B7's fused colour phase at phase 7's shape (L=100 on the K=8 brick
-    partition, bit-plane R=64, colour 0) and phase 9's (G81, 2 x 64
-    lanes): the bytes of PR 24's bounds, 564,821,128 and 21,542,288."""
+    """B7's fused colour phase at chip_smoke.py phase 6's shape (L=100 on
+    the K=8 brick partition, bit-plane R=64, colour 0) and phase 8's (G81,
+    2 x 64 lanes): the bytes of the fused kernel's first bounds,
+    564,821,128 and 21,542,288."""
     from repro_torch import make_engine
     from repro_torch.core.annealing import beta_table, ea_schedule
     from repro_torch.core.apt_icm import APTICM

@@ -244,7 +244,7 @@ def test_serve_lm_mirrors_the_reference_example():
 
 
 def test_serve_lm_main_writes_its_record(tmp_path, capsys):
-    """chip_smoke.py phase 12e runs the example through the same child:
+    """chip_smoke.py phase 11e runs the example through the same child:
     its result per architecture and no hand kernel launched."""
     record = tmp_path / "record.json"
     out = load_chip_smoke().write_example_record(
@@ -294,7 +294,7 @@ def test_train_lm_mirrors_the_reference_example():
 
 
 def test_train_lm_main_writes_its_record(tmp_path, capsys):
-    """chip_smoke.py phase 13g runs the example through the same child:
+    """chip_smoke.py phase 12g runs the example through the same child:
     its losses, the step it started from, and no hand kernel launched;
     a second run resumes from the newest checkpoint."""
     args = ["--arch", "mamba2-370m", "--reduced", "--steps", "6", "--batch",

@@ -1,5 +1,5 @@
-"""The ELL word gather-count (``bitplane_gather_count``) against the JAX
-reference's ``bitplane_gather_count_ref``.
+"""The ELL word gather-count (``ops.bitplane_gather_count_op``) against
+the JAX reference's ``bitplane_gather_count_ref``.
 
 The port's op carries a partition axis (one call covers the K partitions
 of a one-process mesh); at each partition k it must equal the reference's
@@ -20,9 +20,7 @@ from repro_torch.core import packing as t_pack
 from repro_torch.core.bits import u32_from_numpy, u32_to_numpy
 from repro_torch.kernels import ops
 from repro_torch.kernels import ref as t_ref
-from repro_torch.kernels.bitplane_gather import (MAX_DEGREE,
-                                                 bitplane_gather_count,
-                                                 n_slices)
+from repro_torch.kernels.bitplane_phase import MAX_DEGREE, n_slices
 
 
 def inputs(seed, K, W, D, nc=37, n_ext=53):
@@ -64,7 +62,8 @@ def test_gather_count_planes_count_every_lane(D):
     (word_d ^ sign_d) & nz_d set at bit l."""
     K, W = 2, 2
     mext, idx, signs, nz = inputs(D, K, W, D)
-    planes = bitplane_gather_count(*torch_inputs(mext, idx, signs, nz))
+    planes = ops.bitplane_gather_count_op(*torch_inputs(mext, idx, signs,
+                                                        nz))
     lanes = np.arange(32, dtype=np.uint32)
     count = sum(((u32_to_numpy(p)[..., None] >> lanes) & 1).astype(np.int64)
                 << i for i, p in enumerate(planes))
@@ -92,14 +91,12 @@ def test_count_planes_ripple_rule():
 
 def test_gather_count_dispatch_on_the_cpu():
     """On CPU tensors "auto" and "ref" run the plain version; "cuda"
-    raises; the wrapper takes the plain version only for a CPU tensor."""
+    raises."""
     args = torch_inputs(*inputs(0, 2, 1, 6))
     a = ops.bitplane_gather_count_op(*args, impl="auto")
     b = ops.bitplane_gather_count_op(*args, impl="ref")
-    c = bitplane_gather_count(*args)
-    for x, y, z in zip(a, b, c):
+    for x, y in zip(a, b):
         assert torch.equal(x.view(torch.int32), y.view(torch.int32))
-        assert torch.equal(x.view(torch.int32), z.view(torch.int32))
     with pytest.raises(ValueError, match="CUDA"):
         ops.bitplane_gather_count_op(*args, impl="cuda")
 

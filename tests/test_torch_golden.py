@@ -321,7 +321,7 @@ def ref_lm_golden(smoke, name):
 def test_lm_golden_values_match_jax():
     """``LM_GOLDEN``: the JAX reference's greedy tokens and prefill logits
     on the port's reduced-width weights, for every ``LM_GOLDEN_ARCHS``
-    config (chip_smoke.py phase 12a holds the card to them)."""
+    config (chip_smoke.py phase 11a holds the card to them)."""
     smoke = chip_smoke()
     got = {name: ref_lm_golden(smoke, name) for name in smoke.LM_GOLDEN_ARCHS}
     assert got == smoke.LM_GOLDEN
@@ -361,7 +361,7 @@ def ref_train_golden(smoke, name, int8):
 def test_train_golden_values_match_jax():
     """``TRAIN_GOLDEN``: the JAX reference's per-step loss and gradient
     norm on the port's reduced-width weights, for every ``TRAIN_RUNS``
-    run (chip_smoke.py phase 13a holds the card to them)."""
+    run (chip_smoke.py phase 12a holds the card to them)."""
     smoke = chip_smoke()
     got = {smoke.train_key(n, i): ref_train_golden(smoke, n, i)
            for n, i in smoke.TRAIN_RUNS}

@@ -856,7 +856,7 @@ def test_build_model_raises_without_cuda_unless_cpu():
 
 @pytest.mark.parametrize("name", LM_ARCHS)
 def test_chip_smoke_param_count_is_the_init_tree(zoo, name):
-    """chip_smoke.lm_param_count (phase 12's table of what fits the card)
+    """chip_smoke.lm_param_count (phase 11's table of what fits the card)
     counts the tree ``init`` builds, here on each reduced config."""
     import importlib.util
     from pathlib import Path

@@ -373,7 +373,7 @@ def test_remat_changes_no_gradient(name, S):
 
 
 def test_four_chained_steps_amplify_one_ulp():
-    """Why chip_smoke.py phase 13a holds each card step to a CPU step
+    """Why chip_smoke.py phase 12a holds each card step to a CPU step
     from the same state, not two chained runs to 1e-5: moving jamba's
     reduced weights by one ulp (a random sign per element) moves its
     fourth step's gradient norm by more than 1e-5 relative; the first
